@@ -7,6 +7,8 @@ by import: ``params`` (``Params``), ``scene`` (``BacteriaBox``, ``Scene``
 and the native builder) and ``utils.cache`` (the coverage certificates).
 
 Main path: ``engine.sim.SimulationRunner`` -> ``engine.cuda_engine``
-sprints -> one hand-written CUDA kernel per chunk
-(``csrc/chunk_kernel.cu``, bound in ``engine.chunk_kernel``).
+sprints -> hand-written CUDA kernels bound in ``engine.chunk_kernel``:
+one chunk kernel launch per chunk (``csrc/chunk_kernel.cu``), and on
+large scenes the field model before it (``csrc/cand_model_kernel.cu`` or
+``csrc/far_sums_kernel.cu``).
 """

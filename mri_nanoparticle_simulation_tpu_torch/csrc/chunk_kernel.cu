@@ -1,21 +1,29 @@
 // One chunk of the Monte Carlo MRI walk for every walker, on Hopper.
 //
 // Replaces the TPU kernel pallas_engine.make_chunk_kernel
-// (mri_nanoparticle_simulation_tpu/engine/pallas_engine.py:171-823) in its
-// in-kernel-rebuild mode with the Threefry RNG and the default physics
-// (cube directions, constant intracellular kick, no reflection, no
-// gradient).  The plain PyTorch version with the same contract is
-// engine/cuda_engine.py:chunk_reference.
+// (mri_nanoparticle_simulation_tpu/engine/pallas_engine.py:171-823) with
+// the Threefry RNG and the default physics (cube directions, constant
+// intracellular kick, no reflection, no gradient), in two modes:
+//
+// * chunk_kernel (in-kernel rebuild, n_mnp_pad set): wrap, then the
+//   recandidate over the whole dipole table, then the steps.  The plain
+//   PyTorch version is engine/cuda_engine.py:chunk_reference.
+// * chunk_near_kernel (near/taylor inputs, n_mnp_pad=None;
+//   pallas_engine.py:748-755, 770-772, 802-808): the field model comes
+//   from outside (csrc/cand_model_kernel.cu or expansion.build), the
+//   input state is already wrapped and is the anchor, and the coverage
+//   output is 0 (the caller counts coverage where it selects).  The plain
+//   version is engine/cuda_engine.py:chunk_near_reference.
 //
 // What bounds it on the H100: integer ALU work.  Three Threefry-2x32-20
 // blocks per walker-step cost about 300 integer operations, against
 // about 100 float operations of physics, and nothing goes to device
 // memory inside a chunk.  The design keeps it that way: one thread per
 // walker; its state, its K near dipoles and its 10 far-Taylor sums stay
-// in registers for the whole chunk (the kernel is templated on K so the
-// slot arrays unroll into registers); the dipole table, read by every
-// thread at the same address, sits in shared memory.  Device memory is
-// touched once at chunk start and once at chunk end.
+// in registers for the whole chunk (the kernels are templated on K so the
+// slot arrays unroll into registers); in rebuild mode the dipole table,
+// read by every thread at the same address, sits in shared memory.
+// Device memory is touched once at chunk start and once at chunk end.
 //
 // Arithmetic follows the reference kernel operation by operation (build
 // with --fmad=false so no multiply-add is contracted): the Threefry
@@ -23,145 +31,19 @@
 // bits; the normal sqrtf(-2 logf(1 - u)) cosf(2 pi u'); the wrap
 // fmod(x + bound, bound); strict '<' in the sorted insertion; the field
 // masked by d2 > cell_r^2; the kick at the new position with the new
-// in-cell flag; Kahan fold, emit, then the Carr-Purcell flip.
+// in-cell flag; Kahan fold, emit, then the Carr-Purcell flip.  The step
+// loop is field_math.cuh:run_steps, shared by both modes.
 //
 // Launch: w_pad / 128 blocks of 128 threads, one walker per thread.  Each
 // block reduces its own windows and coverage count (warp shuffles, then
 // shared memory, in a fixed order); the wrapper sums over blocks, so the
 // result is the same from run to run.
 
-#include <cuda_runtime.h>
+#include "field_math.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;
 constexpr int kMaxMnps = 2048;
-constexpr int kMaxK = 16;
-constexpr unsigned kParity = 0x1BD11BDAu;
-constexpr float kTwoPi = 6.28318530717958647692f;
-constexpr float kTwoPow24Inv = 5.9604644775390625e-8f;  // 2^-24
-
-struct Launch {
-  // per launch
-  unsigned step0, key_hi, key_lo, lane_offset, num_water, tcp;
-  float cell_r2, dstd;
-  // static physics
-  int chunk_steps, pfreq, rounds, n_pad;
-  float in_stdev, out_stdev, phase_per_tesla, kick, bound, travel, travel2;
-};
-
-__device__ __forceinline__ unsigned rotl(unsigned x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// Threefry-2x32 (Random123), `rounds` a multiple of 4.  The key schedule
-// (ks[j % 3], ks[(j + 1) % 3]) is rotated through three registers.
-__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1,
-                                             unsigned c0, unsigned c1,
-                                             int rounds, unsigned& o0,
-                                             unsigned& o1) {
-  unsigned ka = k1, kb = k0 ^ k1 ^ kParity, kc = k0;
-  unsigned x0 = c0 + k0, x1 = c1 + k1;
-  for (int g = 0; g < rounds / 4; ++g) {
-    const bool odd = g & 1;
-    x0 += x1; x1 = rotl(x1, odd ? 17 : 13); x1 ^= x0;
-    x0 += x1; x1 = rotl(x1, odd ? 29 : 15); x1 ^= x0;
-    x0 += x1; x1 = rotl(x1, odd ? 16 : 26); x1 ^= x0;
-    x0 += x1; x1 = rotl(x1, odd ? 24 : 6); x1 ^= x0;
-    x0 += ka;
-    x1 += kb + static_cast<unsigned>(g + 1);
-    const unsigned t = ka;
-    ka = kb; kb = kc; kc = t;
-  }
-  o0 = x0;
-  o1 = x1;
-}
-
-__device__ __forceinline__ float uniform(unsigned bits) {
-  return static_cast<float>(static_cast<int>(bits >> 8)) * kTwoPow24Inv;
-}
-
-// jnp.mod(v + bound, bound)
-__device__ __forceinline__ float wrap(float v, float bound) {
-  float r = fmodf(v + bound, bound);
-  if (r != 0.f && r < 0.f) r = r + bound;
-  return r;
-}
-
-// dipole.bz_taylor_parts: value, gradient, Hessian of one dipole's B_z.
-__device__ __forceinline__ void bz_taylor_parts(float dx, float dy, float dz,
-                                                float m, float* p) {
-  float r2 = dx * dx + dy * dy + dz * dz;
-  r2 = fmaxf(r2, 1e-8f);
-  const float inv_r = rsqrtf(r2);
-  const float inv_r2 = inv_r * inv_r;
-  const float inv_r5 = inv_r2 * inv_r2 * inv_r;
-  const float inv_r7 = inv_r5 * inv_r2;
-  const float dz2 = dz * dz;
-  p[0] = m * (3.f * dz2 - r2) * inv_r5;
-  const float u = r2 - 5.f * dz2;
-  const float v = 3.f * r2 - 5.f * dz2;
-  const float m3r7 = 3.f * m * inv_r7;
-  const float u_r2 = 7.f * u * inv_r2;
-  p[1] = m3r7 * dx * u;
-  p[2] = m3r7 * dy * u;
-  p[3] = m3r7 * dz * v;
-  p[4] = m3r7 * (u + dx * dx * (2.f - u_r2));
-  p[5] = m3r7 * (u + dy * dy * (2.f - u_r2));
-  p[6] = m3r7 * (v - dz2 * (4.f + 7.f * v * inv_r2));
-  p[7] = m3r7 * dx * dy * (2.f - u_r2);
-  p[8] = m3r7 * dx * dz * (-8.f - u_r2);
-  p[9] = m3r7 * dy * dz * (-8.f - u_r2);
-}
-
-// Masked K-near sum + far Taylor about the anchor; min_d2 gets the
-// nearest near-list distance (the in-cell test is min_d2 < cell_r^2).
-template <int K>
-__device__ __forceinline__ float eval_field(
-    const float (&nx)[K], const float (&ny)[K], const float (&nz)[K],
-    const float (&nm)[K], const float (&t)[10], float ax, float ay, float az,
-    float px, float py, float pz, float cell_r2, float& min_d2) {
-  float b_near = 0.f;
-  float md = 1e9f;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const float dx = px - nx[j];
-    const float dy = py - ny[j];
-    const float dz = pz - nz[j];
-    const float dz2 = dz * dz;
-    const float d2 = dx * dx + dy * dy + dz2;
-    // d2 == 0 gives inf * 0 = nan, but then d2 < cell_r2 masks it out
-    const float rs = rsqrtf(d2);
-    const float rs2 = rs * rs;
-    const float inv_r5 = rs2 * rs2 * rs;
-    const float contrib = nm[j] * (3.f * dz2 - d2) * inv_r5;
-    b_near = b_near + (d2 > cell_r2 ? contrib : 0.f);
-    md = fminf(md, d2);
-  }
-  const float ex = px - ax;
-  const float ey = py - ay;
-  const float ez = pz - az;
-  const float b_far = t[0] + t[1] * ex + t[2] * ey + t[3] * ez
-      + 0.5f * (t[4] * ex * ex + t[5] * ey * ey + t[6] * ez * ez)
-      + t[7] * ex * ey + t[8] * ex * ez + t[9] * ey * ez;
-  min_d2 = md;
-  return b_near + b_far;
-}
-
-// Sum of v over the block, in a fixed order; the result is valid in
-// thread 0.  Every thread of the block must call it.
-__device__ float block_sum(float v, float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();  // scratch is free: thread 0 finished the last read
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.f;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kBlock / 32; ++i) total += scratch[i];
-  }
-  return total;
-}
 
 template <int K>
 __global__ void __launch_bounds__(kBlock)
@@ -182,20 +64,18 @@ chunk_kernel(const float* __restrict__ state_in, float* __restrict__ state_out,
   __syncthreads();
 
   const bool valid = static_cast<unsigned>(gid) < a.num_water;
-  const float validf = valid ? 1.f : 0.f;
   const unsigned lane = static_cast<unsigned>(gid) + a.lane_offset;
-  const float cr2 = a.cell_r2;
 
   // chunk start: wrap; the anchor is the wrapped position
   const float ax = wrap(state_in[gid], a.bound);
   const float ay = wrap(state_in[w_pad + gid], a.bound);
   const float az = wrap(state_in[2 * w_pad + gid], a.bound);
-  float phase = state_in[4 * w_pad + gid];
-  float comp = state_in[5 * w_pad + gid];
+  const float phase = state_in[4 * w_pad + gid];
+  const float comp = state_in[5 * w_pad + gid];
 
   // recandidate: exact K-nearest by branchless sorted insertion, and the
   // count of dipoles within (cell_r + travel)^2
-  const float reach = sqrtf(cr2) + a.travel;
+  const float reach = sqrtf(a.cell_r2) + a.travel;
   const float reach2 = reach * reach;
   float sd[K], nx[K], ny[K], nz[K], nm[K];
   int sid[K];
@@ -211,27 +91,13 @@ chunk_kernel(const float* __restrict__ state_in, float* __restrict__ state_out,
   int cnt = 0;
   for (int j = 0; j < a.n_pad; ++j) {
     const float x0 = s_mnp[0][j], y0 = s_mnp[1][j], z0 = s_mnp[2][j];
-    const float m0 = s_mnp[3][j];
     const float dx = ax - x0;
     const float dy = ay - y0;
     const float dz = az - z0;
     const float d2 = dx * dx + dy * dy + dz * dz;
     cnt += d2 < reach2 ? 1 : 0;
-    // slot s takes the candidate iff it beats slot s but not slot s-1;
-    // descending s reads slot s-1 before it changes
-#pragma unroll
-    for (int s = K - 1; s >= 0; --s) {
-      const bool take_prev = s > 0 && d2 < sd[s > 0 ? s - 1 : 0];
-      const bool take_new = !take_prev && d2 < sd[s];
-      if (take_prev) {
-        const int p = s > 0 ? s - 1 : 0;
-        sd[s] = sd[p]; nx[s] = nx[p]; ny[s] = ny[p]; nz[s] = nz[p];
-        nm[s] = nm[p]; sid[s] = sid[p];
-      } else if (take_new) {
-        sd[s] = d2; nx[s] = x0; ny[s] = y0; nz[s] = z0; nm[s] = m0;
-        sid[s] = j;
-      }
-    }
+    sorted_insert<K>(sd, nx, ny, nz, nm, sid, d2, x0, y0, z0, s_mnp[3][j],
+                     j);
   }
   const float n_cov = block_sum(valid && cnt > K ? 1.f : 0.f, s_red);
   if (tid == 0) cov[blockIdx.x] = n_cov;
@@ -241,95 +107,56 @@ chunk_kernel(const float* __restrict__ state_in, float* __restrict__ state_out,
 #pragma unroll
   for (int c = 0; c < 10; ++c) t[c] = 0.f;
   for (int j = 0; j < a.n_pad; ++j) {
-    bool selected = false;
-#pragma unroll
-    for (int s = 0; s < K; ++s) selected |= sid[s] == j;
-    float p[10];
-    bz_taylor_parts(ax - s_mnp[0][j], ay - s_mnp[1][j], az - s_mnp[2][j],
-                    s_mnp[3][j], p);
-    const float w = selected ? 0.f : 1.f;
-#pragma unroll
-    for (int c = 0; c < 10; ++c) t[c] = t[c] + p[c] * w;
+    add_unselected<K>(t, sid, j, ax, ay, az, s_mnp[0][j], s_mnp[1][j],
+                      s_mnp[2][j], s_mnp[3][j]);
   }
 
-  // the steps
-  const float in_sd = a.in_stdev * a.dstd;
-  const float out_sd = a.out_stdev * a.dstd;
-  float x = ax, y = ay, z = az;
-  float mind2;
-  eval_field<K>(nx, ny, nz, nm, t, ax, ay, az, x, y, z, cr2, mind2);
-  float maxd2 = 0.f;
-  unsigned step = a.step0;
-  const int n_win = a.chunk_steps / a.pfreq;
-  for (int w = 0; w < n_win; ++w) {
-    float acc = 0.f;
-    for (int i = 0; i < a.pfreq; ++i, ++step) {
-      unsigned w0, w1, w2, w3, w4, w5;
-      threefry2x32(a.key_hi, a.key_lo, step, lane, a.rounds, w0, w1);
-      threefry2x32(a.key_hi, a.key_lo, step, lane + (1u << 27), a.rounds,
-                   w2, w3);
-      threefry2x32(a.key_hi, a.key_lo, step, lane + (2u << 27), a.rounds,
-                   w4, w5);
-      const float nrm = sqrtf(-2.f * logf(1.f - uniform(w3)))
-          * cosf(kTwoPi * uniform(w4));
-      const bool incell = mind2 < cr2;
-      const float ux = 2.f * uniform(w0) - 1.f;
-      const float uy = 2.f * uniform(w1) - 1.f;
-      const float uz = 2.f * uniform(w2) - 1.f;
-      const float inv_norm = rsqrtf(fmaxf(ux * ux + uy * uy + uz * uz,
-                                          1e-12f));
-      const float mag = nrm * (incell ? in_sd : out_sd) * inv_norm;
-      x = x + ux * mag;
-      y = y + uy * mag;
-      z = z + uz * mag;
-      const float b = eval_field<K>(nx, ny, nz, nm, t, ax, ay, az, x, y, z,
-                                    cr2, mind2);
-      float kick = b * a.phase_per_tesla;
-      kick = kick + (mind2 < cr2 ? a.kick : 0.f);
-      acc = acc + kick;
-      const float ex = x - ax;
-      const float ey = y - ay;
-      const float ez = z - az;
-      maxd2 = fmaxf(maxd2, ex * ex + ey * ey + ez * ez);
-    }
-    // Kahan fold, then emit the window, then the Carr-Purcell flip
-    const float ky = acc - comp;
-    const float kt = phase + ky;
-    comp = (kt - phase) - ky;
-    phase = kt;
-    const float sc = block_sum(cosf(phase) * validf, s_red);
-    const float ss = block_sum(sinf(phase) * validf, s_red);
-    if (tid == 0) {
-      wins[(blockIdx.x * n_win + w) * 2] = sc;
-      wins[(blockIdx.x * n_win + w) * 2 + 1] = ss;
-    }
-    if (step % a.tcp == 0u) {
-      phase = -phase;
-      comp = -comp;
-    }
-  }
-
-  state_out[gid] = x;
-  state_out[w_pad + gid] = y;
-  state_out[2 * w_pad + gid] = z;
-  state_out[3 * w_pad + gid] = mind2 < cr2 ? 1.f : 0.f;
-  state_out[4 * w_pad + gid] = phase;
-  state_out[5 * w_pad + gid] = comp;
-  esc[gid] = valid && maxd2 > a.travel2 ? 1.f : 0.f;
+  run_steps<K>(nx, ny, nz, nm, t, ax, ay, az, phase, comp, valid, lane, a,
+               s_red, wins, state_out, esc, w_pad, gid);
 }
 
 template <int K>
-void launch(const float* state_in, float* state_out, float* esc, float* cov,
-            float* wins, const float* mnp, int w_pad, const Launch& a,
-            cudaStream_t stream) {
-  chunk_kernel<K><<<w_pad / kBlock, kBlock, 0, stream>>>(
-      state_in, state_out, esc, cov, wins, mnp, w_pad, a);
+__global__ void __launch_bounds__(kBlock)
+chunk_near_kernel(const float* __restrict__ state_in,
+                  float* __restrict__ state_out, float* __restrict__ esc,
+                  float* __restrict__ cov, float* __restrict__ wins,
+                  const float* __restrict__ near,
+                  const float* __restrict__ taylor, int w_pad, Launch a) {
+  __shared__ float s_red[kBlock / 32];
+  const int tid = threadIdx.x;
+  const int gid = blockIdx.x * kBlock + tid;
+  const bool valid = static_cast<unsigned>(gid) < a.num_water;
+  const unsigned lane = static_cast<unsigned>(gid) + a.lane_offset;
+
+  // the input position is the anchor (wrapped by the caller)
+  const float ax = state_in[gid];
+  const float ay = state_in[w_pad + gid];
+  const float az = state_in[2 * w_pad + gid];
+  const float phase = state_in[4 * w_pad + gid];
+  const float comp = state_in[5 * w_pad + gid];
+
+  // the model: near [4, K, w_pad] (x, y, z, M * FIELD_SCALE) and taylor
+  // [10, w_pad], each row read coalesced
+  float nx[K], ny[K], nz[K], nm[K], t[10];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    nx[s] = near[(0 * K + s) * w_pad + gid];
+    ny[s] = near[(1 * K + s) * w_pad + gid];
+    nz[s] = near[(2 * K + s) * w_pad + gid];
+    nm[s] = near[(3 * K + s) * w_pad + gid];
+  }
+#pragma unroll
+  for (int c = 0; c < 10; ++c) t[c] = taylor[c * w_pad + gid];
+  if (tid == 0) cov[blockIdx.x] = 0.f;
+
+  run_steps<K>(nx, ny, nz, nm, t, ax, ay, az, phase, comp, valid, lane, a,
+               s_red, wins, state_out, esc, w_pad, gid);
 }
 
 }  // namespace
 
-// Launch one chunk on `stream` of device `device`.  Returns a
-// cudaError_t: cudaErrorInvalidValue for arguments the kernel does not
+// Launch one rebuild-mode chunk on `stream` of device `device`.  Returns
+// a cudaError_t: cudaErrorInvalidValue for arguments the kernel does not
 // take, else cudaGetLastError() after the launch.
 extern "C" int chunk_kernel_launch(
     int device, void* stream, const float* state_in, float* state_out,
@@ -339,10 +166,8 @@ extern "C" int chunk_kernel_launch(
     float dstd, int chunk_steps, int pfreq, int rounds, float in_stdev,
     float out_stdev, float phase_per_tesla, float kick, float bound,
     float travel, float travel2) {
-  if (near_k < 1 || near_k > kMaxK || n_pad < near_k || n_pad > kMaxMnps ||
-      n_pad % 8 != 0 || w_pad <= 0 || w_pad % kBlock != 0 || pfreq <= 0 ||
-      chunk_steps <= 0 || chunk_steps % pfreq != 0 || tcp == 0u ||
-      rounds <= 0 || rounds % 4 != 0) {
+  if (bad_chunk_args(w_pad, near_k, chunk_steps, pfreq, tcp, rounds) ||
+      n_pad < near_k || n_pad > kMaxMnps || n_pad % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -352,23 +177,39 @@ extern "C" int chunk_kernel_launch(
                  in_stdev, out_stdev, phase_per_tesla, kick, bound, travel,
                  travel2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (near_k) {
-    case 1: launch<1>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 2: launch<2>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 3: launch<3>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 4: launch<4>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 5: launch<5>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 6: launch<6>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 7: launch<7>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 8: launch<8>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 9: launch<9>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 10: launch<10>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 11: launch<11>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 12: launch<12>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 13: launch<13>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 14: launch<14>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 15: launch<15>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
-    case 16: launch<16>(state_in, state_out, esc, cov, wins, mnp, w_pad, a, s); break;
+  dispatch_k(near_k, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    chunk_kernel<K><<<w_pad / kBlock, kBlock, 0, s>>>(
+        state_in, state_out, esc, cov, wins, mnp, w_pad, a);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one near/taylor-mode chunk; `near` is f32[4, near_k, w_pad],
+// `taylor` f32[10, w_pad].  Returns a cudaError_t as above.
+extern "C" int chunk_near_kernel_launch(
+    int device, void* stream, const float* state_in, float* state_out,
+    float* esc, float* cov, float* wins, const float* near,
+    const float* taylor, int w_pad, int near_k, unsigned step0,
+    unsigned key_hi, unsigned key_lo, unsigned lane_offset,
+    unsigned num_water, unsigned tcp, float cell_r2, float dstd,
+    int chunk_steps, int pfreq, int rounds, float in_stdev, float out_stdev,
+    float phase_per_tesla, float kick, float bound, float travel,
+    float travel2) {
+  if (bad_chunk_args(w_pad, near_k, chunk_steps, pfreq, tcp, rounds)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Launch a{step0, key_hi, key_lo, lane_offset, num_water, tcp,
+                 cell_r2, dstd, chunk_steps, pfreq, rounds, 0,
+                 in_stdev, out_stdev, phase_per_tesla, kick, bound, travel,
+                 travel2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dispatch_k(near_k, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    chunk_near_kernel<K><<<w_pad / kBlock, kBlock, 0, s>>>(
+        state_in, state_out, esc, cov, wins, near, taylor, w_pad, a);
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
 """State carried between the JAX package and the port.
 
 The system has no weights: what carries over is the walker state, the
-packed dipole table and the Threefry key.  With these, both frameworks
-compute the same thing from the same state, so a run can start in one
-and continue in the other.  Everything crosses as NumPy arrays.
+packed dipole table, the large-scene cache and the Threefry key.  With
+these, both frameworks compute the same thing from the same state, so a
+run can start in one and continue in the other.  Everything crosses as
+NumPy arrays.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..fields.dipole import FIELD_SCALE
+from ..fields.expansion import SceneCache, pack_table
 from .cuda_engine import MnpTable
 from .reference_engine import WalkerState
 
@@ -57,20 +58,25 @@ def state_to_numpy(ws: WalkerState) -> WalkerState:
 
 
 def mnp_table(mnps: np.ndarray, dtype, device) -> MnpTable:
-    """Pack ``Scene.mnps`` ([n, 5]: x, y, z, r, M) as the kernel's
+    """Pack ``Scene.mnps`` ([n, 5]: x, y, z, r, M) as the kernels'
     ``[4, n_pad]`` table: positions and M cast to ``dtype``, M then
     multiplied by FIELD_SCALE in ``dtype``; padded to a multiple of 8
     with zero-moment entries 1e6 µm away (the reference's packing,
-    pallas_engine.py:967-975)."""
-    n = mnps.shape[0]
-    n_pad = -(-n // 8) * 8
-    tbl = torch.zeros((4, n_pad), dtype=dtype, device=device)
-    tbl[:3, n:] = 1e6
-    tbl[:3, :n] = torch.as_tensor(np.asarray(mnps[:, :3]).T,
-                                  device=device).to(dtype)
+    pallas_engine.py:967-975).  The cast positions and moments ride
+    along for the large-scene selection."""
+    pos = torch.as_tensor(np.asarray(mnps[:, :3]), device=device).to(dtype)
     m = torch.as_tensor(np.asarray(mnps[:, 4]), device=device).to(dtype)
-    tbl[3, :n] = m * torch.tensor(FIELD_SCALE, dtype=dtype, device=device)
-    return MnpTable(tbl, n)
+    return MnpTable(pack_table(pos, m), mnps.shape[0], pos, m)
+
+
+def scene_cache_from_numpy(payload, far_coeffs, device) -> SceneCache:
+    """The port's ``SceneCache`` from the reference's (``payload``
+    [H^3, C, 5] and ``far_coeffs`` [H^3, n_coeffs] or None, as NumPy
+    arrays, e.g. ``np.asarray`` of a JAX ``build_cache`` result)."""
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device)
+    return SceneCache(t(payload),
+                      None if far_coeffs is None else t(far_coeffs))
 
 
 def key_words(seed: int):

@@ -1,20 +1,31 @@
-"""Chunk engine: sprints of chunk-kernel launches, and the plain chunk.
+"""Chunk engine: sprints of chunk-kernel launches, and the plain chunks.
 
-Counterpart of the reference's ``engine/pallas_engine.py`` on its main
-path: the in-kernel-rebuild mode (scenes of at most ``REBUILD_MAX_MNPS``
-dipoles) with the Threefry RNG and the default physics.  One chunk of
-``chunk_steps`` steps is one launch of the CUDA kernel in
-``csrc/chunk_kernel.cu`` (``engine.chunk_kernel.run_chunk``); a sprint is
-a Python loop over chunks that never syncs with the host.
+Counterpart of the reference's ``engine/pallas_engine.py`` with the
+Threefry RNG and the default physics, on both of its paths:
+
+* scenes of at most ``REBUILD_MAX_MNPS`` dipoles: one chunk of
+  ``chunk_steps`` steps is one launch of the rebuild kernel
+  (``chunk_kernel.run_chunk``), which selects and sums over the whole
+  table itself;
+* larger scenes (pallas_engine.py:991-1078): each chunk wraps the
+  positions, builds the field model outside the chunk kernel, either by
+  the candidate-model kernel over a scene cache with a far table
+  (``expansion.build_planes``) or by ``expansion.build`` with the
+  far-sums kernel, counts coverage there, and launches the chunk kernel
+  in near/taylor mode (``chunk_kernel.run_chunk_near``).
+
+A sprint is a Python loop over chunks that never syncs with the host.
 
 Walker layout: structure of arrays ``f32[6, W_pad]`` (x, y, z, in_cell,
 phase, phase_comp), one CUDA thread per walker, W_pad the walker count
 rounded up to the kernel's block size.  Padding walkers start at the box
 centre and are masked out of every sum.
 
-``chunk_reference`` is the plain PyTorch version of one chunk, with the
-kernel's inputs, outputs and arithmetic.  The wrapper uses it for CPU
-tensors; on a card it is only the yardstick the kernel is held against.
+``chunk_reference`` and ``chunk_near_reference`` are the plain PyTorch
+versions of one chunk in each mode, with the kernel's inputs, outputs and
+arithmetic; both build a model and run the one step loop
+(``_chunk_steps``).  The wrappers use them for CPU tensors; on a card
+they are only the yardsticks the kernels are held against.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ from mri_nanoparticle_simulation_tpu.params import (DIRECTION_CUBE,
 
 from .. import rng
 from ..fields import expansion
-from ..fields.dipole import bz_taylor_parts
+from ..fields.dipole import FIELD_SCALE
 from . import chunk_kernel
 from .reference_engine import WalkerState, constant_kick, intracellular_kick
 
@@ -72,9 +83,13 @@ class SoAState(NamedTuple):
 class MnpTable(NamedTuple):
     """Packed dipole table: ``tbl`` f32[4, n_pad] (x, y, z,
     M * FIELD_SCALE), padded to a multiple of 8 with zero-moment entries
-    1e6 µm away; ``n_mnp`` counts the real dipoles."""
+    1e6 µm away; ``n_mnp`` counts the real dipoles; ``pos`` [n_mnp, 3]
+    and ``m`` [n_mnp] (unscaled) are the same dipoles for the large-scene
+    selection."""
     tbl: torch.Tensor
     n_mnp: int
+    pos: torch.Tensor
+    m: torch.Tensor
 
 
 def _f32(v: float) -> float:
@@ -126,11 +141,15 @@ def check_scene(params: Params, n_mnp: int) -> None:
             f"near_k={params.near_k} exceeds the number of dipoles "
             f"({n_mnp}); selection would duplicate entries and "
             f"double-count their field")
-    if n_mnp > REBUILD_MAX_MNPS:
-        raise NotImplementedError(
-            f"scenes of more than {REBUILD_MAX_MNPS} dipoles (this one "
-            f"has {n_mnp}) take the cube-cache path, which is not ported "
-            f"yet: ROADMAP Queue 2, chunk-kernel mode 1c and kernel 2")
+
+
+def needs_cache(num_water: int, n_mnp: int) -> bool:
+    """Whether a run of ``num_water`` walkers over ``n_mnp`` dipoles
+    selects through the scene cache: above the rebuild kernel's table
+    limit, where the whole-table selection would be large (the
+    reference's sim.py:172-179 and pallas_engine.py:993-999)."""
+    return (n_mnp > REBUILD_MAX_MNPS
+            and expansion.uses_large_path(pad_count(num_water), n_mnp))
 
 
 def pad_count(num_water: int) -> int:
@@ -169,7 +188,8 @@ def _wrap(v: torch.Tensor, bound: float) -> torch.Tensor:
 
 def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
                     tcp, cell_r2, dstd, phys: ChunkPhysics):
-    """One chunk in plain PyTorch: the CUDA kernel's contract.
+    """One rebuild-mode chunk in plain PyTorch: the CUDA rebuild kernel's
+    contract.
 
     ``state`` f32[6, W_pad], ``mnp`` f32[4, n_pad] (the packed table).
     Returns ``(state' f32[6, W_pad], esc f32[W_pad], cov f32[n_blocks],
@@ -180,26 +200,14 @@ def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
     Chunk start: periodic wrap; exact K-nearest selection by sorted
     insertion over the table; the coverage count within
     (cell_r + travel)^2; the far Taylor sums without the K selected.
-    Each step: Threefry words -> cube direction and Box-Muller normal ->
-    move -> masked K-near field + far Taylor -> kick.  Each window: Kahan
-    fold, sums, then the Carr-Purcell flip."""
+    Then the steps (``_chunk_steps``)."""
     dev, dt = state.device, state.dtype
     wp = state.shape[1]
-    n_blk = wp // BLOCK
     k = phys.near_k
-    n_pad = mnp.shape[1]
+    valid = torch.arange(wp, device=dev) < num_water
 
-    def const(v):
-        return torch.tensor(v, dtype=dt, device=dev)
-
-    cr2 = const(cell_r2)
-    idx = torch.arange(wp, device=dev)
-    valid = idx < num_water
-    validf = valid.to(dt)
-    lane = (idx + lane_offset) & rng.MASK
-
-    # -- chunk start: wrap, then the recandidate at the anchor ---------------
     ax, ay, az = (_wrap(state[i], phys.bound) for i in range(3))
+    cr2 = torch.tensor(cell_r2, dtype=dt, device=dev)
     reach = torch.sqrt(cr2) + phys.travel
     reach2 = reach * reach
     dx = ax - mnp[0][:, None]                           # [n_pad, W]
@@ -211,19 +219,60 @@ def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
     near = torch.zeros((4, k, wp), dtype=dt, device=dev)
     near[:3] = 1e9                      # unfilled slots: far, zero moment
     ids = torch.full((k, wp), -1, dtype=torch.int64, device=dev)
-    for j in range(n_pad):
+    for j in range(mnp.shape[1]):
         d2s, near, ids = expansion.sorted_insert(
             d2s, near, ids, d2[j], mnp[:, j:j + 1], j)
-    nx, ny, nz, nm = near
-    cov = ((cnt > k) & valid).to(dt).reshape(n_blk, BLOCK).sum(1)
+    cov = ((cnt > k) & valid).to(dt).reshape(-1, BLOCK).sum(1)
+    anchor = torch.stack([ax, ay, az])
+    taylor = expansion.far_sums_reference(anchor, mnp, ids)
+    out, esc, wins = _chunk_steps(state, anchor, near, taylor, step0=step0,
+                                  key=key, lane_offset=lane_offset,
+                                  num_water=num_water, tcp=tcp,
+                                  cell_r2=cell_r2, dstd=dstd, phys=phys)
+    return out, esc, cov, wins
 
-    parts = torch.stack(bz_taylor_parts(dx, dy, dz, mnp[3][:, None]))
-    keep = expansion.excluded_weight(
-        ids[:, None, :], torch.arange(n_pad, device=dev)[:, None], dt)
-    parts = parts * keep                                # [10, n_pad, W]
-    taylor = torch.zeros((10, wp), dtype=dt, device=dev)
-    for j in range(n_pad):              # table order, as in the kernel
-        taylor = taylor + parts[:, j]
+
+def chunk_near_reference(state, near, taylor, *, step0, key, lane_offset,
+                         num_water, tcp, cell_r2, dstd, phys: ChunkPhysics):
+    """One near/taylor-mode chunk in plain PyTorch: the CUDA
+    ``chunk_near_kernel``'s contract.  ``state`` f32[6, W_pad] is already
+    wrapped and is the anchor; ``near`` f32[4, K, W_pad] (x, y, z,
+    M * FIELD_SCALE) and ``taylor`` f32[10, W_pad] are the model.
+    Returns (state', esc, cov, wins) as ``chunk_reference``, with cov
+    all zero (coverage is counted where the model is selected)."""
+    out, esc, wins = _chunk_steps(state, state[:3], near, taylor,
+                                  step0=step0, key=key,
+                                  lane_offset=lane_offset,
+                                  num_water=num_water, tcp=tcp,
+                                  cell_r2=cell_r2, dstd=dstd, phys=phys)
+    cov = torch.zeros(state.shape[1] // BLOCK, dtype=state.dtype,
+                      device=state.device)
+    return out, esc, cov, wins
+
+
+def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
+                 num_water, tcp, cell_r2, dstd, phys: ChunkPhysics):
+    """The steps of one chunk from ``anchor`` [3, W] against the model
+    ``near`` [4, K, W] and ``taylor`` [10, W], phases from ``state``.
+    Each step: Threefry words -> cube direction and Box-Muller normal ->
+    move -> masked K-near field + far Taylor -> kick.  Each window: Kahan
+    fold, sums, then the Carr-Purcell flip.  Returns (state', esc,
+    wins)."""
+    dev, dt = state.device, state.dtype
+    wp = state.shape[1]
+    n_blk = wp // BLOCK
+    k = phys.near_k
+
+    def const(v):
+        return torch.tensor(v, dtype=dt, device=dev)
+
+    cr2 = const(cell_r2)
+    idx = torch.arange(wp, device=dev)
+    valid = idx < num_water
+    validf = valid.to(dt)
+    lane = (idx + lane_offset) & rng.MASK
+    ax, ay, az = anchor
+    nx, ny, nz, nm = near
     tb0, tgx, tgy, tgz, thxx, thyy, thzz, thxy, thxz, thyz = taylor
 
     def eval_field(px, py, pz):
@@ -251,7 +300,6 @@ def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
                  + thxy * ex * ey + thxz * ex * ez + thyz * ey * ez)
         return b_near + b_far, min_d2
 
-    # -- the steps -----------------------------------------------------------
     in_sd = const(phys.in_stdev) * dstd
     out_sd = const(phys.out_stdev) * dstd
     x, y, z = ax, ay, az
@@ -306,18 +354,23 @@ def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
 
     out = torch.stack([x, y, z, (mind2 < cr2).to(dt), phase, comp])
     esc = ((maxd2 > phys.travel2) & valid).to(dt)
-    return out, esc, cov, wins
+    return out, esc, wins
 
 
 def make_sprint_fn(params: Params, num_water: int, device,
                    dtype=torch.float32, rng_impl: str = RNG_THREEFRY):
-    """``sprint(mnp_tbl, key, state, lane_offset=0) -> (state', wins)``:
-    ``params.sprint_steps`` steps as a loop of chunk launches.
+    """``sprint(mnp_tbl, key, state, lane_offset=0, cache=None) ->
+    (state', wins)``: ``params.sprint_steps`` steps as a loop of chunk
+    launches.
 
     ``mnp_tbl`` is an ``MnpTable`` (``convert.mnp_table``), ``key`` the
     Threefry key words (``convert.key_words``), ``state`` an ``SoAState``
-    and ``wins`` f32[n_windows, 2] (Σcos φ, Σsin φ) on the device.  The
-    loop never reads the device, so sprints queue behind each other."""
+    and ``wins`` f32[n_windows, 2] (Σcos φ, Σsin φ) on the device.
+    ``cache`` (``expansion.SceneCache``, from ``expansion.build_cache``
+    once per scene) serves scenes above ``REBUILD_MAX_MNPS`` dipoles; a
+    large scene without one gets a cache without far table, built in
+    each sprint call, as in the reference.  The loop never reads the
+    device, so sprints queue behind each other."""
     params.validate()
     if rng_impl == RNG_HARDWARE:
         raise NotImplementedError(
@@ -334,21 +387,55 @@ def make_sprint_fn(params: Params, num_water: int, device,
     n_chunks = params.sprint_steps // params.chunk_steps
     cr2 = cell_r2_f32(params.cell_r)
     device = torch.device(device)
+    k = params.near_k
+    reach2 = expansion.coverage_reach2(params)
 
-    def sprint(mnp_tbl: MnpTable, key, state: SoAState, lane_offset=0):
-        check_scene(params, mnp_tbl.n_mnp)
+    def large_model(planes, tbl: MnpTable, cache):
+        """The field model of one large-scene chunk at the wrapped
+        anchors ``planes[:3]``: (near, taylor, n_reach)."""
+        if cache is not None and cache.far_coeffs is not None:
+            return expansion.build_planes(planes[:3], params, cache,
+                                          reach2=reach2)
+        nf = expansion.build(planes[:3].T, tbl.pos, tbl.m, params,
+                             cache=cache, reach2=reach2, tbl=tbl.tbl)
+        m = nf.near_M * torch.tensor(FIELD_SCALE, dtype=dtype,
+                                     device=planes.device)
+        near = torch.stack([nf.near_pos[..., 0].T, nf.near_pos[..., 1].T,
+                            nf.near_pos[..., 2].T, m.T])
+        taylor = torch.cat([nf.b0[None], nf.grad.T, nf.hess.T])
+        return near.contiguous(), taylor.contiguous(), nf.n_reach
+
+    def sprint(mnp_tbl: MnpTable, key, state: SoAState, lane_offset=0,
+               cache=None):
+        n_mnp = mnp_tbl.n_mnp
+        check_scene(params, n_mnp)
         planes, step, escapes, coverage = state
         if planes.device.type != device.type or (
                 device.index is not None
                 and planes.device.index != device.index):
             raise ValueError(f"state is on {planes.device}, the sprint "
                              f"was built for {device}")
+        args = dict(key=key, lane_offset=lane_offset, num_water=num_water,
+                    tcp=params.tcp, cell_r2=cr2, dstd=1.0, phys=phys)
+        rebuild = n_mnp <= REBUILD_MAX_MNPS
+        if not rebuild:
+            if cache is None and needs_cache(num_water, n_mnp):
+                cache = expansion.build_cache(mnp_tbl.pos, mnp_tbl.m,
+                                              params, far_table=False)
+            valid = torch.arange(planes.shape[1],
+                                 device=planes.device) < num_water
         outs = []
         for _ in range(n_chunks):
-            planes, esc, cov, wins = chunk_kernel.run_chunk(
-                planes, mnp_tbl.tbl, step0=step & rng.MASK, key=key,
-                lane_offset=lane_offset, num_water=num_water,
-                tcp=params.tcp, cell_r2=cr2, dstd=1.0, phys=phys)
+            if rebuild:
+                planes, esc, cov, wins = chunk_kernel.run_chunk(
+                    planes, mnp_tbl.tbl, step0=step & rng.MASK, **args)
+            else:
+                planes = torch.cat([_wrap(planes[:3], phys.bound),
+                                    planes[3:]])
+                near, taylor, n_reach = large_model(planes, mnp_tbl, cache)
+                coverage = coverage + ((n_reach > k) & valid).sum()
+                planes, esc, cov, wins = chunk_kernel.run_chunk_near(
+                    planes, near, taylor, step0=step & rng.MASK, **args)
             escapes = escapes + esc.sum().to(torch.int64)
             coverage = coverage + cov.sum().to(torch.int64)
             step += params.chunk_steps
@@ -360,10 +447,11 @@ def make_sprint_fn(params: Params, num_water: int, device,
 
 def run_simulation(scene, params: Params, seed: int = 0, *, device,
                    dtype=torch.float32, rng_impl: str = RNG_THREEFRY,
-                   max_steps: int | None = None):
+                   max_steps: int | None = None, cache=None):
     """Single-device run (mirror of the reference's
     ``pallas_engine.run_simulation``): returns (times_ms, sum_cos,
-    sum_sin, WalkerState) with the sums as NumPy arrays."""
+    sum_sin, WalkerState) with the sums as NumPy arrays.  ``cache`` is
+    passed to every sprint."""
     from .convert import key_words, mnp_table
     from .reference_engine import init_state
 
@@ -375,7 +463,7 @@ def run_simulation(scene, params: Params, seed: int = 0, *, device,
     total = params.t if max_steps is None else min(params.t, max_steps)
     outs = []
     for _ in range(total // params.sprint_steps):
-        ss, wins = sprint(tbl, key, ss)
+        ss, wins = sprint(tbl, key, ss, cache=cache)
         outs.append(wins)
     wins = (torch.cat(outs).cpu().numpy() if outs
             else np.zeros((0, 2), np.float32))

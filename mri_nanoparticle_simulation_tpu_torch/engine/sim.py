@@ -1,9 +1,10 @@
 """Simulation orchestrator: scene -> device -> sprints -> CSV.
 
 Counterpart of the reference's ``engine/sim.py`` on its main path: build
-the scene, prove the near list covers it, run sprints of chunk-kernel
-launches without syncing the host, drain the window sums every
-``drain_depth`` sprints, and stream the T2 curve to CSV.
+the scene, prove the near list (and on large scenes the cube candidate
+tables) cover it, build the large-scene cache once, run sprints of
+chunk-kernel launches without syncing the host, drain the window sums
+every ``drain_depth`` sprints, and stream the T2 curve to CSV.
 
 Run as a CLI:
     python -m mri_nanoparticle_simulation_tpu_torch.engine.sim \
@@ -55,10 +56,13 @@ def fit_sprint_steps(params: Params, requested: int) -> int:
 
 
 class SimulationRunner:
-    """Owns the scene, the sprint function and the walker state.
+    """Owns the scene, the sprint function, the large-scene cache and the
+    walker state.
 
     ``device`` has no default, and a CUDA device without a card raises:
-    the runner never moves to the CPU on its own."""
+    the runner never moves to the CPU on its own.  ``cache_build_s`` is
+    the wall time of the scene cache build (0 when the scene needs
+    none)."""
 
     def __init__(self, params: Params, scene_seed: int = 0, seed: int = 0,
                  *, device, rng_impl: str = cuda_engine.RNG_THREEFRY,
@@ -75,7 +79,9 @@ class SimulationRunner:
             params, params.num_water, self.device, rng_impl=rng_impl)
         self.scene = scene if scene is not None \
             else BacteriaBox(params, seed=scene_seed).populate()
-        cuda_engine.check_scene(params, len(self.scene.mnps))
+        n_mnp = len(self.scene.mnps)
+        cuda_engine.check_scene(params, n_mnp)
+        self.uses_cubes = cuda_engine.needs_cache(params.num_water, n_mnp)
         if check_coverage:
             worst = expansion.validate_near_k(self.scene.mnps[:, :3], params)
             if worst > params.near_k:
@@ -84,7 +90,25 @@ class SimulationRunner:
                     f"tests at chunk_steps={params.chunk_steps} "
                     f"(configured near_k={params.near_k}); raise near_k or "
                     f"lower chunk_steps")
+            if self.uses_cubes:
+                worst_c = expansion.validate_cube_candidates(
+                    self.scene.mnps[:, :3], params)
+                if worst_c > params.cube_candidates:
+                    raise ValueError(
+                        f"scene requires cube_candidates >= {worst_c} "
+                        f"(configured {params.cube_candidates}); raise it "
+                        f"or shrink cube_hash_dim cubes")
         self.mnp_tbl = mnp_table(self.scene.mnps, torch.float32, self.device)
+        # the scene cache, once per scene rather than once per sprint
+        self.cache = None
+        self.cache_build_s = 0.0
+        if self.uses_cubes:
+            t0 = time.perf_counter()
+            self.cache = expansion.build_cache(self.mnp_tbl.pos,
+                                               self.mnp_tbl.m, params)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.cache_build_s = time.perf_counter() - t0
         self.key = key_words(seed)
         self.state = init_state(self.scene.waters, params, self.device)
 
@@ -115,7 +139,8 @@ class SimulationRunner:
         pending, all_wins = [], []
         try:
             for i in range(n_sprints):
-                ss, wins = self._sprint(self.mnp_tbl, self.key, ss)
+                ss, wins = self._sprint(self.mnp_tbl, self.key, ss,
+                                        cache=self.cache)
                 pending.append((start_step // p.pfreq + i * win_per_sprint,
                                 wins))
                 if len(pending) >= drain_depth:
@@ -174,6 +199,17 @@ def main(argv=None):
                     help="field-model rebuild interval (auto-shrunk for "
                          "short runs)")
     ap.add_argument("--near-k", type=int, default=10)
+    ap.add_argument("--max-neighbors", type=int, default=13,
+                    help="nearest-cell lookup capacity; raise for dense "
+                         "scenes (thousands of cells)")
+    ap.add_argument("--hash-dim", type=int, default=20)
+    ap.add_argument("--tau", type=float, default=1e-6,
+                    help="timestep in ms (reference: 1e-6 = 1 ns)")
+    ap.add_argument("--cube-candidates", type=int, default=96)
+    ap.add_argument("--far-table-order", type=int, default=5,
+                    help="per-cube far-field Taylor order on the "
+                         "large-scene path (0 = exact far sums each "
+                         "chunk)")
     ap.add_argument("--sprint-steps", type=int, default=100000,
                     help="steps per sprint (auto-shrunk to divide the "
                          "total step count)")
@@ -194,7 +230,10 @@ def main(argv=None):
         num_water=args.num_water, num_cells=args.num_cells,
         totaltime=args.totaltime, taucp=args.taucp,
         chunk_steps=args.chunk_steps, near_k=args.near_k,
-        sprint_steps=args.sprint_steps)
+        sprint_steps=args.sprint_steps, max_neighbors=args.max_neighbors,
+        hash_dim=args.hash_dim, tau=args.tau,
+        cube_candidates=args.cube_candidates,
+        far_table_order=args.far_table_order)
     params = params.replace(
         chunk_steps=fit_chunk_steps(params, args.chunk_steps))
     params = params.replace(

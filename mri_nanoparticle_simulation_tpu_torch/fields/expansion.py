@@ -1,25 +1,69 @@
-"""Chunk-local field model helpers: K-nearest selection and the scene
-guard on K.
+"""Chunk-local field model: K-nearest selection, far sums, the
+large-scene cube cache and the candidate-model rebuild.
 
-Counterpart of the reference's ``fields/expansion.py``, restricted to
-what the in-kernel-rebuild path needs:
+Counterpart of the reference's ``fields/expansion.py``:
 
 * ``sorted_insert`` / ``excluded_weight``: the K-nearest selection and
-  far-pass exclusion of the plain chunk (``engine.cuda_engine``), on
-  stacked ``[K, ...]`` slot tensors.  The CUDA kernel unrolls the same
-  branchless insertion over register slots.
-* ``default_travel_bound``, ``validate_near_k`` and its covering-lattice
-  helpers: NumPy host code, carried over unchanged apart from imports
-  (the reference module imports jax, so it cannot be reused by import).
+  far-pass exclusion, on stacked ``[K, ...]`` slot tensors.  The CUDA
+  kernels unroll the same branchless insertion over register slots.
+* ``far_sums_reference``: the far value, gradient and Hessian at each
+  anchor over the whole dipole table without the K near ids, the plain
+  version of ``csrc/far_sums_kernel.cu`` (``chunk_kernel.run_far_sums``).
+* ``SceneCache`` / ``build_cache``: per spatial cube, its C nearest
+  dipoles and the cube's far-field Taylor table (``fields.fartable``).
+* ``build``: the per-walker model (``NearField``) by cube-pruned or
+  whole-table selection and the far sums; ``coverage_reach2``, the
+  large path's coverage reach.
+* ``build_planes``: the large-scene rebuild straight into the chunk
+  kernel's near/taylor inputs; its CUDA route is
+  ``csrc/cand_model_kernel.cu``, its plain version
+  ``cand_model_reference``.
+* ``default_travel_bound``, ``validate_near_k``,
+  ``validate_cube_candidates`` and the covering-lattice helpers: NumPy
+  host code, carried over unchanged apart from imports (the reference
+  module imports jax, so it cannot be reused by import).
+
+Layouts follow the port's flat walker axis: the reference's ``[R, 128]``
+planes are ``[W]`` rows here, so ``near`` is ``[4, K, W]`` and ``taylor``
+``[10, W]``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mri_nanoparticle_simulation_tpu.params import Params
 from mri_nanoparticle_simulation_tpu.utils import cache as cache_mod
+
+from ..engine import chunk_kernel
+from . import fartable
+from .dipole import FIELD_SCALE, bz_taylor_parts
+
+
+class SceneCache(NamedTuple):
+    """Scene-constant tables of the large path: ``payload`` f32[H^3, C,
+    5] per cube (x, y, z, M, global index) and ``far_coeffs`` f32[H^3,
+    n_coeffs] (the cube's Taylor table of the beyond-candidates field),
+    or None without a table (``far_table_order == 0``)."""
+    payload: torch.Tensor
+    far_coeffs: torch.Tensor | None
+
+
+class NearField(NamedTuple):
+    """Per-walker chunk-local field model, leading dims = walkers, as the
+    reference's ``NearField`` (``near_M`` unscaled)."""
+    anchor: torch.Tensor    # [W, 3]
+    near_pos: torch.Tensor  # [W, K, 3]
+    near_M: torch.Tensor    # [W, K]
+    b0: torch.Tensor        # [W]
+    grad: torch.Tensor      # [W, 3]
+    hess: torch.Tensor      # [W, 6] (xx, yy, zz, xy, xz, yz)
+    #: [W] dipoles within reach of the anchor (None without ``reach2``);
+    #: coverage is violated where it exceeds K
+    n_reach: torch.Tensor | None = None
 
 
 def sorted_insert(d2s, fields, ids, d2, new_fields, j):
@@ -52,6 +96,285 @@ def excluded_weight(ids, j, dtype):
     (``[K, ...]``), else 0.0.  ``j`` may be a tensor of ids that
     broadcasts against ``ids[0]``, giving one weight per (j, walker)."""
     return (ids != j).all(0).to(dtype)
+
+
+def pack_table(mnp_pos: torch.Tensor, mnp_M: torch.Tensor) -> torch.Tensor:
+    """The kernels' dipole table f32[4, n_pad] (x, y, z, M * FIELD_SCALE,
+    the scaling an f32 product) padded to a multiple of 8 with
+    zero-moment entries 1e6 µm away (expansion._far_sums_pallas,
+    pallas_engine.py:967-975)."""
+    n = mnp_pos.shape[0]
+    n_pad = -(-n // 8) * 8
+    tbl = torch.zeros((4, n_pad), dtype=mnp_pos.dtype,
+                      device=mnp_pos.device)
+    tbl[:3, n:] = 1e6
+    tbl[:3, :n] = mnp_pos.T
+    tbl[3, :n] = mnp_M * torch.tensor(FIELD_SCALE, dtype=mnp_M.dtype,
+                                      device=mnp_M.device)
+    return tbl
+
+
+def far_sums_reference(anchor, tbl, idx, block: int = 512):
+    """Plain version of ``csrc/far_sums_kernel.cu``: ``anchor`` [3, W],
+    ``tbl`` [4, n_pad] (M scaled), ``idx`` [K, W] global ids left out.
+    Returns taylor [10, W] (b0, gx, gy, gz, hxx, hyy, hzz, hxy, hxz,
+    hyz).  Blocks of ``block`` dipoles are evaluated together, then added
+    one dipole at a time in table order, as the kernel sums."""
+    ax, ay, az = anchor[0], anchor[1], anchor[2]
+    taylor = torch.zeros((10, anchor.shape[1]), dtype=anchor.dtype,
+                         device=anchor.device)
+    ids = idx[:, None, :]
+    for j0 in range(0, tbl.shape[1], block):
+        t = tbl[:, j0:j0 + block, None]                  # [4, B, 1]
+        parts = torch.stack(bz_taylor_parts(ax - t[0], ay - t[1], az - t[2],
+                                            t[3]))      # [10, B, W]
+        col = torch.arange(j0, j0 + t.shape[1], device=anchor.device)
+        parts = parts * excluded_weight(ids, col[:, None], anchor.dtype)
+        for j in range(parts.shape[1]):
+            taylor = taylor + parts[:, j]
+    return taylor
+
+
+def _pairwise_d2(a, b):
+    """Pairwise squared distances |a|^2 + |b|^2 - 2 a.b through one
+    matrix product.  The cancellation only fuzzes the selection order of
+    near-equidistant points, which the K slack absorbs; a BLAS rounds the
+    product differently from XLA, so selections match as sets."""
+    an2 = (a * a).sum(-1)
+    bn2 = (b * b).sum(-1)
+    return an2[:, None] + bn2[None, :] - 2.0 * (a @ b.T)
+
+
+def _argmin_passes(d2, k):
+    """K nearest columns per row by K masked argmin passes in bfloat16
+    (the reference's selection: 0.4% distance fuzz, first index on ties).
+    Returns int64 [rows, K]."""
+    remaining = d2.to(torch.bfloat16) if d2.dtype == torch.float32 else d2
+    remaining = remaining.clone()
+    rows = torch.arange(d2.shape[0], device=d2.device)
+    idx = []
+    for _ in range(k):
+        j = torch.argmin(remaining, dim=1)
+        idx.append(j)
+        remaining[rows, j] = float("inf")
+    return torch.stack(idx, 1)
+
+
+def uses_large_path(num_walkers: int, n_mnp: int) -> bool:
+    """Whether callers should precompute the cube cache (the reference's
+    policy: more than 2^24 walker-dipole pairs)."""
+    return num_walkers * n_mnp > (1 << 24)
+
+
+def build_cache(mnp_pos, mnp_M, params: Params,
+                far_table: bool = True) -> SceneCache:
+    """The scene cache: for each of the H^3 cubes its C nearest dipoles
+    (by the bf16 argmin passes over one [H^3, N] distance matrix to the
+    cube centres), and, when ``params.far_table_order > 0`` and
+    ``far_table``, the cube's far table (``fartable.build_far_table``).
+    ``mnp_pos`` [N, 3] and ``mnp_M`` [N] include the periodic images."""
+    h = params.cube_hash_dim
+    c = min(params.cube_candidates, mnp_pos.shape[0])
+    centers = torch.as_tensor(fartable.cube_centers(h, float(params.bound)),
+                              device=mnp_pos.device).to(mnp_pos.dtype)
+    table = _argmin_passes(_pairwise_d2(centers, mnp_pos), c)   # [H^3, C]
+    payload = torch.cat([mnp_pos[table], mnp_M[table][..., None],
+                         table[..., None].to(mnp_pos.dtype)], -1)
+    coeffs = None
+    if far_table and params.far_table_order > 0:
+        coeffs = fartable.build_far_table(mnp_pos, mnp_M, table, h,
+                                          float(params.bound),
+                                          params.far_table_order)
+    return SceneCache(payload=payload, far_coeffs=coeffs)
+
+
+def _cube_index(pos, h: int, bound: float):
+    """(clip(int(p / cube), 0, h - 1) int64 per coordinate, same shape as
+    ``pos``; the cube edge as a device scalar).  True division by a
+    device scalar: a CPU float divisor may be turned into a product with
+    its reciprocal on the card."""
+    cube = torch.tensor(bound / h, dtype=pos.dtype, device=pos.device)
+    return torch.clamp((pos / cube).to(torch.int32), 0, h - 1).long(), cube
+
+
+def coverage_reach2(params: Params) -> float:
+    """The large path's squared coverage reach (cell_r + travel)^2 in
+    f32, from cell_r itself (pallas_engine.py:1011-1013; the rebuild
+    kernel squares sqrt(cell_r^2) + travel instead)."""
+    r = np.float32(params.cell_r) + np.float32(default_travel_bound(params))
+    return float(r * r)
+
+
+def cube_select(anchor, payload, params: Params, reach2=None):
+    """Cube-pruned selection (the reference ``build``'s cube path): each
+    anchor ([W, 3]) takes its cube's C candidates from ``payload``
+    [H^3, C, 5] and picks the K nearest by bf16 argmin passes over the
+    exact f32 d^2.  Returns (the K selected rows [W, K, 5], n_reach int32
+    [W] or None)."""
+    k = params.near_k
+    if k > payload.shape[1]:
+        raise ValueError(
+            f"near_k={k} exceeds cube_candidates={payload.shape[1]}; "
+            f"selection would duplicate entries and double-count "
+            f"their field")
+    h = params.cube_hash_dim
+    ci, _ = _cube_index(anchor, h, params.bound)
+    cand = payload[(ci[:, 0] * h + ci[:, 1]) * h + ci[:, 2]]
+    dc = anchor[:, None, :] - cand[..., :3]
+    d2 = (dc[..., 0] * dc[..., 0] + dc[..., 1] * dc[..., 1]
+          + dc[..., 2] * dc[..., 2])                        # [W, C]
+    n_reach = (None if reach2 is None
+               else (d2 < reach2).sum(1).to(torch.int32))
+    sel = _argmin_passes(d2, k)
+    return torch.take_along_dim(cand, sel[..., None], 1), n_reach
+
+
+def build(anchor, mnp_pos, mnp_M, params: Params, cache=None, reach2=None,
+          tbl=None) -> NearField:
+    """Each walker's K nearest dipoles and the far Taylor model of the
+    rest (the reference's ``build`` with ``far_impl='pallas'`` and no far
+    table; a cache with a far table goes through ``build_planes``).
+
+    ``anchor`` [W, 3]; ``mnp_pos`` [N, 3], ``mnp_M`` [N] all dipoles with
+    images; ``cache`` a ``SceneCache`` without far table (cube-pruned
+    selection) or None (selection over all N); ``reach2`` the squared
+    coverage reach, giving ``n_reach``; ``tbl`` the packed table
+    (``pack_table``), made here when None.  The far sums go through
+    ``chunk_kernel.run_far_sums`` (the CUDA kernel on a card)."""
+    k = params.near_k
+    if k > mnp_pos.shape[0]:
+        raise ValueError(
+            f"near_k={k} exceeds the number of dipoles "
+            f"({mnp_pos.shape[0]}); selection would duplicate entries and "
+            f"double-count their field")
+    if cache is not None:
+        if cache.far_coeffs is not None:
+            raise ValueError("a cache with a far table goes through "
+                             "build_planes")
+        rows, n_reach = cube_select(anchor, cache.payload, params, reach2)
+        near_pos, near_M = rows[..., :3], rows[..., 3]
+        idx = rows[..., 4].to(torch.int32)
+    else:
+        d2 = _pairwise_d2(anchor, mnp_pos)                  # [W, N]
+        n_reach = (None if reach2 is None
+                   else (d2 < reach2).sum(1).to(torch.int32))
+        sel = _argmin_passes(d2, k)
+        near_pos, near_M = mnp_pos[sel], mnp_M[sel]
+        idx = sel.to(torch.int32)
+    if tbl is None:
+        tbl = pack_table(mnp_pos, mnp_M)
+    t = chunk_kernel.run_far_sums(anchor.T.contiguous(), tbl,
+                                  idx.T.contiguous())
+    return NearField(anchor, near_pos, near_M, t[0], t[1:4].T, t[4:10].T,
+                     n_reach)
+
+
+def cand_model_reference(pos, payload, coeffs, *, near_k, order, h, bound,
+                         reach2):
+    """Plain version of ``csrc/cand_model_kernel.cu`` (the reference's
+    ``_make_cand_model_kernel`` with the gathers of ``build_planes``).
+
+    ``pos`` [3, W] wrapped anchors; ``payload`` [H^3, C, 5]; ``coeffs``
+    [H^3, n_coeffs]; ``reach2`` a float.  Per walker over its cube's C
+    candidates, in candidate order: exact K-nearest by sorted insertion
+    with slot ids and the count within ``reach2``; the mid sums of the
+    candidates not selected, excluded by slot id; then the cube's far
+    table at ``e = p - (ci + 0.5) * cube``.  Returns (near [4, K, W] with
+    M * FIELD_SCALE, taylor [10, W], n_reach [W] as floats)."""
+    dev, dt = pos.device, pos.dtype
+    w = pos.shape[1]
+    c = payload.shape[1]
+    ci, cube = _cube_index(pos, h, bound)
+    flat = (ci[0] * h + ci[1]) * h + ci[2]
+    pc = payload[flat].permute(2, 1, 0)                     # [5, C, W]
+    cx, cy, cz = pc[0], pc[1], pc[2]
+    cm = pc[3] * torch.tensor(FIELD_SCALE, dtype=dt, device=dev)
+    ax, ay, az = pos[0], pos[1], pos[2]
+
+    d2s = torch.full((near_k, w), 1e30, dtype=dt, device=dev)
+    slots = torch.zeros((4, near_k, w), dtype=dt, device=dev)
+    ids = torch.full((near_k, w), -1, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(w, dtype=dt, device=dev)
+    for j in range(c):
+        dx = ax - cx[j]
+        dy = ay - cy[j]
+        dz = az - cz[j]
+        d2 = dx * dx + dy * dy + dz * dz
+        cnt = cnt + (d2 < reach2).to(dt)
+        d2s, slots, ids = sorted_insert(
+            d2s, slots, ids, d2, torch.stack([cx[j], cy[j], cz[j], cm[j]]),
+            j)
+
+    parts = torch.stack(bz_taylor_parts(ax - cx, ay - cy, az - cz, cm))
+    parts = parts * excluded_weight(
+        ids[:, None, :], torch.arange(c, device=dev)[:, None], dt)
+    accs = torch.zeros((10, w), dtype=dt, device=dev)
+    for j in range(c):                  # candidate order, as the kernel
+        accs = accs + parts[:, j]
+
+    e = pos - (ci.to(dt) + 0.5) * cube
+    co = coeffs[flat].T                                     # [nc, W]
+    taylor = fartable.eval_far_table_parts(lambda t: co[t], e[0], e[1], e[2],
+                                           order, accs=tuple(accs))
+    return slots, torch.stack(taylor), cnt
+
+
+def build_planes(pos, params: Params, cache: SceneCache, reach2=None):
+    """The large-scene chunk rebuild into the chunk kernel's inputs
+    (the reference's ``build_planes``): ``pos`` f32[3, W] wrapped
+    anchors, ``cache`` built with a far table.  Returns (near [4, K, W]
+    with M * FIELD_SCALE, taylor [10, W], n_reach [W], all zero when
+    ``reach2`` is None) from the CUDA kernel for CUDA tensors and from
+    ``cand_model_reference`` for CPU tensors."""
+    k = params.near_k
+    if cache.far_coeffs is None:
+        raise ValueError(
+            "build_planes requires a cache built with the far table "
+            "(params.far_table_order > 0 and build_cache(far_table=True))")
+    c = cache.payload.shape[1]
+    if k > c:
+        raise ValueError(
+            f"near_k={k} exceeds cube_candidates={c}; selection would "
+            f"duplicate entries and double-count their field")
+    order = params.far_table_order
+    if cache.far_coeffs.shape[-1] != fartable.n_coeffs(order):
+        raise ValueError(
+            f"far table was built at a different order than "
+            f"params.far_table_order={order} ({cache.far_coeffs.shape[-1]} "
+            f"!= {fartable.n_coeffs(order)} coefficients)")
+    return chunk_kernel.run_cand_model(
+        pos, cache.payload, cache.far_coeffs, near_k=k, order=order,
+        h=params.cube_hash_dim, bound=float(params.bound),
+        reach2=0.0 if reach2 is None else float(reach2))
+
+
+def validate_cube_candidates(dipole_pos: np.ndarray, params: Params,
+                             travel_bound: float | None = None) -> int:
+    """Worst-case number of dipoles a cube's candidate table must hold:
+    max over cube centers of dipoles within reach + cube half-diagonal.
+    Callers raise if it exceeds params.cube_candidates (only relevant on
+    the large-scene path)."""
+    if travel_bound is None:
+        travel_bound = default_travel_bound(params)
+    h = params.cube_hash_dim
+    cube = params.bound / h
+    crit = params.cell_r + travel_bound + np.sqrt(3.0) * cube / 2.0
+    pos = np.asarray(dipole_pos, np.float64)
+    key = pos.tobytes() + np.float64(crit).tobytes() + \
+        np.int64(h).tobytes() + b"cube_cand.v1"
+    cached = cache_mod.certificate_get("cubec", key)
+    if cached is not None:
+        return cached
+    ax = (np.arange(h) + 0.5) * cube
+    centers = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"),
+                       -1).reshape(-1, 3)
+    counts = np.zeros(len(centers), np.int64)
+    for c in pos:
+        d2 = np.sum((centers - c) ** 2, axis=1)
+        counts += d2 < crit * crit
+    worst = int(counts.max())
+    cache_mod.certificate_put("cubec", key, worst)
+    return worst
 
 
 def validate_near_k(dipole_pos: np.ndarray, params: Params,

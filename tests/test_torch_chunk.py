@@ -156,7 +156,7 @@ class TestWrapperChecks:
 
     def test_no_fallback_for_other_devices(self):
         p, planes, tbl = self._inputs()
-        before = chunk_kernel.LAUNCHES
+        before = dict(chunk_kernel.LAUNCHES)
         with pytest.raises(ValueError, match="no chunk kernel"):
             chunk_kernel.run_chunk(planes.to("meta"), tbl.to("meta"),
                                    **self._args(p))

@@ -1,13 +1,16 @@
-"""The CUDA chunk kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch versions.
 
 Marked ``cuda``; skipped (from a fixture) where torch sees no card.  Run
 on a machine with an NVIDIA H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances are the reference's compiled-kernel ones
+Tolerances: the chunk kernels have the reference's compiled-kernel ones
 (tests/test_pallas.py:109-111): positions within 1e-4, window sums
-within 0.05; escapes and coverage counts equal.
+within 0.05; escapes and coverage counts equal.  The candidate-model
+kernel: near slots equal (ties excepted), taylor within 1e-5 of the
+largest |component|, n_reach equal.  The far-sums kernel: 1e-5 relative
+(tests/test_fields.py:375).
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from mri_nanoparticle_simulation_tpu_torch.engine import (chunk_kernel,
                                                           cuda_engine, sim)
 from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import \
     init_state
+from mri_nanoparticle_simulation_tpu_torch.fields import expansion
 
 pytestmark = pytest.mark.cuda
 
@@ -102,10 +106,10 @@ def test_kernel_is_deterministic_and_counted(dev):
     p = _params(CASES["small_64"][0])
     sc = BacteriaBox(p, seed=3).populate()
     planes, tbl, args = _chunk(p, sc, dev)
-    before = chunk_kernel.LAUNCHES
+    before = chunk_kernel.LAUNCHES["chunk_kernel"]
     a = chunk_kernel.run_chunk(planes, tbl, **args)
     b = chunk_kernel.run_chunk(planes, tbl, **args)
-    assert chunk_kernel.LAUNCHES == before + 2
+    assert chunk_kernel.LAUNCHES["chunk_kernel"] == before + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -114,10 +118,11 @@ def test_sprint_on_card_matches_cpu_plain_version(dev):
     p = _params(dict(chunk_steps=200, num_water=64, taucp=0.0003,
                      mmoment=3.5e-15))
     sc = BacteriaBox(p, seed=4).populate()
-    before = chunk_kernel.LAUNCHES
+    before = chunk_kernel.LAUNCHES["chunk_kernel"]
     _, c_gpu, s_gpu, st_gpu = cuda_engine.run_simulation(sc, p, seed=5,
                                                          device=dev)
-    assert chunk_kernel.LAUNCHES == before + p.t // p.chunk_steps
+    assert chunk_kernel.LAUNCHES["chunk_kernel"] == \
+        before + p.t // p.chunk_steps
     _, c_cpu, s_cpu, st_cpu = cuda_engine.run_simulation(sc, p, seed=5,
                                                          device="cpu")
     np.testing.assert_allclose(st_gpu.pos.cpu().numpy(),
@@ -129,12 +134,127 @@ def test_sprint_on_card_matches_cpu_plain_version(dev):
 
 def test_runner_on_card(dev, tmp_path):
     p = P.small_test_params(totaltime=0.001, sprint_steps=500)
-    before = chunk_kernel.LAUNCHES
+    before = chunk_kernel.LAUNCHES["chunk_kernel"]
     _, c, _, stats = sim.SimulationRunner(p, scene_seed=3, seed=2,
                                           device="cuda").run(
         csv_path=str(tmp_path / "t2.csv"), progress=False)
-    assert chunk_kernel.LAUNCHES - before == p.t // p.chunk_steps
+    assert chunk_kernel.LAUNCHES["chunk_kernel"] - before == \
+        p.t // p.chunk_steps
     assert stats["steps"] == p.t and stats["escapes"] == 0
     _, c_cpu, _, _ = sim.SimulationRunner(p, scene_seed=3, seed=2,
                                           device="cpu").run(progress=False)
     np.testing.assert_allclose(c, c_cpu, atol=0.05)
+
+
+# -- the large-scene kernels ---------------------------------------------------
+
+def _large_params(**over):
+    base = dict(num_cells=30, cube_hash_dim=4, cube_candidates=16,
+                near_k=4, far_table_order=3, num_water=256,
+                chunk_steps=200, totaltime=0.0008, sprint_steps=400,
+                mmoment=3.5e-15)
+    base.update(over)
+    return P.small_test_params(**base)
+
+
+@pytest.fixture(scope="module")
+def large(dev):
+    """A 30-cell scene's table and cache on the card, and wrapped
+    anchors (the walkers after one rebuild chunk)."""
+    p = _large_params()
+    sc = BacteriaBox(p, seed=3).populate()
+    tbl = convert.mnp_table(sc.mnps, torch.float32, dev)
+    cache = expansion.build_cache(tbl.pos, tbl.m, p)
+    planes, _, args = _chunk(p, sc, dev)
+    planes, *_ = chunk_kernel.run_chunk(planes, tbl.tbl, **args)
+    planes = torch.cat([cuda_engine._wrap(planes[:3], p.bound), planes[3:]])
+    return p, tbl, cache, planes, expansion.coverage_reach2(p)
+
+
+def test_cand_model_kernel_matches_plain_version(large):
+    p, _, cache, planes, reach2 = large
+    pos = planes[:3].contiguous()
+    before = chunk_kernel.LAUNCHES["cand_model_kernel"]
+    near, taylor, cnt = expansion.build_planes(pos, p, cache, reach2=reach2)
+    again = expansion.build_planes(pos, p, cache, reach2=reach2)
+    assert chunk_kernel.LAUNCHES["cand_model_kernel"] == before + 2
+    r_near, r_taylor, r_cnt = expansion.cand_model_reference(
+        pos, cache.payload, cache.far_coeffs, near_k=p.near_k,
+        order=p.far_table_order, h=p.cube_hash_dim, bound=p.bound,
+        reach2=reach2)
+    torch.cuda.synchronize()
+    for a, b in zip((near, taylor, cnt), again):
+        assert torch.equal(a, b)
+    differ = (near != r_near).any(0)
+    d2 = ((near[:3] - pos[:, None]) ** 2).sum(0)
+    r_d2 = ((r_near[:3] - pos[:, None]) ** 2).sum(0)
+    assert torch.equal(d2[differ], r_d2[differ])
+    for i in range(10):
+        scale = float(r_taylor[i].abs().max())
+        torch.testing.assert_close(taylor[i], r_taylor[i], rtol=0,
+                                   atol=1e-5 * scale)
+    assert torch.equal(cnt, r_cnt)
+
+
+def test_far_sums_kernel_matches_plain_version(large):
+    p, tbl, _, planes, _ = large
+    pos = planes[:3].contiguous()
+    w = pos.shape[1]
+    g = torch.Generator().manual_seed(0)
+    idx = torch.stack([torch.randperm(tbl.n_mnp, generator=g)[:p.near_k]
+                       for _ in range(w)], 1).to(torch.int32).to(pos.device)
+    before = chunk_kernel.LAUNCHES["far_sums_kernel"]
+    got = chunk_kernel.run_far_sums(pos, tbl.tbl, idx.contiguous())
+    assert chunk_kernel.LAUNCHES["far_sums_kernel"] == before + 1
+    ref = expansion.far_sums_reference(pos, tbl.tbl, idx)
+    for i in range(10):
+        err = float((got[i] - ref[i]).abs().max())
+        assert err <= 1e-5 * float(ref[i].abs().max()), i
+
+
+def test_chunk_near_kernel_matches_plain_version(large):
+    p, _, cache, planes, reach2 = large
+    near, taylor, _ = expansion.build_planes(planes[:3].contiguous(), p,
+                                             cache, reach2=reach2)
+    args = dict(step0=p.chunk_steps, key=KEY, lane_offset=3,
+                num_water=p.num_water - 6, tcp=p.tcp,
+                cell_r2=cuda_engine.cell_r2_f32(p.cell_r), dstd=1.0,
+                phys=cuda_engine.chunk_physics(p))
+    before = chunk_kernel.LAUNCHES["chunk_near_kernel"]
+    got = chunk_kernel.run_chunk_near(planes, near, taylor, **args)
+    assert chunk_kernel.LAUNCHES["chunk_near_kernel"] == before + 1
+    ref = cuda_engine.chunk_near_reference(planes, near, taylor, **args)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, p.num_water - 6)
+    assert float(got[2].abs().sum()) == 0.0
+
+
+def test_cube_path_sprint_on_card_matches_cpu(dev, monkeypatch):
+    """One sprint of the cube path through kernels 2 and 1c, against the
+    same sprint on the CPU (plain versions) with the same cache."""
+    monkeypatch.setattr(cuda_engine, "REBUILD_MAX_MNPS", 0)
+    p = _large_params()
+    sc = BacteriaBox(p, seed=3).populate()
+    cpu = torch.device("cpu")
+    tbl0 = convert.mnp_table(sc.mnps, torch.float32, cpu)
+    cache0 = expansion.build_cache(tbl0.pos, tbl0.m, p)
+    n = p.sprint_steps // p.chunk_steps
+    out = {}
+    for d in (cpu, dev):
+        tbl = convert.mnp_table(sc.mnps, torch.float32, d)
+        cache = expansion.SceneCache(*(t.to(d) for t in cache0))
+        sprint = cuda_engine.make_sprint_fn(p, p.num_water, d)
+        before = dict(chunk_kernel.LAUNCHES)
+        ss, wins = sprint(tbl, KEY, cuda_engine.to_soa(
+            init_state(sc.waters, p, d), p), cache=cache)
+        launched = {k: chunk_kernel.LAUNCHES[k] - before[k] for k in before}
+        want = n if d.type == "cuda" else 0
+        assert launched == {"chunk_kernel": 0, "chunk_near_kernel": want,
+                            "cand_model_kernel": want, "far_sums_kernel": 0}
+        out[d.type] = (cuda_engine.from_soa(ss, p.num_water), wins.cpu())
+    (st_c, w_c), (st_g, w_g) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(st_g.pos.cpu().numpy(), st_c.pos.numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(w_g.numpy(), w_c.numpy(), atol=0.05)
+    assert int(st_g.escapes) == int(st_c.escapes)
+    assert int(st_g.coverage) == int(st_c.coverage)

@@ -247,8 +247,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="chunk-kernel mode 1b"):
         cuda_engine.make_sprint_fn(p, p.num_water, "cpu",
                                    rng_impl="hardware")
-    with pytest.raises(NotImplementedError, match="cube-cache"):
-        cuda_engine.check_scene(p, cuda_engine.REBUILD_MAX_MNPS + 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.SimulationRunner(p, device="cpu", rng_impl="hardware")
 
@@ -280,7 +278,7 @@ def test_cuda_sprint_refuses_cpu_state():
     p = P.small_test_params()
     sc = BacteriaBox(p, seed=3).populate()
     sprint = cuda_engine.make_sprint_fn(p, p.num_water, "cuda")
-    before = chunk_kernel.LAUNCHES
+    before = dict(chunk_kernel.LAUNCHES)
     with pytest.raises(ValueError, match="state is on cpu"):
         sprint(convert.mnp_table(sc.mnps, torch.float32, "cpu"), (0, 1),
                cuda_engine.to_soa(init_state(sc.waters, p, "cpu"), p))
