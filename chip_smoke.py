@@ -2,22 +2,27 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card.
 
 Drives the port's paths (the reference headline T2 run, and the 100k x
-2000 scale-up run on the large-scene path) through the hand-written CUDA
-kernels, phase by phase; each phase prints what it measured, and any
-failure raises (exit code != 0, no final line):
+2000 scale-up run on the large-scene path, each on the Threefry and on
+the fast generator; the physics variants through the golden arms)
+through the hand-written CUDA kernels, phase by phase; each phase prints
+what it measured, and any failure raises (exit code != 0, no final
+line):
 
 1. device: the card, its power limit, the torch/CUDA versions;
 2. build: compile every csrc/*.cu with nvcc (one process per source, in
-   parallel), print seconds and registers/spills of every entry;
+   parallel), print seconds and registers/spills of every entry and
+   chunk-kernel mode (Threefry or fast generator, default physics or
+   variants), each for K = 1..16;
 3. rebuild kernel vs plain version (engine/cuda_engine.chunk_reference)
    on the same CUDA inputs at the main path's shapes, 50 and 4032
    walkers: positions within 1e-4, window sums within 0.05, escapes and
    coverage equal, two kernel runs bitwise equal; times of both;
-4. the main path at full width: SimulationRunner on the 4032-water,
-   270-cell scene (seed 42), 2e6 steps, counting kernel launches;
-5. physics at production width: the reference's own scene dump
-   golden/testdata/scene_6000 (moment x60, 8 Carr-Purcell flips) against
-   the reference oracle's curve, with the gates of
+4. the main path at full width on Threefry: SimulationRunner on the
+   4032-water, 270-cell scene (seed 42), 2e6 steps, counting kernel
+   launches;
+5. physics at production width on Threefry: the reference's own scene
+   dump golden/testdata/scene_6000 (moment x60, 8 Carr-Purcell flips)
+   against the reference oracle's curve, with the gates of
    tests/test_golden_full.py;
 6. the large-scene kernels vs their plain versions on the scale-up scene
    (5253 dipoles), first on its first 4096 waters: candidate-model (near
@@ -37,7 +42,28 @@ failure raises (exit code != 0, no final line):
    kernel's path): 50 launches each of far sums and near/taylor chunk,
    Σcos/W within 1e-5 of phase 7's first 2e5 steps; then the far-sums
    kernel against its plain version at full width, with times of both;
-9. the kernels line, then {"ok": true, "device": {...}}.
+9. (a) the fast and variant modes against their plain versions: the
+   rebuild kernel on the headline scene at 50 and 4032 walkers, fast
+   with the default physics, Threefry with every variant on (intended
+   kick, sphere directions, permeable membranes, a z gradient) and fast
+   with every variant on; the near/taylor kernel in the same three
+   modes on the scale-up scene's first 4096 waters; the gates of phases
+   3 and 6, two kernel runs bitwise equal; times of both;
+10. (b) the headline through the runner on its default, the fast
+   generator: 2e6 steps, 0 escapes, 0 coverage violations, 500
+   chunk_kernel[fast] launches; its curve within 5 sqrt(2/W) of phase
+   4's Threefry curve over the first 4e4 steps (tests/test_pallas.py:
+   113-130);
+11. (c) the golden arms on scene 6000, 4 runs each (keys FW_RUN0 + k,
+   as scripts/golden_paired.run_framework): intended kick, permeable,
+   gradient, each on both generators, and the as-written arm on the
+   fast one, against oracle row 0 of the committed curves, gated at
+   about 2.5x the committed JAX arm's own reading;
+12. (d) the scale-up run on the fast generator, 2e6 steps, 0 escapes, 0
+   coverage violations; then 2e5 steps of it with every variant on,
+   on each generator;
+13. the kernels line (every entry and mode, with its launches in the
+   run of its path), then {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 """
@@ -48,6 +74,7 @@ import re
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -82,6 +109,14 @@ CURVE_TOL = 1e-5   # far table vs exact far sums, Σcos/W (1.563e-7 read)
 TABLE_TOL = 1e-4   # f32 far table vs f64, of each coefficient's scale
 LOW_TOL = 1e-9     # f64 degree 0-2 coefficients vs f64 far sums at centres
 HEADLINE = dict(chunk_steps=4000, near_k=5)
+GRADIENT = (0.0, 0.0, 3e-5)   # T/µm, the golden gradient arm's
+#: golden arm -> (committed curves and config, RMS gate, |final diff|
+#: gate): about 2.5x the committed JAX arm's own reading against oracle
+#: row 0 (scene 6000), and phase 5's gates for the as-written arm
+ARMS = {"intended": ("GOLDEN_T2_FULL_intended", 0.025, 0.060),
+        "permeable": ("GOLDEN_T2_P", 0.010, 0.020),
+        "gradient": ("GOLDEN_T2_G", 0.020, 0.030),
+        "as_written": ("GOLDEN_T2_FULL", 0.025, 0.060)}
 PKG = "mri_nanoparticle_simulation_tpu_torch/csrc/"
 REF = "mri_nanoparticle_simulation_tpu/"
 REPLACES = REF + "engine/pallas_engine.py:171"
@@ -101,28 +136,36 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def chunk_args(p, n_water, step0, tcp=None):
+def chunk_args(p, n_water, step0, tcp=None, rng_impl="threefry"):
     return dict(step0=step0, key=key_words(7), lane_offset=0,
                 num_water=n_water, tcp=p.tcp if tcp is None else tcp,
                 cell_r2=cuda_engine.cell_r2_f32(p.cell_r), dstd=1.0,
-                phys=cuda_engine.chunk_physics(p))
+                phys=cuda_engine.chunk_physics(p, rng_impl))
 
 
-def compare_chunk(p, sc, dev, n_water, tcp=None):
+def all_variants(p):
+    """Every physics variant on: the intended kick with sphere
+    directions, permeable membranes and a z gradient."""
+    return p.replace(kick_mode="intended", direction_mode="sphere",
+                     b0_gradient=GRADIENT).with_permeability().validate()
+
+
+def compare_chunk(p, sc, dev, n_water, tcp=None, rng_impl="threefry"):
     """One chunk of the kernel and of the plain version on the same
     CUDA input (the state after one kernel chunk from the start)."""
     st = init_state(sc.waters[:n_water], p, dev)
     planes = cuda_engine.to_soa(st, p).planes
     tbl = mnp_table(sc.mnps, torch.float32, dev).tbl
     planes, *_ = chunk_kernel.run_chunk(
-        planes, tbl, **chunk_args(p, n_water, 0, tcp))
-    args = chunk_args(p, n_water, p.chunk_steps, tcp)
-    before = chunk_kernel.LAUNCHES["chunk_kernel"]
+        planes, tbl, **chunk_args(p, n_water, 0, tcp, rng_impl))
+    args = chunk_args(p, n_water, p.chunk_steps, tcp, rng_impl)
+    key = chunk_kernel.chunk_mode("chunk_kernel", args["phys"])
+    before = chunk_kernel.LAUNCHES[key]
     k1 = chunk_kernel.run_chunk(planes, tbl, **args)
     k2 = chunk_kernel.run_chunk(planes, tbl, **args)
     torch.cuda.synchronize()
-    check(chunk_kernel.LAUNCHES["chunk_kernel"] == before + 2,
-          "LAUNCHES did not count")
+    check(chunk_kernel.LAUNCHES[key] == before + 2,
+          f"LAUNCHES[{key!r}] did not count")
     for a, b in zip(k1, k2):
         check(torch.equal(a, b), "two kernel runs differ")
     ref = cuda_engine.chunk_reference(planes, tbl, **args)
@@ -132,9 +175,10 @@ def compare_chunk(p, sc, dev, n_water, tcp=None):
     phase_err = (out[4, :n_water] - r_out[4, :n_water]).abs().max().item()
     win_err = (wins.sum(0) - r_wins.sum(0)).abs().max().item()
     incell_diff = int((out[3] != r_out[3]).sum())
-    print(f"  {n_water} walkers: |pos| err {pos_err:.3e} (tol {POS_TOL}), "
-          f"|phase| err {phase_err:.3e}, |wins| err {win_err:.3e} (tol "
-          f"{WIN_TOL}), in-cell flags differing {incell_diff}, escapes "
+    print(f"  {key}, {n_water} walkers: |pos| err {pos_err:.3e} (tol "
+          f"{POS_TOL}), |phase| err {phase_err:.3e}, |wins| err "
+          f"{win_err:.3e} (tol {WIN_TOL}), in-cell flags differing "
+          f"{incell_diff}, escapes "
           f"{int(esc.sum())}/{int(r_esc.sum())}, coverage "
           f"{int(cov.sum())}/{int(r_cov.sum())}", flush=True)
     check(pos_err < POS_TOL, f"positions differ by {pos_err}")
@@ -154,15 +198,31 @@ def launches():
     return dict(chunk_kernel.LAUNCHES)
 
 
+def only(**want):
+    """The LAUNCHES dict with ``want`` and every other key 0."""
+    return {k: want.get(k, 0) for k in chunk_kernel.LAUNCHES}
+
+
+def entry_label(name, fast, variants):
+    """The LAUNCHES key of a kernel entry (chunk kernels by mode)."""
+    if fast is None:
+        return name
+    return chunk_kernel.chunk_mode(name, SimpleNamespace(
+        fast_rng=fast == "1", variants=variants == "1"))
+
+
 def ptxas_resources(log):
-    """{(kernel, K): (registers, spill line)} from the -Xptxas -v log:
+    """{(label, K): (registers, spill line)} from the -Xptxas -v log:
     "Compiling entry function NAME", "Function properties for NAME", its
-    stack/spill line, then "Used N registers" for the entry."""
+    stack/spill line, then "Used N registers" for the entry.  Chunk
+    kernels are templated on <K, fast generator, variants>, the others
+    on <K>."""
     out, entry, props, spill = {}, None, None, {}
-    pat = re.compile(r"([a-z_]+_kernel)ILi(\d+)E")
+    pat = re.compile(r"([a-z_]+_kernel)ILi(\d+)E(?:Lb([01])ELb([01])E)?")
     for ln in log.splitlines():
         m = pat.search(ln)
-        key = (m.group(1), int(m.group(2))) if m else None
+        key = ((entry_label(m.group(1), m.group(3), m.group(4)),
+                int(m.group(2))) if m else None)
         if "Compiling entry function" in ln:
             entry = key
         elif "Function properties for" in ln:
@@ -200,16 +260,19 @@ def main():
 
     t0 = phase("2 build")
     chunk_kernel.build()
+    build_s = time.perf_counter() - t0
     chunk_kernel.load_library()
     res = ptxas_resources(chunk_kernel.build_log())
-    for name in ("chunk_kernel", "chunk_near_kernel", "cand_model_kernel",
-                 "far_sums_kernel"):
+    registers = {}
+    for name in chunk_kernel.LAUNCHES:
         ks = sorted(k for n, k in res if n == name)
         check(ks == list(range(1, 17)), f"{name}: built for K = {ks}")
+        registers[name] = {k: res[name, k][0] for k in ks}
         print(f"  {name} registers by K: "
               f"{' '.join(f'{k}:{res[name, k][0]}' for k in ks)}")
         print(f"  {name} K=5: {res[name, 5][1]}; K=10: {res[name, 10][1]}")
-    done(t0, f"built {chunk_kernel.library_path().name} with "
+    done(t0, f"built {chunk_kernel.library_path().name} ({len(res)} "
+         f"entries) in {build_s:.2f} s with "
          f"{' '.join(chunk_kernel.NVCC_FLAGS)}")
 
     t0 = phase("3 kernel vs plain version")
@@ -229,7 +292,7 @@ def main():
 
     t0 = phase("4 main path, full width")
     runner = SimulationRunner(Params(**HEADLINE), scene_seed=42, seed=7,
-                              device="cuda")
+                              device="cuda", rng_impl="threefry")
     with tempfile.TemporaryDirectory() as tmp:
         csv = os.path.join(tmp, "t2.csv")
         reset_launches()
@@ -241,8 +304,7 @@ def main():
     check(stats["escapes"] == 0, f"{stats['escapes']} escapes")
     check(stats["coverage_violations"] == 0,
           f"{stats['coverage_violations']} coverage violations")
-    check(main_launches == {"chunk_kernel": 500, "chunk_near_kernel": 0,
-                            "cand_model_kernel": 0, "far_sums_kernel": 0},
+    check(main_launches == only(chunk_kernel=500),
           f"kernel launches {main_launches}, expected 500 rebuild")
     check(bool(np.isfinite(cos).all() and np.isfinite(sin).all()),
           "non-finite window sums")
@@ -272,7 +334,7 @@ def main():
     oracle = np.loadtxt(os.path.join(testdata, "paired_6000.csv"),
                         delimiter=",")[:, 1] / gp.N_WATER
     grun = SimulationRunner(gpar, seed=gp.FW_RUN0, device="cuda",
-                            scene=scene)
+                            scene=scene, rng_impl="threefry")
     _, gcos, _, gstats = grun.run(progress=False, max_steps=gp.STEPS)
     ours = gcos / gp.N_WATER
     n = min(len(oracle), len(ours))
@@ -290,12 +352,39 @@ def main():
     done(t0, f"{gstats['walker_steps_per_s']:.4e} walker-steps/s "
          f"[{label}]")
 
-    big = large_scene_phases(dev, label)
+    ctx, big = large_scene_phases(dev, label)
+    modes = mode_phases(dev, label, p, sc, ctx)
+    fast_launches = fast_headline(runner, cos, label)
+    arm_launches = golden_arms(label)
+    near_launches = fast_scaleup(ctx, label)
 
     jax_mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     check(not jax_mods, f"jax was imported: {jax_mods[:5]}")
-    print(f"[9 total {time.perf_counter() - t_all:.1f} s, no jax imported]")
-    print(json.dumps({"kernels": [{
+    print(f"[13 total {time.perf_counter() - t_all:.1f} s, no jax imported]")
+    path_launches = {**main_launches, **fast_launches, **arm_launches,
+                     **near_launches}
+    new = []
+    for name, m in modes.items():
+        entry = name.split("[")[0]
+        fast = "fast" in name
+        new.append({
+            "name": name,
+            "route": "cuda",
+            "source": PKG + entry + ("_fast" if fast else "") + ".cu",
+            "replaces": REPLACES + (" (hardware-RNG loop :603-684)" if fast
+                                    else "") + (" (physics variants "
+                                                ":493-583)"
+                                                if "variants" in name
+                                                else ""),
+            "launches": path_launches[name],
+            "max_abs_err": m["pos_err"],
+            "max_abs_err_wins": m["win_err"],
+            "tolerance": {"positions": POS_TOL, "window_sums": WIN_TOL},
+            "registers": registers[name][m["k"]],
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+        })
+    kernels = [{
         "name": "chunk_kernel",
         "route": "cuda",
         "source": PKG + "chunk_kernel.cu",
@@ -304,13 +393,211 @@ def main():
         "max_abs_err": max(pos50, pos_err),
         "max_abs_err_wins": max(win50, win_err),
         "tolerance": {"positions": POS_TOL, "window_sums": WIN_TOL},
+        "registers": registers["chunk_kernel"][5],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }, *big]}))
+    }, *big, *new]
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    check(not missing, f"no launches in their path's run: {missing}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def mode_phases(dev, label, p, sc, ctx):
+    """Phase 9 (a): every fast and variant mode of both chunk-kernel
+    entries against its plain version; {LAUNCHES key: errors, K, ms}."""
+    t0 = phase("9 (a) fast and variant modes vs plain versions")
+    out = {}
+    for rng_impl, physics in (("hardware", lambda q: q),
+                              ("threefry", all_variants),
+                              ("hardware", all_variants)):
+        pm = physics(p)
+        _, _, _, pos50, win50 = compare_chunk(pm, sc, dev, 50,
+                                              tcp=2 * pm.pfreq,
+                                              rng_impl=rng_impl)
+        planes, tbl, args, pos_err, win_err = compare_chunk(
+            pm, sc, dev, pm.num_water, rng_impl=rng_impl)
+        ms = time_chunk(lambda: chunk_kernel.run_chunk(planes, tbl, **args),
+                        5)
+        plain = time_chunk(
+            lambda: cuda_engine.chunk_reference(planes, tbl, **args), 1)
+        key = chunk_kernel.chunk_mode("chunk_kernel", args["phys"])
+        print(f"  {key}: one chunk (4032 walkers, K=5, 4000 steps) kernel "
+              f"{ms:.3f} ms, plain version {plain:.1f} ms [{label}]",
+              flush=True)
+        out[key] = dict(pos_err=max(pos50, pos_err),
+                        win_err=max(win50, win_err), k=pm.near_k, ms=ms,
+                        plain_ms=plain)
+    big = ctx["p"]
+    for rng_impl, physics in (("hardware", lambda q: q),
+                              ("threefry", all_variants),
+                              ("hardware", all_variants)):
+        cargs = dict(ctx["cargs"], phys=cuda_engine.chunk_physics(
+            physics(big), rng_impl))
+        near, taylor, planes = ctx["near"], ctx["taylor"], ctx["planes"]
+        pos_err, win_err, plain = compare_near_chunk(planes, near, taylor,
+                                                     cargs)
+        ms = time_chunk(lambda: chunk_kernel.run_chunk_near(
+            planes, near, taylor, **cargs), 3)
+        key = chunk_kernel.chunk_mode("chunk_near_kernel", cargs["phys"])
+        print(f"  {key}: one chunk ({cargs['num_water']} walkers, K="
+              f"{big.near_k}) kernel {ms:.3f} ms, plain version "
+              f"{plain:.1f} ms [{label}]", flush=True)
+        out[key] = dict(pos_err=pos_err, win_err=win_err, k=big.near_k,
+                        ms=ms, plain_ms=plain)
+    done(t0, f"{len(out)} modes [{label}]")
+    return out
+
+
+def fast_headline(tf_runner, tf_cos, label):
+    """Phase 10 (b): the headline through the runner on its default
+    generator; its curve against phase 4's Threefry curve."""
+    t0 = phase("10 (b) headline on the fast generator, full width")
+    runner = SimulationRunner(Params(**HEADLINE), scene=tf_runner.scene,
+                              seed=7, device="cuda")
+    check(runner.rng_impl == "hardware", "the runner's default is not fast")
+    reset_launches()
+    _, cos, _, stats = runner.run(progress=False, max_steps=2_000_000)
+    got = launches()
+    check(got == only(**{"chunk_kernel[fast]": 500}),
+          f"kernel launches {got}, expected 500 chunk_kernel[fast]")
+    check(stats["escapes"] == 0, f"{stats['escapes']} escapes")
+    check(stats["coverage_violations"] == 0,
+          f"{stats['coverage_violations']} coverage violations")
+    check(len(cos) == 2000 and bool(np.isfinite(cos).all()),
+          "window sums missing or non-finite")
+    w = 4032
+    d = (cos - tf_cos) / w
+    gate = 5.0 * np.sqrt(2.0 / w)
+    d40 = float(np.abs(d[:40]).max())
+    check(d40 < gate, f"fast vs Threefry over 4e4 steps: {d40}")
+    done(t0, f"2e6 steps x 4032 walkers: {stats['walker_steps_per_s']:.4e} "
+         f"walker-steps/s, wall {stats['wall_s']:.3f} s, launches "
+         f"{got['chunk_kernel[fast]']}, 0 escapes, 0 violations; "
+         f"max |d(sum cos/W)| vs Threefry {d40:.3e} over 4e4 steps (gate "
+         f"{gate:.4f}), {float(np.abs(d).max()):.3e} over 2e6; final sum "
+         f"cos/W {cos[-1] / w:.6f} fast, {tf_cos[-1] / w:.6f} Threefry "
+         f"[{label}]")
+    return {"chunk_kernel[fast]": got["chunk_kernel[fast]"]}
+
+
+def golden_arms(label):
+    """Phase 11 (c): the golden arms on scene 6000 (4 runs each, keys
+    FW_RUN0 + k), against oracle row 0 of the committed curves."""
+    import argparse
+    import dataclasses
+
+    import golden_paired as gp
+    t0 = phase("11 (c) golden arms on scene 6000, 4 runs each")
+    reset_launches()
+    want = {}
+    for arm, (stem, rms_gate, final_gate) in ARMS.items():
+        with open(os.path.join(ROOT, stem + ".json")) as f:
+            cfg = json.load(f)["config"]
+        curves = np.load(os.path.join(ROOT, stem + "_curves.npz"))
+        oracle, jax_arm = curves["oracle"][0], curves["framework"][0]
+        gargs = argparse.Namespace(
+            steps=cfg["steps"], tcp=cfg["tcp"], mscale=cfg["moment_scale"],
+            fw_reps=4, kick=cfg["kick"], gradient=cfg["gradient_z"] or 0.0,
+            reflect=tuple(cfg["reflect_io_oi"]) if cfg["reflect_io_oi"]
+            else None)
+        gpar = gp.framework_params(gargs)
+        scene = gp.load_scene(os.path.join(ROOT, "golden", "testdata",
+                                           "scene_6000"), gpar)
+        mnps = scene.mnps.copy()
+        mnps[:, 4] *= cfg["moment_scale"]
+        scene = dataclasses.replace(scene, mnps=mnps)
+        j = oracle - jax_arm
+        j_rms = float(np.sqrt(np.mean(j ** 2)))
+        gens = ("hardware",) if arm == "as_written" else ("hardware",
+                                                          "threefry")
+        for rng_impl in gens:
+            t1 = time.perf_counter()
+            reps = []
+            for k in range(4):
+                run = SimulationRunner(gpar, seed=gp.FW_RUN0 + k,
+                                       device="cuda", scene=scene,
+                                       rng_impl=rng_impl,
+                                       check_coverage=k == 0)
+                _, gcos, _, st = run.run(progress=False,
+                                         max_steps=cfg["steps"])
+                check(st["escapes"] == 0 and st["coverage_violations"] == 0,
+                      f"{arm} {rng_impl}: escapes {st['escapes']}, "
+                      f"coverage {st['coverage_violations']}")
+                reps.append(gcos / gp.N_WATER)
+            key = chunk_kernel.chunk_mode(
+                "chunk_kernel", cuda_engine.chunk_physics(gpar, rng_impl))
+            want[key] = want.get(key, 0) + 4 * cfg["steps"] // \
+                gpar.chunk_steps
+            ours = np.mean(reps, 0)
+            check(len(ours) == len(oracle) == cfg["steps"] // gp.PFREQ,
+                  f"{arm}: {len(ours)} windows")
+            diff = oracle - ours
+            rms = float(np.sqrt(np.mean(diff ** 2)))
+            print(f"  {arm:10s} {key:28s} rms {rms:.5f} (gate {rms_gate}; "
+                  f"JAX arm {j_rms:.5f}), final diff {diff[-1]:+.5f} (gate "
+                  f"{final_gate}; JAX arm {j[-1]:+.5f}), finals oracle "
+                  f"{oracle[-1]:.4f} port {ours[-1]:.4f} "
+                  f"({time.perf_counter() - t1:.1f} s)", flush=True)
+            check(bool(np.isfinite(ours).all()), f"{arm}: non-finite curve")
+            check(rms < rms_gate, f"{arm} {rng_impl}: rms {rms}")
+            check(abs(diff[-1]) < final_gate,
+                  f"{arm} {rng_impl}: final diff {diff[-1]}")
+    got = launches()
+    check(got == only(**want), f"kernel launches {got}, expected {want}")
+    done(t0, f"launches {want} [{label}]")
+    return {k: v for k, v in got.items() if "variants" in k}
+
+
+def fast_scaleup(ctx, label):
+    """Phase 12 (d): the scale-up run on the fast generator, then 2e5
+    steps with every variant on, on each generator."""
+    t0 = phase("12 (d) scale-up on the fast generator, full width")
+    p, scene = ctx["p"], ctx["runner"].scene
+    runner = SimulationRunner(p, scene=scene, seed=7, device="cuda")
+    reset_launches()
+    _, cos, _, stats = runner.run(progress=False, max_steps=2_000_000)
+    got = launches()
+    check(got == only(**{"chunk_near_kernel[fast]": 500,
+                         "cand_model_kernel": 500}),
+          f"kernel launches {got}")
+    check(stats["escapes"] == 0, f"{stats['escapes']} escapes")
+    check(stats["coverage_violations"] == 0,
+          f"{stats['coverage_violations']} coverage violations")
+    check(len(cos) == 1000 and bool(np.isfinite(cos).all()),
+          "window sums missing or non-finite")
+    print(f"  2e6 steps x {p.num_water} walkers: "
+          f"{stats['walker_steps_per_s']:.4e} walker-steps/s, wall "
+          f"{stats['wall_s']:.3f} s, launches "
+          f"{got['chunk_near_kernel[fast]']}, final sum cos/W "
+          f"{cos[-1] / p.num_water:.6f} [{label}]", flush=True)
+    out = {"chunk_near_kernel[fast]": got["chunk_near_kernel[fast]"]}
+    pv = all_variants(p)
+    for rng_impl in ("threefry", "hardware"):
+        run = SimulationRunner(pv, scene=scene, seed=7, device="cuda",
+                               rng_impl=rng_impl, check_coverage=False)
+        reset_launches()
+        _, vcos, _, vstats = run.run(progress=False, max_steps=200_000)
+        got = launches()
+        key = chunk_kernel.chunk_mode("chunk_near_kernel",
+                                      cuda_engine.chunk_physics(pv, rng_impl))
+        check(got == only(**{key: 50, "cand_model_kernel": 50}),
+              f"kernel launches {got}")
+        check(vstats["escapes"] == 0 and vstats["coverage_violations"] == 0,
+              f"{key}: escapes {vstats['escapes']}, coverage "
+              f"{vstats['coverage_violations']}")
+        check(len(vcos) == 100 and bool(np.isfinite(vcos).all()),
+              f"{key}: window sums missing or non-finite")
+        print(f"  every variant, {key}, 2e5 steps: "
+              f"{vstats['walker_steps_per_s']:.4e} walker-steps/s, final "
+              f"sum cos/W {vcos[-1] / p.num_water:.6f} [{label}]",
+              flush=True)
+        out[key] = got[key]
+    done(t0, f"[{label}]")
+    return out
 
 
 def timed(fn):
@@ -395,7 +682,8 @@ def compare_near_chunk(planes, near, taylor, cargs):
     check(torch.equal(esc, cref[1]), "1c escapes differ")
     check(float(cov.abs().sum()) == 0.0, "1c coverage output not zero")
     check(bool(torch.isfinite(out).all()), "non-finite 1c state")
-    print(f"  near/taylor chunk, {n} walkers, K={near.shape[1]}: |pos| err "
+    key = chunk_kernel.chunk_mode("chunk_near_kernel", cargs["phys"])
+    print(f"  {key}, {n} walkers, K={near.shape[1]}: |pos| err "
           f"{pos_err:.3e} (tol {POS_TOL}), |wins| err {win_err:.3e} (tol "
           f"{WIN_TOL}), escapes {int(esc.sum())}/{int(cref[1].sum())}; "
           f"plain {plain_ms:.1f} ms", flush=True)
@@ -436,7 +724,9 @@ def check_far_table(tbl, cache, p, label):
 
 
 def large_scene_phases(dev, label):
-    """Phases 6-8; returns the kernels-line entries of kernels 1c, 2, 3."""
+    """Phases 6-8; returns the kernels-line entries of kernels 1c, 2, 3,
+    and what the later phases reuse: the scale-up Params, runner, and
+    the 4096-walker near/taylor inputs of phase 6."""
     t0 = phase("6 large-scene kernels vs plain versions (scale-up scene)")
     p = Params(**SCALEUP).validate()
     sc = BacteriaBox(p, seed=42).populate()
@@ -489,7 +779,8 @@ def large_scene_phases(dev, label):
     done(t0, f"{n} walkers [{label}]")
 
     t0 = phase("7 scale-up run, full width (far-table order 5)")
-    runner = SimulationRunner(p, scene_seed=42, seed=7, device="cuda")
+    runner = SimulationRunner(p, scene_seed=42, seed=7, device="cuda",
+                              rng_impl="threefry")
     check(runner.uses_cubes and runner.cache.far_coeffs is not None,
           "the scale-up runner did not take the cube path")
     with tempfile.TemporaryDirectory() as tmp:
@@ -504,8 +795,7 @@ def large_scene_phases(dev, label):
     check(stats["escapes"] == 0, f"{stats['escapes']} escapes")
     check(stats["coverage_violations"] == 0,
           f"{stats['coverage_violations']} coverage violations")
-    check(big_launches == {"chunk_kernel": 0, "chunk_near_kernel": 500,
-                           "cand_model_kernel": 500, "far_sums_kernel": 0},
+    check(big_launches == only(chunk_near_kernel=500, cand_model_kernel=500),
           f"kernel launches {big_launches}")
     check(bool(np.isfinite(cos).all()), "non-finite window sums")
     check(float(np.abs(cos).max()) <= p.num_water, "|sum cos| > num_water")
@@ -534,14 +824,14 @@ def large_scene_phases(dev, label):
 
     t0 = phase("8 scale-up, far_table_order=0 (far-sums kernel)")
     p0 = p.replace(far_table_order=0)
-    runner0 = SimulationRunner(p0, scene_seed=42, seed=7, device="cuda")
+    runner0 = SimulationRunner(p0, scene=runner.scene, seed=7,
+                               device="cuda", rng_impl="threefry")
     check(runner0.uses_cubes and runner0.cache.far_coeffs is None,
           "the order-0 runner has a far table")
     reset_launches()
     _, cos0, _, stats0 = runner0.run(progress=False, max_steps=200_000)
     exact_launches = launches()
-    check(exact_launches == {"chunk_kernel": 0, "chunk_near_kernel": 50,
-                             "cand_model_kernel": 0, "far_sums_kernel": 50},
+    check(exact_launches == only(chunk_near_kernel=50, far_sums_kernel=50),
           f"kernel launches {exact_launches}")
     check(stats0["escapes"] == 0 and stats0["coverage_violations"] == 0,
           f"escapes {stats0['escapes']}, coverage "
@@ -564,7 +854,9 @@ def large_scene_phases(dev, label):
     done(t0, f"far sums at {apos.shape[1]} walkers {far_ms:.3f} ms (plain "
          f"{far_plain_ms:.2f} ms) [{label}]")
 
-    return [{
+    ctx = dict(p=p, runner=runner, planes=planes, near=near, taylor=taylor,
+               cargs=cargs)
+    return ctx, [{
         "name": "chunk_near_kernel",
         "route": "cuda",
         "source": PKG + "chunk_kernel.cu",

@@ -16,7 +16,9 @@ on the scale-up configuration of the reference's benchmark
 (benchmark.py:156-159: 100000 waters, 2000 cells, tau 5e-7, K 10, C 32,
 chunk 4000, far-table order 5), here with Threefry, which runs the
 large-scene path (candidate-model kernel + near/taylor chunk kernel).
-Without a card it raises.
+The headline value and ``detail.scaleup`` run Threefry, the generator
+of the port's earlier figures; ``detail.fast_rng`` holds both runs on
+the fast generator (the runner's default).  Without a card it raises.
 
 Two further modes print one JSON line each:
 
@@ -68,6 +70,8 @@ SCALEUP = dict(num_water=100_000, num_cells=2000, tau=5e-7,
 N_SCALEUP_SPRINTS = 10
 #: scale-up sprints (5 chunks each) traced by --profile
 N_PROFILE_SPRINTS = 4
+_GENERATOR = {cuda_engine.RNG_THREEFRY: "Threefry-20",
+              cuda_engine.RNG_HARDWARE: "fast generator (Philox4x32-10)"}
 
 
 def _timed_sprints(sprint, n, ss, *args, **kw):
@@ -83,7 +87,7 @@ def _timed_sprints(sprint, n, ss, *args, **kw):
     return start.elapsed_time(end) / 1e3, ss, wins
 
 
-def _scaleup_setup():
+def _scaleup_setup(rng_impl: str = cuda_engine.RNG_THREEFRY):
     """The scale-up scene, its table and cache on the card, its sprint
     and the state after one warm-up sprint."""
     dev = require_cuda()
@@ -96,23 +100,25 @@ def _scaleup_setup():
     torch.cuda.synchronize()
     cache_s = time.perf_counter() - t0
     key = key_words(7)
-    sprint = cuda_engine.make_sprint_fn(p, p.num_water, dev)
+    sprint = cuda_engine.make_sprint_fn(p, p.num_water, dev,
+                                        rng_impl=rng_impl)
     ss = cuda_engine.to_soa(init_state(sc.waters, p, dev), p)
     ss, _ = sprint(tbl, key, ss, cache=cache)        # warm-up
     torch.cuda.synchronize()
     return p, sc, tbl, cache, cache_s, key, sprint, ss
 
 
-def scaleup_rate() -> dict:
+def scaleup_rate(rng_impl: str = cuda_engine.RNG_THREEFRY) -> dict:
     """Walker-steps/s of the large-scene path at full width."""
-    p, sc, tbl, cache, cache_s, key, sprint, ss = _scaleup_setup()
+    p, sc, tbl, cache, cache_s, key, sprint, ss = _scaleup_setup(rng_impl)
     seconds, ss, wins = _timed_sprints(sprint, N_SCALEUP_SPRINTS, ss, tbl,
                                        key, cache=cache)
     rate = N_SCALEUP_SPRINTS * p.sprint_steps * p.num_water / seconds
     return {
         "config": "100000 waters x 2000 cells (scene seed 42, "
                   f"{len(sc.mnps)} dipoles), tau 5e-7, K 10, C 32, chunk "
-                  "4000, far-table order 5, Threefry-20, 2e4-step sprints",
+                  f"4000, far-table order 5, {_GENERATOR[rng_impl]}, "
+                  "2e4-step sprints",
         "walker_steps_per_sec": rate,
         "sprints_timed": N_SCALEUP_SPRINTS,
         "seconds": seconds,
@@ -231,20 +237,40 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
             "label": card_label(), "runs": runs}
 
 
-def headline_rate() -> dict:
+def _headline_run(rng_impl: str) -> dict:
+    """Walker-steps/s of the headline run: two timed 2e6-step sprints
+    after a warm-up sprint."""
     dev = require_cuda()
     p = Params(chunk_steps=4000, near_k=5,
                sprint_steps=2_000_000).validate()
     sc = BacteriaBox(p, seed=42).populate()
     tbl = mnp_table(sc.mnps, torch.float32, dev)
     key = key_words(7)
-    sprint = cuda_engine.make_sprint_fn(p, p.num_water, dev)
+    sprint = cuda_engine.make_sprint_fn(p, p.num_water, dev,
+                                        rng_impl=rng_impl)
     ss = cuda_engine.to_soa(init_state(sc.waters, p, dev), p)
     chunk_kernel.load_library()
     ss, wins = sprint(tbl, key, ss)          # warm-up
     torch.cuda.synchronize()
     seconds, ss, wins = _timed_sprints(sprint, N_SPRINTS, ss, tbl, key)
     rate = N_SPRINTS * p.sprint_steps * p.num_water / seconds
+    return {
+        "config": "4032 waters x 270 cells (scene seed 42), chunk 4000, "
+                  f"near_k 5, {_GENERATOR[rng_impl]}, 2e6-step sprints",
+        "walker_steps_per_sec": rate,
+        "sprints_timed": N_SPRINTS,
+        "seconds": seconds,
+        "projected_full_run_s": p.t * p.num_water / rate,
+        "escapes": int(ss.escapes),
+        "coverage_violations": int(ss.coverage),
+        "sum_cos_per_walker": float(wins[-1, 0]) / p.num_water,
+    }
+
+
+def headline_rate() -> dict:
+    run = _headline_run(cuda_engine.RNG_THREEFRY)
+    rate = run.pop("walker_steps_per_sec")
+    dev = require_cuda()
     return {
         "metric": "walker_steps_per_sec",
         "value": rate,
@@ -253,15 +279,12 @@ def headline_rate() -> dict:
         "device": {"name": torch.cuda.get_device_name(dev),
                    "label": card_label()},
         "detail": {
-            "config": "4032 waters x 270 cells (scene seed 42), chunk "
-                      "4000, near_k 5, Threefry-20, 2e6-step sprints",
-            "sprints_timed": N_SPRINTS,
-            "seconds": seconds,
-            "projected_full_run_s": p.t * p.num_water / rate,
-            "escapes": int(ss.escapes),
-            "coverage_violations": int(ss.coverage),
-            "sum_cos_per_walker": float(wins[-1, 0]) / p.num_water,
+            **run,
             "scaleup": scaleup_rate(),
+            "fast_rng": {
+                "headline": _headline_run(cuda_engine.RNG_HARDWARE),
+                "scaleup": scaleup_rate(cuda_engine.RNG_HARDWARE),
+            },
         },
     }
 

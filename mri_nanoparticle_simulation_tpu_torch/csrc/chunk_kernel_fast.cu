@@ -1,0 +1,7 @@
+// The rebuild-mode chunk kernel with the fast generator (Philox4x32-10),
+// K = 1..16, default physics and variants: instantiated here, defined in
+// chunk_kernel.cuh.
+
+#include "chunk_kernel.cuh"
+
+CHUNK_ENTRY(chunk_kernel_fast_launch, launch_chunk, true, model0)

@@ -1,7 +1,9 @@
 """Chunk engine: sprints of chunk-kernel launches, and the plain chunks.
 
-Counterpart of the reference's ``engine/pallas_engine.py`` with the
-Threefry RNG and the default physics, on both of its paths:
+Counterpart of the reference's ``engine/pallas_engine.py`` (not its
+decompose mode) with both of its generators and every physics variant
+(kick mode, direction mode, membrane reflection, background gradient),
+on both of its paths:
 
 * scenes of at most ``REBUILD_MAX_MNPS`` dipoles: one chunk of
   ``chunk_steps`` steps is one launch of the rebuild kernel
@@ -26,6 +28,20 @@ versions of one chunk in each mode, with the kernel's inputs, outputs and
 arithmetic; both build a model and run the one step loop
 (``_chunk_steps``).  The wrappers use them for CPU tensors; on a card
 they are only the yardsticks the kernels are held against.
+
+The generators: ``RNG_THREEFRY`` draws the reference's Threefry words
+(c0 = step, c1 = lane + (pair << 27)), so the port reproduces the JAX
+engines on the same key.  ``RNG_HARDWARE`` is the reference's production
+loop (pallas_engine.py:603-684: step pairs sharing one polynomial
+Box-Muller pair, 16-bit packed cube directions, sparse escape sampling)
+with Philox4x32-10 in place of the TPU's hardware PRNG.  The TPU seeds
+that PRNG per block of walkers and per chunk (pallas_engine.py:415-420,
+894-899), so its stream depends on the block layout and the chunk size;
+the port's is counter-based instead: block j of the words that serve
+the step pair starting at global step s is Philox((key_hi, key_lo),
+(s, lane, j, 0)).  So the plain version reproduces the kernel bit for
+bit, the stream does not change with the chunk size, and walker shards
+(lane_offset) draw distinct streams.
 """
 
 from __future__ import annotations
@@ -35,14 +51,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mri_nanoparticle_simulation_tpu.params import (DIRECTION_CUBE,
-                                                    Params)
+from mri_nanoparticle_simulation_tpu.params import (DIRECTION_SPHERE,
+                                                    KICK_INTENDED, Params)
 
 from .. import rng
 from ..fields import expansion
 from ..fields.dipole import FIELD_SCALE
 from . import chunk_kernel
-from .reference_engine import WalkerState, constant_kick, intracellular_kick
+from .reference_engine import (WalkerState, cauchy_kick_sd, check_overrides,
+                               constant_kick, intracellular_kick)
 
 RNG_THREEFRY = "threefry"
 RNG_HARDWARE = "hardware"
@@ -52,8 +69,10 @@ RNG_HARDWARE = "hardware"
 REBUILD_MAX_MNPS = chunk_kernel.MAX_MNPS
 #: threads per block; W_pad is a multiple of it
 BLOCK = chunk_kernel.BLOCK
-#: random words per walker-step on this path: direction xyz + normal pair
+#: Threefry words per walker-step: direction xyz + normal pair, then the
+#: reflection coin (word 5) and the intended kick's uniform (word 6)
 N_WORDS = 5
+N_WORDS_VARIANTS = 7
 
 
 class ChunkPhysics(NamedTuple):
@@ -66,10 +85,25 @@ class ChunkPhysics(NamedTuple):
     in_stdev: float
     out_stdev: float
     phase_per_tesla: float
-    kick: float           # per-step intracellular kick while in a cell
+    kick: float           # per-step intracellular kick (its constant part)
     bound: float
     travel: float         # per-chunk travel bound, µm
     travel2: float        # its square (the escape threshold)
+    fast_rng: bool = False        # RNG_HARDWARE: the Philox pair loop
+    intended: bool = False        # KICK_INTENDED: + kick_sd * Cauchy term
+    kick_sd: float = 0.0
+    sphere: bool = False          # DIRECTION_SPHERE
+    reflect: bool = False         # membrane reflection compiled in
+    reflect_io: float = 0.0       # bounce probabilities (launch scalars)
+    reflect_oi: float = 0.0
+    gradient: tuple = (0.0, 0.0, 0.0)   # background gradient, T/µm
+
+    @property
+    def variants(self) -> bool:
+        """Whether any physics variant is on (the kernel's variant
+        instantiation reads them as flags)."""
+        return (self.intended or self.sphere or self.reflect
+                or any(self.gradient))
 
 
 class SoAState(NamedTuple):
@@ -96,34 +130,35 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def chunk_physics(params: Params) -> ChunkPhysics:
-    """The kernel's static arguments for ``params``; raises
-    NotImplementedError for physics this slice does not port."""
-    if params.reflect_io > 0 or params.reflect_oi > 0:
-        raise NotImplementedError(
-            "membrane reflection (reflect_io/reflect_oi > 0) is not ported "
-            "yet: ROADMAP Queue 2, chunk-kernel mode 1e")
-    if params.direction_mode != DIRECTION_CUBE:
-        raise NotImplementedError(
-            "direction_mode='sphere' is not ported yet: ROADMAP Queue 2, "
-            "chunk-kernel mode 1e")
-    if params.use_gradient:
-        raise NotImplementedError(
-            "a nonzero b0_gradient is not ported yet: ROADMAP Queue 2, "
-            "chunk-kernel mode 1e")
+def chunk_physics(params: Params,
+                  rng_impl: str = RNG_THREEFRY) -> ChunkPhysics:
+    """The kernel's static arguments for ``params`` and the generator
+    ``rng_impl``; raises NotImplementedError for chunks that are not a
+    whole number of windows (only the reference's scan engine runs
+    those) and ValueError for an unknown generator."""
+    if rng_impl not in (RNG_THREEFRY, RNG_HARDWARE):
+        raise ValueError(f"unknown rng_impl {rng_impl!r}")
     if params.chunk_steps % params.pfreq != 0:
         raise NotImplementedError(
-            "chunk_steps that are not a multiple of pfreq are not ported "
-            "yet: ROADMAP Queue 2, chunk-kernel mode 1e")
-    kick = constant_kick(params)      # raises for the intended kick
+            "chunk_steps that are not a multiple of pfreq run only in the "
+            "reference's scan engine (its window-major mode), which is not "
+            "ported yet: ROADMAP Queue 1 item 1")
     travel2 = float(expansion.default_travel_bound(params) ** 2)
+    intended = params.kick_mode == KICK_INTENDED
     return ChunkPhysics(
         chunk_steps=params.chunk_steps, pfreq=params.pfreq,
         near_k=params.near_k, rounds=params.rng_rounds,
         in_stdev=_f32(params.in_stdev), out_stdev=_f32(params.out_stdev),
-        phase_per_tesla=_f32(params.phase_per_tesla), kick=_f32(kick),
-        bound=_f32(params.bound), travel=_f32(np.sqrt(travel2)),
-        travel2=_f32(travel2))
+        phase_per_tesla=_f32(params.phase_per_tesla),
+        kick=_f32(constant_kick(params)), bound=_f32(params.bound),
+        travel=_f32(np.sqrt(travel2)), travel2=_f32(travel2),
+        fast_rng=rng_impl == RNG_HARDWARE, intended=intended,
+        kick_sd=_f32(cauchy_kick_sd(params)) if intended else 0.0,
+        sphere=params.direction_mode == DIRECTION_SPHERE,
+        reflect=params.reflect_io > 0 or params.reflect_oi > 0,
+        reflect_io=_f32(params.reflect_io),
+        reflect_oi=_f32(params.reflect_oi),
+        gradient=tuple(_f32(g) for g in params.b0_gradient))
 
 
 def cell_r2_f32(cell_r: float) -> float:
@@ -250,14 +285,111 @@ def chunk_near_reference(state, near, taylor, *, step0, key, lane_offset,
     return out, esc, cov, wins
 
 
+#: 2 pi in float32, the sphere direction's azimuth scale
+TWO_PI = _f32(2.0 * np.pi)
+
+
+def _direction(u0, u1, u2, sphere: bool):
+    """Step direction from three uniforms: (dx, dy, dz, inv_norm), with
+    inv_norm None where the direction is a unit vector already.  Cube:
+    2u - 1 per axis, normalised; sphere: cos(theta) = 2 u0 - 1 and azimuth
+    2 pi u1 (pallas_engine.py:512-525)."""
+    if not sphere:
+        dx, dy, dz = 2.0 * u0 - 1.0, 2.0 * u1 - 1.0, 2.0 * u2 - 1.0
+        return dx, dy, dz, _inv_norm(dx, dy, dz)
+    cos_t = 2.0 * u0 - 1.0
+    sin_t = rng.sqrt_rn(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi = TWO_PI * u1
+    return sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t, None
+
+
+def _inv_norm(dx, dy, dz):
+    return torch.rsqrt(torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-12))
+
+
+def _threefry_draws(key, win_step0, lane, phys: ChunkPhysics, dt):
+    """The random inputs of each step of one window on the Threefry path,
+    the whole window's words drawn in one batch: per step (dx, dy, dz,
+    inv_norm, normal, coin, kick uniform, track escapes)."""
+    n_words = N_WORDS_VARIANTS if phys.reflect or phys.intended \
+        else N_WORDS
+    offs = torch.arange(phys.pfreq, device=lane.device)[:, None]
+    words = rng.words_for_step(key, win_step0 + offs, lane, n_words,
+                               rounds=phys.rounds)
+    u0, u1, u2 = (rng.uniform_from_bits(wd, dt) for wd in words[:3])
+    nrm = rng.normal_from_bits(words[3], words[4], dt)
+    coin = rng.uniform_from_bits(words[5], dt) if phys.reflect else None
+    ukick = rng.uniform_from_bits(words[6], dt) if phys.intended else None
+    for i in range(phys.pfreq):
+        yield (*_direction(u0[i], u1[i], u2[i], phys.sphere), nrm[i],
+               None if coin is None else coin[i],
+               None if ukick is None else ukick[i], True)
+
+
+def _fast_draws(key, win_step0, lane, phys: ChunkPhysics, dt):
+    """The random inputs of each step of one window on the fast path
+    (pallas_engine.py:603-684), as ``_threefry_draws`` yields them.  Step
+    pairs share one ``fast_normal_pair``; a pair's words come from
+    Philox blocks at its first step (``rng.philox_words``): cube
+    directions packed in the 16-bit halves of words 0-2 and the normal
+    pair from words 3-4, or sphere directions from uniforms 0-5 and the
+    normals from words 6-7; then the two coins, then the two kick
+    uniforms.  Escapes are sampled at the second step of every pair, or
+    of every second pair when pfreq % 4 == 0; an odd pfreq ends in a
+    single step of 5 words plus its coin and kick."""
+    extra = int(phys.reflect) + int(phys.intended)
+    n_pairs = phys.pfreq // 2
+    first = win_step0 + 2 * torch.arange(n_pairs, device=lane.device)[:, None]
+    if phys.sphere:
+        w = rng.philox_words(key, first, lane, 8 + 2 * extra)
+        n1, n2 = rng.fast_normal_pair(w[6], w[7])
+        u = [rng.uniform_from_bits(w[j], dt) for j in range(6)]
+        dirs = [_direction(*u[:3], True), _direction(*u[3:], True)]
+        nw = 8
+    else:
+        w = rng.philox_words(key, first, lane, 5 + 2 * extra)
+        n1, n2 = rng.fast_normal_pair(w[3], w[4])
+        dx1, dy1 = rng.unpack_pm1(w[0])
+        dz1, dx2 = rng.unpack_pm1(w[1])
+        dy2, dz2 = rng.unpack_pm1(w[2])
+        dirs = [(dx1, dy1, dz1, _inv_norm(dx1, dy1, dz1)),
+                (dx2, dy2, dz2, _inv_norm(dx2, dy2, dz2))]
+        nw = 5
+    coins = kicks = (None, None)
+    if phys.reflect:
+        coins = [rng.uniform_from_bits(w[nw + h], dt) for h in (0, 1)]
+        nw += 2
+    if phys.intended:
+        kicks = [rng.uniform_from_bits(w[nw + h], dt) for h in (0, 1)]
+    for i in range(n_pairs):
+        track = phys.pfreq % 4 != 0 or i % 2 == 1
+        for h, nrm in enumerate((n1, n2)):
+            yield (*(d if d is None else d[i] for d in dirs[h]), nrm[i],
+                   None if coins[h] is None else coins[h][i],
+                   None if kicks[h] is None else kicks[h][i],
+                   h == 1 and track)
+    if phys.pfreq % 2:
+        w = rng.philox_words(key, win_step0 + phys.pfreq - 1, lane,
+                             5 + extra)
+        nrm, _ = rng.fast_normal_pair(w[3], w[4])
+        u0, u1, u2 = (rng.uniform_from_bits(wd, dt) for wd in w[:3])
+        yield (*_direction(u0, u1, u2, phys.sphere), nrm,
+               rng.uniform_from_bits(w[5], dt) if phys.reflect else None,
+               rng.uniform_from_bits(w[5 + phys.reflect], dt)
+               if phys.intended else None, True)
+
+
 def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
                  num_water, tcp, cell_r2, dstd, phys: ChunkPhysics):
     """The steps of one chunk from ``anchor`` [3, W] against the model
     ``near`` [4, K, W] and ``taylor`` [10, W], phases from ``state``.
-    Each step: Threefry words -> cube direction and Box-Muller normal ->
-    move -> masked K-near field + far Taylor -> kick.  Each window: Kahan
-    fold, sums, then the Carr-Purcell flip.  Returns (state', esc,
-    wins)."""
+    Each step (pallas_engine.py:493-583): random inputs
+    (``_threefry_draws`` or ``_fast_draws``) -> direction and normal ->
+    move -> masked K-near field + far Taylor -> membrane reflection (the
+    walker keeps its old position, field and in-cell test when its coin
+    says bounce) -> field kick + intracellular kick + gradient kick.
+    Each window: Kahan fold, sums, then the Carr-Purcell flip.  Returns
+    (state', esc, wins)."""
     dev, dt = state.device, state.dtype
     wp = state.shape[1]
     n_blk = wp // BLOCK
@@ -302,42 +434,53 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
 
     in_sd = const(phys.in_stdev) * dstd
     out_sd = const(phys.out_stdev) * dstd
+    rio, roi = const(phys.reflect_io), const(phys.reflect_oi)
+    gx, gy, gz = phys.gradient
+    draws = _fast_draws if phys.fast_rng else _threefry_draws
     x, y, z = ax, ay, az
     phase, comp = state[4], state[5]
-    _, mind2 = eval_field(x, y, z)
+    bprev, mind2 = eval_field(x, y, z)
     maxd2 = torch.zeros(wp, dtype=dt, device=dev)
     n_win = phys.chunk_steps // phys.pfreq
     wins = torch.zeros((n_blk, n_win, 2), dtype=dt, device=dev)
-    offs = torch.arange(phys.pfreq, device=dev)[:, None]
     for w in range(n_win):
         win_step0 = (step0 + w * phys.pfreq) & rng.MASK
-        # the whole window's words in one batched draw: [pfreq, W]
-        words = rng.words_for_step(key, win_step0 + offs, lane, N_WORDS,
-                                   rounds=phys.rounds)
-        u0, u1, u2 = (rng.uniform_from_bits(wd, dt) for wd in words[:3])
-        nrm = rng.normal_from_bits(words[3], words[4], dt)
         acc = torch.zeros(wp, dtype=dt, device=dev)
-        for i in range(phys.pfreq):
+        for dx, dy, dz, inv_norm, nrm, coin, ukick, track in draws(
+                key, win_step0, lane, phys, dt):
             incell = mind2 < cr2
-            ux = 2.0 * u0[i] - 1.0
-            uy = 2.0 * u1[i] - 1.0
-            uz = 2.0 * u2[i] - 1.0
-            inv_norm = torch.rsqrt(
-                torch.clamp_min(ux * ux + uy * uy + uz * uz, 1e-12))
-            mag = nrm[i] * torch.where(incell, in_sd, out_sd) * inv_norm
-            x = x + ux * mag
-            y = y + uy * mag
-            z = z + uz * mag
-            b, mind2 = eval_field(x, y, z)
+            mag = nrm * torch.where(incell, in_sd, out_sd)
+            if inv_norm is not None:
+                mag = mag * inv_norm
+            x2 = x + dx * mag
+            y2 = y + dy * mag
+            z2 = z + dz * mag
+            b, mind2_new = eval_field(x2, y2, z2)
+            in_new = mind2_new < cr2
+            if phys.reflect:
+                flip = ((incell & ~in_new & (coin < rio))
+                        | (~incell & in_new & (coin < roi)))
+                x2 = torch.where(flip, x, x2)
+                y2 = torch.where(flip, y, y2)
+                z2 = torch.where(flip, z, z2)
+                b = torch.where(flip, bprev, b)
+                in_new = torch.where(flip, incell, in_new)
+                mind2_new = torch.where(flip, mind2, mind2_new)
             kick = b * phys.phase_per_tesla
-            intra = intracellular_kick(phys.kick, mind2 < cr2, dt)
+            intra = intracellular_kick(phys.kick, in_new, dt, ukick,
+                                       phys.kick_sd)
+            if any(phys.gradient):
+                bg = (x2 * gx + y2 * gy + z2 * gz) * phys.phase_per_tesla
+                intra = bg if intra is None else intra + bg
             if intra is not None:
                 kick = kick + intra
             acc = acc + kick
-            ex = x - ax
-            ey = y - ay
-            ez = z - az
-            maxd2 = torch.maximum(maxd2, ex * ex + ey * ey + ez * ez)
+            if track:
+                ex = x2 - ax
+                ey = y2 - ay
+                ez = z2 - az
+                maxd2 = torch.maximum(maxd2, ex * ex + ey * ey + ez * ez)
+            x, y, z, mind2, bprev = x2, y2, z2, mind2_new, b
         # Kahan fold (performUpdate, cuda_sim.cu:814-828), then emit
         ky = acc - comp
         kt = phase + ky
@@ -359,38 +502,36 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
 
 def make_sprint_fn(params: Params, num_water: int, device,
                    dtype=torch.float32, rng_impl: str = RNG_THREEFRY):
-    """``sprint(mnp_tbl, key, state, lane_offset=0, cache=None) ->
-    (state', wins)``: ``params.sprint_steps`` steps as a loop of chunk
-    launches.
+    """``sprint(mnp_tbl, key, state, lane_offset=0, cache=None, tcp=None,
+    cell_r=None, d_scale=None, reflect=None) -> (state', wins)``:
+    ``params.sprint_steps`` steps as a loop of chunk launches.
 
     ``mnp_tbl`` is an ``MnpTable`` (``convert.mnp_table``), ``key`` the
-    Threefry key words (``convert.key_words``), ``state`` an ``SoAState``
-    and ``wins`` f32[n_windows, 2] (Σcos φ, Σsin φ) on the device.
+    key words (``convert.key_words``), ``state`` an ``SoAState`` and
+    ``wins`` f32[n_windows, 2] (Σcos φ, Σsin φ) on the device.
     ``cache`` (``expansion.SceneCache``, from ``expansion.build_cache``
     once per scene) serves scenes above ``REBUILD_MAX_MNPS`` dipoles; a
     large scene without one gets a cache without far table, built in
     each sprint call, as in the reference.  The loop never reads the
-    device, so sprints queue behind each other."""
+    device, so sprints queue behind each other.
+
+    ``tcp`` (Carr-Purcell interval, steps), ``cell_r`` (µm), ``d_scale``
+    (diffusion scale) and ``reflect`` (a (reflect_io, reflect_oi) pair;
+    needs reflection on in ``params``) override their ``params`` values
+    as the kernels' launch scalars, as in the reference's sprint
+    (pallas_engine.py:901-929): cell_r is squared as a float32 product
+    and d_scale rides as its float32 square root."""
     params.validate()
-    if rng_impl == RNG_HARDWARE:
-        raise NotImplementedError(
-            "rng_impl='hardware' (a fast in-kernel generator in place of "
-            "the TPU's PRNG) is not ported yet: ROADMAP Queue 2, "
-            "chunk-kernel mode 1b")
-    if rng_impl != RNG_THREEFRY:
-        raise ValueError(f"unknown rng_impl {rng_impl!r}")
     if dtype != torch.float32:
         raise ValueError("the chunk kernel runs in float32")
-    phys = chunk_physics(params)
+    phys = chunk_physics(params, rng_impl)
     if params.sprint_steps % params.chunk_steps != 0:
         raise ValueError("sprint_steps must be a multiple of chunk_steps")
     n_chunks = params.sprint_steps // params.chunk_steps
-    cr2 = cell_r2_f32(params.cell_r)
     device = torch.device(device)
     k = params.near_k
-    reach2 = expansion.coverage_reach2(params)
 
-    def large_model(planes, tbl: MnpTable, cache):
+    def large_model(planes, tbl: MnpTable, cache, reach2):
         """The field model of one large-scene chunk at the wrapped
         anchors ``planes[:3]``: (near, taylor, n_reach)."""
         if cache is not None and cache.far_coeffs is not None:
@@ -406,7 +547,14 @@ def make_sprint_fn(params: Params, num_water: int, device,
         return near.contiguous(), taylor.contiguous(), nf.n_reach
 
     def sprint(mnp_tbl: MnpTable, key, state: SoAState, lane_offset=0,
-               cache=None):
+               cache=None, tcp=None, cell_r=None, d_scale=None,
+               reflect=None):
+        if reflect is not None and not phys.reflect:
+            raise ValueError(
+                "reflect overrides need reflection enabled in the static "
+                "params (e.g. params.with_permeability()); the engine was "
+                "built with reflect_io = reflect_oi = 0")
+        check_overrides(tcp, cell_r, d_scale, reflect)
         n_mnp = mnp_tbl.n_mnp
         check_scene(params, n_mnp)
         planes, step, escapes, coverage = state
@@ -415,8 +563,14 @@ def make_sprint_fn(params: Params, num_water: int, device,
                 and planes.device.index != device.index):
             raise ValueError(f"state is on {planes.device}, the sprint "
                              f"was built for {device}")
+        cr = params.cell_r if cell_r is None else float(cell_r)
+        dstd = 1.0 if d_scale is None \
+            else float(np.sqrt(np.float32(d_scale)))
+        cphys = phys if reflect is None else phys._replace(
+            reflect_io=_f32(reflect[0]), reflect_oi=_f32(reflect[1]))
         args = dict(key=key, lane_offset=lane_offset, num_water=num_water,
-                    tcp=params.tcp, cell_r2=cr2, dstd=1.0, phys=phys)
+                    tcp=params.tcp if tcp is None else int(tcp),
+                    cell_r2=cell_r2_f32(cr), dstd=dstd, phys=cphys)
         rebuild = n_mnp <= REBUILD_MAX_MNPS
         if not rebuild:
             if cache is None and needs_cache(num_water, n_mnp):
@@ -424,6 +578,7 @@ def make_sprint_fn(params: Params, num_water: int, device,
                                               params, far_table=False)
             valid = torch.arange(planes.shape[1],
                                  device=planes.device) < num_water
+            reach2 = expansion.coverage_reach2(params, cr)
         outs = []
         for _ in range(n_chunks):
             if rebuild:
@@ -432,7 +587,8 @@ def make_sprint_fn(params: Params, num_water: int, device,
             else:
                 planes = torch.cat([_wrap(planes[:3], phys.bound),
                                     planes[3:]])
-                near, taylor, n_reach = large_model(planes, mnp_tbl, cache)
+                near, taylor, n_reach = large_model(planes, mnp_tbl, cache,
+                                                    reach2)
                 coverage = coverage + ((n_reach > k) & valid).sum()
                 planes, esc, cov, wins = chunk_kernel.run_chunk_near(
                     planes, near, taylor, step0=step & rng.MASK, **args)

@@ -60,12 +60,14 @@ class SimulationRunner:
     walker state.
 
     ``device`` has no default, and a CUDA device without a card raises:
-    the runner never moves to the CPU on its own.  ``cache_build_s`` is
-    the wall time of the scene cache build (0 when the scene needs
-    none)."""
+    the runner never moves to the CPU on its own.  ``rng_impl`` defaults
+    to the fast generator, the reference runner's production default
+    (``RNG_THREEFRY`` is the bit-reproducible validation path).
+    ``cache_build_s`` is the wall time of the scene cache build (0 when
+    the scene needs none)."""
 
     def __init__(self, params: Params, scene_seed: int = 0, seed: int = 0,
-                 *, device, rng_impl: str = cuda_engine.RNG_THREEFRY,
+                 *, device, rng_impl: str = cuda_engine.RNG_HARDWARE,
                  check_coverage: bool = True, scene=None):
         self.params = params.validate()
         self.device = torch.device(device)
@@ -195,6 +197,14 @@ def main(argv=None):
     ap.add_argument("--totaltime", type=float, default=40.0,
                     help="simulated time, ms")
     ap.add_argument("--taucp", type=float, default=5.5)
+    ap.add_argument("--mmoment", type=float, default=3.5e-17)
+    ap.add_argument("--cell-r", type=float, default=0.55)
+    ap.add_argument("--kick-mode", default="as_written",
+                    choices=["as_written", "intended", "constant", "none"])
+    ap.add_argument("--permeable", action="store_true",
+                    help="use the physical reflectIO/OI permeability")
+    ap.add_argument("--impermeable", action="store_true",
+                    help="reflectIO = reflectOI = 1")
     ap.add_argument("--chunk-steps", type=int, default=4000,
                     help="field-model rebuild interval (auto-shrunk for "
                          "short runs)")
@@ -205,6 +215,10 @@ def main(argv=None):
     ap.add_argument("--hash-dim", type=int, default=20)
     ap.add_argument("--tau", type=float, default=1e-6,
                     help="timestep in ms (reference: 1e-6 = 1 ns)")
+    ap.add_argument("--gradient", default=None, metavar="GX,GY,GZ",
+                    help="constant background B_z gradient in T/µm; a "
+                         "negative leading component needs the = form "
+                         "(--gradient=-1e-4,0,0)")
     ap.add_argument("--cube-candidates", type=int, default=96)
     ap.add_argument("--far-table-order", type=int, default=5,
                     help="per-cube far-field Taylor order on the "
@@ -219,25 +233,43 @@ def main(argv=None):
                     help="CSV path (default: reference-style filename)")
     ap.add_argument("--quadrature", action="store_true",
                     help="also emit the sum-sin column")
-    ap.add_argument("--rng", default=cuda_engine.RNG_THREEFRY,
-                    choices=[cuda_engine.RNG_THREEFRY],
-                    help="RNG implementation (the port has Threefry only)")
+    ap.add_argument("--rng", default=cuda_engine.RNG_HARDWARE,
+                    choices=[cuda_engine.RNG_HARDWARE,
+                             cuda_engine.RNG_THREEFRY],
+                    help="RNG implementation: hardware (the default) is "
+                         "the fast generator, Philox4x32-10 in place of "
+                         "the TPU's hardware PRNG; threefry is the "
+                         "bit-reproducible validation path")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' fails without a card")
     args = ap.parse_args(argv)
 
     params = Params(
         num_water=args.num_water, num_cells=args.num_cells,
-        totaltime=args.totaltime, taucp=args.taucp,
+        totaltime=args.totaltime, taucp=args.taucp, mmoment=args.mmoment,
+        cell_r=args.cell_r, kick_mode=args.kick_mode,
         chunk_steps=args.chunk_steps, near_k=args.near_k,
         sprint_steps=args.sprint_steps, max_neighbors=args.max_neighbors,
         hash_dim=args.hash_dim, tau=args.tau,
         cube_candidates=args.cube_candidates,
         far_table_order=args.far_table_order)
+    if args.gradient:
+        try:
+            g = tuple(float(v) for v in args.gradient.split(","))
+            if len(g) != 3:
+                raise ValueError(args.gradient)
+        except ValueError:
+            ap.error("--gradient wants three comma-separated numbers "
+                     "(GX,GY,GZ in T/µm)")
+        params = params.replace(b0_gradient=g)
     params = params.replace(
         chunk_steps=fit_chunk_steps(params, args.chunk_steps))
     params = params.replace(
         sprint_steps=fit_sprint_steps(params, args.sprint_steps))
+    if args.permeable:
+        params = params.with_permeability()
+    if args.impermeable:
+        params = params.impermeable()
     params.validate()
 
     csv_path = args.out or writer_mod.default_output_path(params)

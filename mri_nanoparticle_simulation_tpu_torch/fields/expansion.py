@@ -197,11 +197,13 @@ def _cube_index(pos, h: int, bound: float):
     return torch.clamp((pos / cube).to(torch.int32), 0, h - 1).long(), cube
 
 
-def coverage_reach2(params: Params) -> float:
+def coverage_reach2(params: Params, cell_r: float | None = None) -> float:
     """The large path's squared coverage reach (cell_r + travel)^2 in
     f32, from cell_r itself (pallas_engine.py:1011-1013; the rebuild
-    kernel squares sqrt(cell_r^2) + travel instead)."""
-    r = np.float32(params.cell_r) + np.float32(default_travel_bound(params))
+    kernel squares sqrt(cell_r^2) + travel instead); ``cell_r``
+    overrides ``params.cell_r``."""
+    cr = params.cell_r if cell_r is None else cell_r
+    r = np.float32(cr) + np.float32(default_travel_bound(params))
     return float(r * r)
 
 

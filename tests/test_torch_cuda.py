@@ -7,7 +7,9 @@ on a machine with an NVIDIA H100:
 
 Tolerances: the chunk kernels have the reference's compiled-kernel ones
 (tests/test_pallas.py:109-111): positions within 1e-4, window sums
-within 0.05; escapes and coverage counts equal.  The candidate-model
+within 0.05; escapes and coverage counts equal.  That holds in every
+mode: the Threefry and the fast generator, each with the default
+physics and with every variant on.  The candidate-model
 kernel: near slots equal (ties excepted), taylor within 1e-5 of the
 largest |component|, n_reach equal.  The far-sums kernel: 1e-5 relative
 (tests/test_fields.py:375).
@@ -56,13 +58,13 @@ def _params(over):
     return P.small_test_params(**base)
 
 
-def _chunk(p, sc, dev, step0=0):
+def _chunk(p, sc, dev, step0=0, rng_impl=cuda_engine.RNG_THREEFRY):
     ss = cuda_engine.to_soa(init_state(sc.waters, p, dev), p)
     tbl = convert.mnp_table(sc.mnps, torch.float32, dev).tbl
     args = dict(step0=step0, key=KEY, lane_offset=3,
                 num_water=p.num_water, tcp=p.tcp,
                 cell_r2=cuda_engine.cell_r2_f32(p.cell_r), dstd=1.0,
-                phys=cuda_engine.chunk_physics(p))
+                phys=cuda_engine.chunk_physics(p, rng_impl))
     return ss.planes, tbl, args
 
 
@@ -136,14 +138,101 @@ def test_runner_on_card(dev, tmp_path):
     p = P.small_test_params(totaltime=0.001, sprint_steps=500)
     before = chunk_kernel.LAUNCHES["chunk_kernel"]
     _, c, _, stats = sim.SimulationRunner(p, scene_seed=3, seed=2,
-                                          device="cuda").run(
+                                          device="cuda",
+                                          rng_impl="threefry").run(
         csv_path=str(tmp_path / "t2.csv"), progress=False)
     assert chunk_kernel.LAUNCHES["chunk_kernel"] - before == \
         p.t // p.chunk_steps
     assert stats["steps"] == p.t and stats["escapes"] == 0
     _, c_cpu, _, _ = sim.SimulationRunner(p, scene_seed=3, seed=2,
-                                          device="cpu").run(progress=False)
+                                          device="cpu",
+                                          rng_impl="threefry").run(
+        progress=False)
     np.testing.assert_allclose(c, c_cpu, atol=0.05)
+
+
+# -- the fast generator and the physics variants -------------------------------
+
+GRADIENT = (1e-4, 0.0, 2e-4)
+
+
+def _all_variants(p):
+    return p.replace(kick_mode=P.KICK_INTENDED,
+                     direction_mode=P.DIRECTION_SPHERE,
+                     b0_gradient=GRADIENT).with_permeability()
+
+
+#: name -> (generator, physics, LAUNCHES key suffix)
+MODES = {
+    "fast": (cuda_engine.RNG_HARDWARE, lambda p: p, "[fast]"),
+    "variants": (cuda_engine.RNG_THREEFRY, _all_variants, "[variants]"),
+    "fast+variants": (cuda_engine.RNG_HARDWARE, _all_variants,
+                      "[fast+variants]"),
+    # one extra word per step pair: the coins sit where the kicks would
+    "fast_reflection": (cuda_engine.RNG_HARDWARE,
+                        lambda p: p.with_permeability(), "[fast+variants]"),
+}
+
+
+@pytest.mark.parametrize("pfreq", [100, 50, 125])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_mode_kernel_matches_plain_version(dev, mode, pfreq):
+    """Each mode at pfreq % 4 == 0, even and odd: the kernel against its
+    plain version, bitwise in two runs, counted under its mode's key."""
+    rng_impl, physics, tag = MODES[mode]
+    p = physics(_params(dict(
+        chunk_steps=2 * pfreq, print_interval=pfreq * 1e-6,
+        totaltime=4 * pfreq * 1e-6, sprint_steps=4 * pfreq,
+        taucp=pfreq * 1e-6, num_water=200, mmoment=3.5e-15,
+        water_start_bound=7.9, avoid_intracellular_throw=False))).validate()
+    sc = BacteriaBox(p, seed=3).populate()
+    planes, tbl, args = _chunk(p, sc, dev, step0=1000, rng_impl=rng_impl)
+    key = chunk_kernel.chunk_mode("chunk_kernel", args["phys"])
+    assert key == "chunk_kernel" + tag
+    before = chunk_kernel.LAUNCHES[key]
+    got = chunk_kernel.run_chunk(planes, tbl, **args)
+    again = chunk_kernel.run_chunk(planes, tbl, **args)
+    assert chunk_kernel.LAUNCHES[key] == before + 2
+    ref = cuda_engine.chunk_reference(planes, tbl, **args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _assert_close(got, ref, p.num_water)
+
+
+@pytest.mark.parametrize("mode", ["fast", "variants", "fast+variants"])
+def test_mode_near_kernel_matches_plain_version(large, mode):
+    p, _, cache, planes, reach2 = large
+    rng_impl, physics, tag = MODES[mode]
+    p = physics(p).validate()
+    near, taylor, _ = expansion.build_planes(planes[:3].contiguous(), p,
+                                             cache, reach2=reach2)
+    args = dict(step0=p.chunk_steps, key=KEY, lane_offset=3,
+                num_water=p.num_water - 6, tcp=p.tcp,
+                cell_r2=cuda_engine.cell_r2_f32(p.cell_r), dstd=1.0,
+                phys=cuda_engine.chunk_physics(p, rng_impl))
+    key = "chunk_near_kernel" + tag
+    before = chunk_kernel.LAUNCHES[key]
+    got = chunk_kernel.run_chunk_near(planes, near, taylor, **args)
+    assert chunk_kernel.LAUNCHES[key] == before + 1
+    ref = cuda_engine.chunk_near_reference(planes, near, taylor, **args)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, p.num_water - 6)
+
+
+def test_fast_runner_on_card_matches_cpu(dev):
+    """The runner's default generator on the card and on the CPU: the
+    same counter-based stream, so the same run."""
+    p = P.small_test_params(totaltime=0.001, sprint_steps=500)
+    before = chunk_kernel.LAUNCHES["chunk_kernel[fast]"]
+    _, c, _, st = sim.SimulationRunner(p, scene_seed=3, seed=2,
+                                       device="cuda").run(progress=False)
+    assert chunk_kernel.LAUNCHES["chunk_kernel[fast]"] - before == \
+        p.t // p.chunk_steps
+    _, c_cpu, _, st_cpu = sim.SimulationRunner(
+        p, scene_seed=3, seed=2, device="cpu").run(progress=False)
+    np.testing.assert_allclose(c, c_cpu, atol=0.05)
+    assert st["escapes"] == st_cpu["escapes"] == 0
 
 
 # -- the large-scene kernels ---------------------------------------------------
@@ -249,8 +338,9 @@ def test_cube_path_sprint_on_card_matches_cpu(dev, monkeypatch):
             init_state(sc.waters, p, d), p), cache=cache)
         launched = {k: chunk_kernel.LAUNCHES[k] - before[k] for k in before}
         want = n if d.type == "cuda" else 0
-        assert launched == {"chunk_kernel": 0, "chunk_near_kernel": want,
-                            "cand_model_kernel": want, "far_sums_kernel": 0}
+        assert launched == {**{k: 0 for k in before},
+                            "chunk_near_kernel": want,
+                            "cand_model_kernel": want}
         out[d.type] = (cuda_engine.from_soa(ss, p.num_water), wins.cpu())
     (st_c, w_c), (st_g, w_g) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(st_g.pos.cpu().numpy(), st_c.pos.numpy(),

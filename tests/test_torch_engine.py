@@ -6,8 +6,12 @@
   their tolerances (positions 5e-6, window sums 1e-3);
 * a run handed across frameworks mid-way (``engine.convert``);
 * the runner's CSV against the reference runner's, and the writers' bytes;
-* what the slice does not port raises, and nothing falls back to the CPU;
+* the CLI's physics flags build the reference CLI's Params;
+* what the port does not run raises, and nothing falls back to the CPU;
 * the package imports without jax.
+
+The physics variants and the fast generator are held against the JAX
+package in tests/test_torch_variants.py.
 """
 
 import os
@@ -37,7 +41,8 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # tests/test_pallas.py TestEngineEquivalence, the configurations of the
-# default physics (reflection and the intended kick are not ported)
+# default physics (its reflection and intended-kick cases are in
+# tests/test_torch_variants.py)
 ENGINE_CASES = {
     "chunk_equals_pfreq": dict(chunk_steps=100, num_water=64,
                                totaltime=0.001, sprint_steps=500),
@@ -171,7 +176,8 @@ def runner_csvs(tmp_path_factory):
                                rng_impl="threefry", interpret=True)
     j = jr.run(csv_path=str(d / "jax.csv"), quadrature=True,
                progress=False)
-    tr = sim.SimulationRunner(p, scene_seed=3, seed=2, device="cpu")
+    tr = sim.SimulationRunner(p, scene_seed=3, seed=2, device="cpu",
+                              rng_impl="threefry")
     t = tr.run(csv_path=str(d / "port.csv"), quadrature=True,
                progress=False, drain_depth=1)
     return p, (d / "jax.csv").read_text(), (d / "port.csv").read_text(), \
@@ -227,10 +233,6 @@ def test_fit_steps_match_jax(t, req):
 
 
 UNPORTED = {
-    "reflection": dict(reflect_io=0.5, reflect_oi=0.5),
-    "intended_kick": dict(kick_mode=P.KICK_INTENDED),
-    "sphere_directions": dict(direction_mode=P.DIRECTION_SPHERE),
-    "gradient": dict(b0_gradient=(0.0, 0.0, 1e-4)),
     "chunk_below_pfreq": dict(chunk_steps=50),
 }
 
@@ -238,17 +240,24 @@ UNPORTED = {
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_physics_raises(name):
     p = P.small_test_params(**UNPORTED[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="scan engine.*ROADMAP Queue 1 item 1"):
         cuda_engine.make_sprint_fn(p, p.num_water, "cpu")
 
 
 def test_unported_paths_raise():
-    p = P.small_test_params()
-    with pytest.raises(NotImplementedError, match="chunk-kernel mode 1b"):
-        cuda_engine.make_sprint_fn(p, p.num_water, "cpu",
-                                   rng_impl="hardware")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.SimulationRunner(p, device="cpu", rng_impl="hardware")
+    """The hardware generator builds and runs on the CPU (its plain
+    version), as the runner's default; an unknown generator raises."""
+    p = P.small_test_params(totaltime=0.0002, sprint_steps=200)
+    runner = sim.SimulationRunner(p, scene_seed=3, device="cpu")
+    assert runner.rng_impl == "hardware"
+    _, c, _, stats = runner.run(progress=False)
+    assert stats["steps"] == p.t and np.all(np.isfinite(c))
+    assert np.all(np.abs(c) <= p.num_water)
+    with pytest.raises(ValueError, match="unknown rng_impl"):
+        cuda_engine.make_sprint_fn(p, p.num_water, "cpu", rng_impl="mt")
+    with pytest.raises(ValueError, match="unknown rng_impl"):
+        sim.SimulationRunner(p, device="cpu", rng_impl="mt")
 
 
 def test_near_k_above_dipole_count_raises():
@@ -296,6 +305,60 @@ def test_cli_runs_on_cpu(tmp_path):
     t, c, s = writer.read_t2_csv(str(out))
     np.testing.assert_allclose(t, [1e-3, 2e-3])
     assert np.all(np.abs(c) <= 64) and np.all(np.isfinite(s))
+
+
+VARIANT_FLAGS = ["--kick-mode", "intended", "--permeable",
+                 "--gradient=0,0,2e-5", "--mmoment", "7e-17", "--cell-r",
+                 "0.6", "--num-water", "64", "--totaltime", "0.002",
+                 "--taucp", "0.001", "--chunk-steps", "1000",
+                 "--sprint-steps", "1000", "--scene-seed", "1"]
+
+
+class _Built(Exception):
+    pass
+
+
+def _cli_runner_args(monkeypatch, mod, argv):
+    """(params, rng_impl) that ``mod.main(argv)`` hands its runner."""
+    def capture(params, *a, **kw):
+        raise _Built(params, kw.get("rng_impl"))
+    monkeypatch.setattr(mod, "SimulationRunner", capture)
+    if hasattr(mod, "enable_compile_cache"):
+        monkeypatch.setattr(mod, "enable_compile_cache", lambda: None)
+    with pytest.raises(_Built) as got:
+        mod.main(argv)
+    return got.value.args
+
+
+@pytest.mark.parametrize("flags", [
+    VARIANT_FLAGS, VARIANT_FLAGS[:2] + ["--impermeable", "--rng",
+                                        "threefry"], []])
+def test_cli_params_match_jax_cli(monkeypatch, tmp_path, flags):
+    """The same flags build the same Params as the reference CLI
+    (sim.py:808-836), and both default to the hardware generator."""
+    out = ["--out", str(tmp_path / "t2.csv")]
+    p, rng_impl = _cli_runner_args(monkeypatch, sim,
+                                   flags + out + ["--device", "cpu"])
+    jp, jrng_impl = _cli_runner_args(monkeypatch, jsim, flags + out)
+    assert p == jp
+    assert rng_impl == jrng_impl == ("threefry" if "threefry" in flags
+                                     else "hardware")
+
+
+def test_cli_runs_physics_variants_on_cpu(tmp_path):
+    out = tmp_path / "t2.csv"
+    assert sim.main(VARIANT_FLAGS + ["--out", str(out), "--device",
+                                     "cpu"]) == 0
+    t, c = writer.read_t2_csv(str(out))
+    np.testing.assert_allclose(t, [1e-3, 2e-3])
+    assert np.all(np.abs(c) <= 64) and np.all(np.isfinite(c))
+
+
+@pytest.mark.parametrize("bad", ["1,2", "a,b,c", "1,2,3,4"])
+def test_cli_rejects_malformed_gradient(bad, capsys):
+    with pytest.raises(SystemExit):
+        sim.main([f"--gradient={bad}", "--device", "cpu"])
+    assert "three comma-separated numbers" in capsys.readouterr().err
 
 
 def test_package_imports_without_jax():
