@@ -3,10 +3,10 @@
 
 Drives the port's paths (the reference headline T2 run, and the 100k x
 2000 scale-up run on the large-scene path, each on the Threefry and on
-the fast generator; the physics variants through the golden arms)
-through the hand-written CUDA kernels, phase by phase; each phase prints
-what it measured, and any failure raises (exit code != 0, no final
-line):
+the fast generator; the physics variants through the golden arms; the
+phase-decomposition runs of README configuration 5c) through the
+hand-written CUDA kernels, phase by phase; each phase prints what it
+measured, and any failure raises (exit code != 0, no final line):
 
 1. device: the card, its power limit, the torch/CUDA versions;
 2. build: compile every csrc/*.cu with nvcc (one process per source, in
@@ -55,19 +55,50 @@ line):
    4's Threefry curve over the first 4e4 steps (tests/test_pallas.py:
    113-130);
 11. (c) the golden arms on scene 6000, 4 runs each (keys FW_RUN0 + k,
-   as scripts/golden_paired.run_framework): intended kick, permeable,
+   as the repository's scripts/golden_paired.py runs them; the scene and
+   Params from the port's golden module): intended kick, permeable,
    gradient, each on both generators, and the as-written arm on the
    fast one, against oracle row 0 of the committed curves, gated at
    about 2.5x the committed JAX arm's own reading;
 12. (d) the scale-up run on the fast generator, 2e6 steps, 0 escapes, 0
    coverage violations; then 2e5 steps of it with every variant on,
    on each generator;
-13. the kernels line (every entry and mode, with its launches in the
-   run of its path), then {"ok": true, "device": {...}}.
+13. nothing of jax or of the JAX package has been imported;
+14. the decompose mode of both chunk-kernel entries against its plain
+   version in every mode (Threefry, fast, each with every variant on):
+   the rebuild entry on the headline scene at 50 and 4032 walkers, the
+   near entry on the scale-up scene's first 4096 waters; positions
+   within 1e-4, A and B per walker within 1e-5, escapes and coverage
+   equal, two kernel runs bitwise equal; times of kernel and plain
+   version, and of each decompose kernel beside its plain-mode sibling
+   (4032 walkers, K 5; 100096 walkers, K 10);
+15. README configuration 5c through the port CLI at full width on the
+   fast generator: the headline, 2e6 steps, taucp 0.25, four moment
+   scales x four echo spacings, --dump-record and --fit-r2: 16 CSVs of
+   2000 rows, 0 escapes, 0 violations, only chunk_kernel[fast+dec]
+   launched (500 times), three grid points within 5e-5 (first 4e4
+   steps) and 1e-3 (the run) in Σcos/W of direct runs; the time split
+   (device, record copy, host); then a Threefry decompose run on golden
+   scene 6000 at the base moment reconstructed at s = 60, within phase
+   5's gates of the oracle and within 1e-3 of phase 5's direct curve;
+   then 2e5 headline steps with every variant on, on each generator,
+   against direct runs;
+16. the scale-up with a streaming (moment x taucp) plane on the fast
+   generator, 2e5 steps: 0 escapes, 0 violations, only
+   chunk_near_kernel[fast+dec] and cand_model_kernel launched, the s = 1
+   curve within 5e-5 of a direct run; the time split; then 2e4 steps on
+   Threefry and with every variant on, on each generator;
+17. the kernels line (every entry and mode, with its launches in the
+   run of its path, its time beside its plain version's and its bound),
+   then {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 """
 
+import contextlib
+import dataclasses
+import glob
+import io
 import json
 import os
 import re
@@ -82,12 +113,13 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from mri_nanoparticle_simulation_tpu.params import Params  # noqa: E402
-from mri_nanoparticle_simulation_tpu.scene import BacteriaBox  # noqa: E402
+from mri_nanoparticle_simulation_tpu_torch import golden  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (  # noqa: E402
     SCALEUP)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
-    chunk_kernel, cuda_engine)
+    chunk_kernel, cuda_engine, sim)
+from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
+    decompose as dec)
 from mri_nanoparticle_simulation_tpu_torch.engine.convert import (  # noqa
     key_words, mnp_table)
 from mri_nanoparticle_simulation_tpu_torch.fields import (  # noqa: E402
@@ -98,6 +130,9 @@ from mri_nanoparticle_simulation_tpu_torch.engine.sim import (  # noqa: E402
     SimulationRunner)
 from mri_nanoparticle_simulation_tpu_torch.io.writer import (  # noqa: E402
     read_t2_csv)
+from mri_nanoparticle_simulation_tpu_torch.params import Params  # noqa: E402
+from mri_nanoparticle_simulation_tpu_torch.scene import (  # noqa: E402
+    BacteriaBox)
 from mri_nanoparticle_simulation_tpu_torch.utils.device import (  # noqa: E402
     card_label, require_cuda)
 
@@ -108,6 +143,10 @@ FAR_TOL = 1e-5     # relative, tests/test_fields.py:375
 CURVE_TOL = 1e-5   # far table vs exact far sums, Σcos/W (1.563e-7 read)
 TABLE_TOL = 1e-4   # f32 far table vs f64, of each coefficient's scale
 LOW_TOL = 1e-9     # f64 degree 0-2 coefficients vs f64 far sums at centres
+DEC_TOL = 1e-5     # A and B per walker, decompose kernel vs plain version
+REC_TOL = 5e-5     # Σcos/W, reconstruction vs a direct run (early windows;
+#                    tests/test_decompose.py:57)
+REC_RUN_TOL = 1e-3  # the same over the whole run
 HEADLINE = dict(chunk_steps=4000, near_k=5)
 GRADIENT = (0.0, 0.0, 3e-5)   # T/µm, the golden gradient arm's
 #: golden arm -> (committed curves and config, RMS gate, |final diff|
@@ -120,6 +159,125 @@ ARMS = {"intended": ("GOLDEN_T2_FULL_intended", 0.025, 0.060),
 PKG = "mri_nanoparticle_simulation_tpu_torch/csrc/"
 REF = "mri_nanoparticle_simulation_tpu/"
 REPLACES = REF + "engine/pallas_engine.py:171"
+#: the card's peak rates for the bounds (NVIDIA H100 SXM at 700 W): HBM3
+#: bytes/s; FP32 operations/s as published (67 TFLOP/s); INT32
+#: operations/s, 64 INT32 lanes per SM x 132 SMs x 1.98 GHz
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+PEAK_INT32 = 64 * 132 * 1.98e9
+
+
+def bound(nbytes, flops, iops):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``nbytes`` and does ``flops`` float and ``iops`` integer
+    operations, at the peak rates above."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(flops / PEAK_FP32, iops / PEAK_INT32)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cand_model_bound(w, p, cache):
+    """(bound_ms, bound_by) of one candidate-model launch on ``w``
+    walkers: bytes of the anchors, the scene cache read once (payload
+    and far table) and the near, taylor and n_reach outputs; per walker
+    and candidate 8 float operations of distance, 4K of insertion and 65
+    of Taylor parts, and 20 per far-table coefficient (its value,
+    gradient and Hessian terms)."""
+    c, k = cache.payload.shape[1], p.near_k
+    nc = cache.far_coeffs.shape[1]
+    nbytes = (4 * (3 + 4 * k + 10 + 1) * w + 4 * cache.payload.numel()
+              + 4 * cache.far_coeffs.numel())
+    return bound(nbytes, w * (c * (8 + 4 * k + 65) + 20 * nc), 0)
+
+
+def far_sums_bound(w, n_pad, k):
+    """(bound_ms, bound_by) of one far-sums launch: the table once, the
+    anchors, the K near ids and the 10 sums per walker; 65 + K float
+    operations per walker and table entry (Taylor parts, exclusion,
+    accumulation)."""
+    return bound(16 * n_pad + 4 * (3 + k + 10) * w, w * n_pad * (65 + k), 0)
+
+
+#: integer operations per walker of one Threefry-2x32-20 block
+#: (field_math.cuh:threefry2x32): 20 rounds of add, rotate (one funnel
+#: shift), xor; of each key injection only the add into x1, since
+#: ``kb + (g + 1)`` is the same for every walker and ``x0 += ka`` folds
+#: into the next round's add (one three-input add), plus the last
+#: injection's add into x0.  The initial ``c1 + k1`` is the same on every
+#: step of a walker and ``step + k0`` on every walker: none.
+THREEFRY_IOPS = 20 * 3 + 5 + 1
+#: integer operations per walker of one Philox4x32-10 block
+#: (field_math.cuh:philox4x32_10): per round 2 mul.hi, 2 mul.lo and two
+#: three-input xors (one LOP3 each); the key schedule is the same for
+#: every walker (the key comes from the launch).  The counter is (step,
+#: lane, block, 0), so only the lane is the walker's own: round 1 has 1
+#: such operation, round 2 has 3, round 3 has 4, rounds 4-10 have 6.
+PHILOX_IOPS = 1 + 3 + 4 + 7 * 6
+
+
+def step_ops(phys, k):
+    """(float, integer) operations of one walker-step of the chunk kernel
+    in the mode of ``phys``, counted from csrc/field_math.cuh:run_steps
+    (a multiply, add, compare, select or conversion is one operation; a
+    transcendental one; work that is the same for every walker of the
+    launch is not counted):
+
+    * field at the new position (eval_field): 19 per near slot (offsets,
+      d^2, rsqrt, r^-5, the masked term, the minimum) + 30 for the far
+      Taylor polynomial; the move, in-cell test, kick, window sum: 25;
+    * Threefry: three (four with reflection or the intended kick)
+      blocks of ``THREEFRY_IOPS``, the uniforms (a shift each: 5, +1 for
+      the coin, +1 for the kick; 5 conversions and scalings), the normal
+      (6) and the cube direction with its inverse norm (13), escape
+      tracking (9);
+    * fast generator, per step half a step pair: two Philox4x32-10
+      blocks (three with sphere directions and a variant) of
+      ``PHILOX_IOPS``, the polynomial Box-Muller (40 per pair), the
+      packed directions (6 integer, 16 float per pair), escape tracking
+      every second (pfreq % 4 != 0) or fourth step;
+    * variants: reflection 10, intended kick 12, gradient 7, sphere
+      directions 12 (Threefry: per step; fast: the same per step)."""
+    flops = 19 * k + 30 + 25
+    iops = 0
+    extra = int(phys.reflect) + int(phys.intended)
+    if phys.fast_rng:
+        blocks = 2 + int((8 if phys.sphere else 5) + 2 * extra > 8)
+        iops += blocks * PHILOX_IOPS / 2 + 3
+        flops += 20 + 8 + 9 / (2 if phys.pfreq % 4 else 4)
+    else:
+        iops += (4 if extra else 3) * THREEFRY_IOPS + 5 + extra
+        flops += 5 + 6 + 13 + 9
+    flops += (10 * phys.reflect + 12 * phys.intended + 7 * any(phys.gradient)
+              + 12 * phys.sphere)
+    return flops, iops
+
+
+def chunk_bound(w, phys, n_pad=0, decompose=False):
+    """(bound_ms, bound_by) of one chunk-kernel launch on ``w`` real
+    walkers (the padding walkers are no work): the rebuild entry over an
+    ``n_pad``-entry dipole table, or (``n_pad`` 0) the near entry.
+    Bytes: the state in and out, escapes, coverage, the window output
+    (block sums, or the per-walker record in decompose mode), and the
+    model (the table once; near and taylor per walker).  Operations:
+    ``step_ops`` per walker-step (+1 float for the second accumulator in
+    decompose mode), and in the rebuild entry the chunk-start selection
+    over the table (8 + 4K per entry) and far sums (65 + K per entry)."""
+    k = phys.near_k
+    n_win = phys.chunk_steps // phys.pfreq
+    rows = 8 if decompose else 6
+    blocks = -(-w // 128)
+    wins = n_win * 2 * w if decompose else blocks * n_win * 2
+    nbytes = 4 * (2 * rows * w + w + blocks + wins)
+    f, i = step_ops(phys, k)
+    flops = w * phys.chunk_steps * (f + decompose)
+    iops = w * phys.chunk_steps * i
+    if n_pad:
+        nbytes += 16 * n_pad
+        flops += w * n_pad * (8 + 4 * k + 65 + k)
+    else:
+        nbytes += 4 * (4 * k + 10) * w
+    return bound(nbytes, flops, iops)
 
 
 def phase(name):
@@ -189,6 +347,13 @@ def compare_chunk(p, sc, dev, n_water, tcp=None, rng_impl="threefry"):
     return planes, tbl, args, pos_err, win_err
 
 
+def scaled(scene, s):
+    """``scene`` with every dipole moment multiplied by ``s``."""
+    mnps = scene.mnps.copy()
+    mnps[:, 4] *= s
+    return dataclasses.replace(scene, mnps=mnps)
+
+
 def reset_launches():
     for k in chunk_kernel.LAUNCHES:
         chunk_kernel.LAUNCHES[k] = 0
@@ -203,25 +368,26 @@ def only(**want):
     return {k: want.get(k, 0) for k in chunk_kernel.LAUNCHES}
 
 
-def entry_label(name, fast, variants):
+def entry_label(name, fast, variants, decompose):
     """The LAUNCHES key of a kernel entry (chunk kernels by mode)."""
     if fast is None:
         return name
     return chunk_kernel.chunk_mode(name, SimpleNamespace(
-        fast_rng=fast == "1", variants=variants == "1"))
+        fast_rng=fast == "1", variants=variants == "1"), decompose == "1")
 
 
 def ptxas_resources(log):
     """{(label, K): (registers, spill line)} from the -Xptxas -v log:
     "Compiling entry function NAME", "Function properties for NAME", its
     stack/spill line, then "Used N registers" for the entry.  Chunk
-    kernels are templated on <K, fast generator, variants>, the others
-    on <K>."""
+    kernels are templated on <K, fast generator, variants, decompose>,
+    the others on <K>."""
     out, entry, props, spill = {}, None, None, {}
-    pat = re.compile(r"([a-z_]+_kernel)ILi(\d+)E(?:Lb([01])ELb([01])E)?")
+    pat = re.compile(
+        r"([a-z_]+_kernel)ILi(\d+)E(?:Lb([01])ELb([01])ELb([01])E)?")
     for ln in log.splitlines():
         m = pat.search(ln)
-        key = ((entry_label(m.group(1), m.group(3), m.group(4)),
+        key = ((entry_label(m.group(1), m.group(3), m.group(4), m.group(5)),
                 int(m.group(2))) if m else None)
         if "Compiling entry function" in ln:
             entry = key
@@ -287,8 +453,10 @@ def main():
         lambda: chunk_kernel.run_chunk(planes, tbl, **args), 5)
     plain_ms = time_chunk(
         lambda: cuda_engine.chunk_reference(planes, tbl, **args), 1)
+    main_bound = chunk_bound(args["num_water"], args["phys"], tbl.shape[1])
     done(t0, f"one chunk (4032 walkers, K=5, 4000 steps): kernel "
-         f"{kernel_ms:.3f} ms, plain version {plain_ms:.1f} ms [{label}]")
+         f"{kernel_ms:.3f} ms, plain version {plain_ms:.1f} ms, bound "
+         f"{main_bound[0]:.4f} ms ({main_bound[1]}) [{label}]")
 
     t0 = phase("4 main path, full width")
     runner = SimulationRunner(Params(**HEADLINE), scene_seed=42, seed=7,
@@ -316,29 +484,20 @@ def main():
          f"{cos[-1] / 4032:.6f} [{label}]")
 
     t0 = phase("5 golden scene 6000 at production width")
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    import argparse
-    import dataclasses
-
-    import golden_paired as gp
-    gargs = argparse.Namespace(steps=gp.STEPS, tcp=gp.TCP, mscale=gp.MSCALE,
-                               fw_reps=1, reflect=None, kick="aswritten",
-                               gradient=0.0)
-    gpar = gp.framework_params(gargs)
+    gpar = golden.framework_params()
     testdata = os.path.join(ROOT, "golden", "testdata")
-    scene = gp.load_scene(os.path.join(testdata, "scene_6000"), gpar)
-    check(len(scene.mnps) == 745, f"{len(scene.mnps)} dipoles")
-    mnps = scene.mnps.copy()
-    mnps[:, 4] *= gp.MSCALE
-    scene = dataclasses.replace(scene, mnps=mnps)
+    base_scene = golden.load_scene(os.path.join(testdata, "scene_6000"),
+                                   gpar)
+    check(len(base_scene.mnps) == 745, f"{len(base_scene.mnps)} dipoles")
+    scene = scaled(base_scene, golden.MSCALE)
     oracle = np.loadtxt(os.path.join(testdata, "paired_6000.csv"),
-                        delimiter=",")[:, 1] / gp.N_WATER
-    grun = SimulationRunner(gpar, seed=gp.FW_RUN0, device="cuda",
+                        delimiter=",")[:, 1] / golden.N_WATER
+    grun = SimulationRunner(gpar, seed=golden.FW_RUN0, device="cuda",
                             scene=scene, rng_impl="threefry")
-    _, gcos, _, gstats = grun.run(progress=False, max_steps=gp.STEPS)
-    ours = gcos / gp.N_WATER
+    _, gcos, _, gstats = grun.run(progress=False, max_steps=golden.STEPS)
+    ours = gcos / golden.N_WATER
     n = min(len(oracle), len(ours))
-    check(n == gp.STEPS // gp.PFREQ, f"{n} windows")
+    check(n == golden.STEPS // golden.PFREQ, f"{n} windows")
     diff = oracle[:n] - ours[:n]
     rms = float(np.sqrt(np.mean(diff ** 2)))
     print(f"  rms {rms:.5f} (gate 0.025), final diff {diff[-1]:+.5f} "
@@ -353,36 +512,56 @@ def main():
          f"[{label}]")
 
     ctx, big = large_scene_phases(dev, label)
+    big[0]["registers"] = registers["chunk_near_kernel"][ctx["p"].near_k]
     modes = mode_phases(dev, label, p, sc, ctx)
     fast_launches = fast_headline(runner, cos, label)
     arm_launches = golden_arms(label)
     near_launches = fast_scaleup(ctx, label)
 
-    jax_mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
-    check(not jax_mods, f"jax was imported: {jax_mods[:5]}")
-    print(f"[13 total {time.perf_counter() - t_all:.1f} s, no jax imported]")
+    t0 = phase("13 imports")
+    no_reference_imported()
+    done(t0, "nothing of jax or of the JAX package imported")
+    dec_modes = decompose_modes(dev, label, p, sc, ctx)
+    dec_launches = decompose_headline(sc, ours, oracle, label)
+    dec_launches.update(decompose_scaleup(ctx, label))
+
+    t0 = phase("17 kernels")
+    no_reference_imported()
+    print(f"  total {time.perf_counter() - t_all:.1f} s, no jax imported",
+          flush=True)
     path_launches = {**main_launches, **fast_launches, **arm_launches,
-                     **near_launches}
+                     **near_launches, **dec_launches}
     new = []
-    for name, m in modes.items():
+    for name, m in {**modes, **dec_modes}.items():
         entry = name.split("[")[0]
         fast = "fast" in name
+        decomp = "dec" in name
         new.append({
             "name": name,
             "route": "cuda",
-            "source": PKG + entry + ("_fast" if fast else "") + ".cu",
+            "source": PKG + entry + ("_fast" if fast else "")
+            + ("_dec" if decomp else "") + ".cu",
             "replaces": REPLACES + (" (hardware-RNG loop :603-684)" if fast
                                     else "") + (" (physics variants "
                                                 ":493-583)"
                                                 if "variants" in name
-                                                else ""),
+                                                else "")
+            + (" (decompose :221-229, 564-575, 689-716, 736, 787-793)"
+               if decomp else ""),
             "launches": path_launches[name],
             "max_abs_err": m["pos_err"],
-            "max_abs_err_wins": m["win_err"],
-            "tolerance": {"positions": POS_TOL, "window_sums": WIN_TOL},
+            **({"max_abs_err_a_b": m["ab_err"],
+                "tolerance": {"positions": POS_TOL, "a_b": DEC_TOL}}
+               if decomp else
+               {"max_abs_err_wins": m["win_err"],
+                "tolerance": {"positions": POS_TOL,
+                              "window_sums": WIN_TOL}}),
             "registers": registers[name][m["k"]],
             "ms": m["ms"],
             "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"][0],
+            "bound_by": m["bound"][1],
+            "library_ms": None,
         })
     kernels = [{
         "name": "chunk_kernel",
@@ -396,6 +575,9 @@ def main():
         "registers": registers["chunk_kernel"][5],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": main_bound[0],
+        "bound_by": main_bound[1],
+        "library_ms": None,
     }, *big, *new]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not missing, f"no launches in their path's run: {missing}")
@@ -430,7 +612,8 @@ def mode_phases(dev, label, p, sc, ctx):
               flush=True)
         out[key] = dict(pos_err=max(pos50, pos_err),
                         win_err=max(win50, win_err), k=pm.near_k, ms=ms,
-                        plain_ms=plain)
+                        plain_ms=plain, bound=chunk_bound(
+                            args["num_water"], args["phys"], tbl.shape[1]))
     big = ctx["p"]
     for rng_impl, physics in (("hardware", lambda q: q),
                               ("threefry", all_variants),
@@ -447,7 +630,8 @@ def mode_phases(dev, label, p, sc, ctx):
               f"{big.near_k}) kernel {ms:.3f} ms, plain version "
               f"{plain:.1f} ms [{label}]", flush=True)
         out[key] = dict(pos_err=pos_err, win_err=win_err, k=big.near_k,
-                        ms=ms, plain_ms=plain)
+                        ms=ms, plain_ms=plain, bound=chunk_bound(
+                            cargs["num_water"], cargs["phys"]))
     done(t0, f"{len(out)} modes [{label}]")
     return out
 
@@ -487,10 +671,6 @@ def fast_headline(tf_runner, tf_cos, label):
 def golden_arms(label):
     """Phase 11 (c): the golden arms on scene 6000 (4 runs each, keys
     FW_RUN0 + k), against oracle row 0 of the committed curves."""
-    import argparse
-    import dataclasses
-
-    import golden_paired as gp
     t0 = phase("11 (c) golden arms on scene 6000, 4 runs each")
     reset_launches()
     want = {}
@@ -499,17 +679,14 @@ def golden_arms(label):
             cfg = json.load(f)["config"]
         curves = np.load(os.path.join(ROOT, stem + "_curves.npz"))
         oracle, jax_arm = curves["oracle"][0], curves["framework"][0]
-        gargs = argparse.Namespace(
-            steps=cfg["steps"], tcp=cfg["tcp"], mscale=cfg["moment_scale"],
-            fw_reps=4, kick=cfg["kick"], gradient=cfg["gradient_z"] or 0.0,
+        gpar = golden.framework_params(
+            steps=cfg["steps"], tcp=cfg["tcp"], kick=cfg["kick"],
+            gradient=cfg["gradient_z"] or 0.0,
             reflect=tuple(cfg["reflect_io_oi"]) if cfg["reflect_io_oi"]
             else None)
-        gpar = gp.framework_params(gargs)
-        scene = gp.load_scene(os.path.join(ROOT, "golden", "testdata",
-                                           "scene_6000"), gpar)
-        mnps = scene.mnps.copy()
-        mnps[:, 4] *= cfg["moment_scale"]
-        scene = dataclasses.replace(scene, mnps=mnps)
+        scene = scaled(golden.load_scene(os.path.join(
+            ROOT, "golden", "testdata", "scene_6000"), gpar),
+            cfg["moment_scale"])
         j = oracle - jax_arm
         j_rms = float(np.sqrt(np.mean(j ** 2)))
         gens = ("hardware",) if arm == "as_written" else ("hardware",
@@ -518,7 +695,7 @@ def golden_arms(label):
             t1 = time.perf_counter()
             reps = []
             for k in range(4):
-                run = SimulationRunner(gpar, seed=gp.FW_RUN0 + k,
+                run = SimulationRunner(gpar, seed=golden.FW_RUN0 + k,
                                        device="cuda", scene=scene,
                                        rng_impl=rng_impl,
                                        check_coverage=k == 0)
@@ -527,13 +704,13 @@ def golden_arms(label):
                 check(st["escapes"] == 0 and st["coverage_violations"] == 0,
                       f"{arm} {rng_impl}: escapes {st['escapes']}, "
                       f"coverage {st['coverage_violations']}")
-                reps.append(gcos / gp.N_WATER)
+                reps.append(gcos / golden.N_WATER)
             key = chunk_kernel.chunk_mode(
                 "chunk_kernel", cuda_engine.chunk_physics(gpar, rng_impl))
             want[key] = want.get(key, 0) + 4 * cfg["steps"] // \
                 gpar.chunk_steps
             ours = np.mean(reps, 0)
-            check(len(ours) == len(oracle) == cfg["steps"] // gp.PFREQ,
+            check(len(ours) == len(oracle) == cfg["steps"] // golden.PFREQ,
                   f"{arm}: {len(ours)} windows")
             diff = oracle - ours
             rms = float(np.sqrt(np.mean(diff ** 2)))
@@ -596,6 +773,327 @@ def fast_scaleup(ctx, label):
               f"sum cos/W {vcos[-1] / p.num_water:.6f} [{label}]",
               flush=True)
         out[key] = got[key]
+    done(t0, f"[{label}]")
+    return out
+
+
+def no_reference_imported():
+    """Raise if any module of jax or of the JAX package is loaded."""
+    bad = [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "mri_nanoparticle_simulation_tpu", "golden_paired")]
+    check(not bad, f"imported: {bad[:5]}")
+
+
+def dec_planes(planes):
+    """8-row decompose planes from 6-row ones: A and comp_A from the
+    phase rows, B and comp_B nonzero (half of them) so both streams are
+    exercised."""
+    return torch.cat([planes[:6], 0.5 * planes[4:6]]).contiguous()
+
+
+def check_dec(run, ref, n, what):
+    """Two kernel runs and one plain run of a decompose chunk: the gates
+    of phase 14; returns (position error, A/B error, plain ms)."""
+    k1, k2 = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(k1, k2):
+        check(torch.equal(a, b), f"{what}: two kernel runs differ")
+    r, plain_ms = timed(ref)
+    out, esc, cov, wins = k1
+    pos_err = float((out[:3, :n] - r[0][:3, :n]).abs().max())
+    ab_err = max(float((out[4:8, :n] - r[0][4:8, :n]).abs().max()),
+                 float((wins[..., :n] - r[3][..., :n]).abs().max()))
+    bitwise = torch.equal(out, r[0]) and torch.equal(wins, r[3])
+    print(f"  {what}, {n} walkers: |pos| err {pos_err:.3e} (tol {POS_TOL}),"
+          f" |A, B| err {ab_err:.3e} (tol {DEC_TOL}; state and record "
+          f"{'bitwise equal' if bitwise else 'not bitwise equal'}), "
+          f"escapes {int(esc.sum())}/{int(r[1].sum())}, coverage "
+          f"{int(cov.sum())}/{int(r[2].sum())}; plain {plain_ms:.1f} ms",
+          flush=True)
+    check(pos_err < POS_TOL, f"{what}: positions differ by {pos_err}")
+    check(ab_err < DEC_TOL, f"{what}: A, B differ by {ab_err}")
+    check(torch.equal(esc, r[1]), f"{what}: escapes differ")
+    check(torch.equal(cov, r[2]), f"{what}: coverage differs")
+    check(bool(torch.isfinite(out).all() and torch.isfinite(wins).all()),
+          f"{what}: non-finite state or record")
+    return pos_err, ab_err, plain_ms
+
+
+def decompose_modes(dev, label, p, sc, ctx):
+    """Phase 14: the decompose mode of both entries in every mode against
+    its plain version; times beside each plain-mode sibling."""
+    t0 = phase("14 decompose modes vs plain versions")
+    out = {}
+    physics = (("threefry", lambda q: q), ("hardware", lambda q: q),
+               ("threefry", all_variants), ("hardware", all_variants))
+    tbl = mnp_table(sc.mnps, torch.float32, dev).tbl
+    for rng_impl, fn in physics:
+        pm = fn(p)
+        errs = []
+        for n_water, tcp in ((50, 2 * pm.pfreq), (pm.num_water, None)):
+            st = init_state(sc.waters[:n_water], pm, dev, decompose=True)
+            planes = cuda_engine.to_soa(st, pm).planes
+            planes, *_ = chunk_kernel.run_chunk(
+                planes, tbl, decompose=True,
+                **chunk_args(pm, n_water, 0, tcp, rng_impl))
+            args = chunk_args(pm, n_water, pm.chunk_steps, tcp, rng_impl)
+            key = chunk_kernel.chunk_mode("chunk_kernel", args["phys"], True)
+            errs.append(check_dec(
+                lambda: chunk_kernel.run_chunk(planes, tbl, decompose=True,
+                                               **args),
+                lambda: cuda_engine.chunk_reference(planes, tbl,
+                                                    decompose=True, **args),
+                n_water, key))
+        ms = time_chunk(lambda: chunk_kernel.run_chunk(
+            planes, tbl, decompose=True, **args), 5)
+        sib = planes[:6].contiguous()
+        sib_ms = time_chunk(lambda: chunk_kernel.run_chunk(sib, tbl, **args),
+                            5)
+        print(f"  {key}: one chunk (4032 walkers, K=5, 4000 steps) kernel "
+              f"{ms:.4f} ms, plain-mode sibling {sib_ms:.4f} ms "
+              f"[{label}]", flush=True)
+        out[key] = dict(pos_err=max(e[0] for e in errs),
+                        ab_err=max(e[1] for e in errs), k=pm.near_k, ms=ms,
+                        plain_ms=errs[-1][2], sibling_ms=sib_ms,
+                        bound=chunk_bound(args["num_water"], args["phys"],
+                                          tbl.shape[1], decompose=True))
+    big = ctx["p"]
+    planes = dec_planes(ctx["planes"])
+    full = dec_planes(ctx["full"])
+    for rng_impl, fn in physics:
+        phys = cuda_engine.chunk_physics(fn(big), rng_impl)
+        cargs = dict(ctx["cargs"], phys=phys)
+        key = chunk_kernel.chunk_mode("chunk_near_kernel", phys, True)
+        near, taylor = ctx["near"], ctx["taylor"]
+        pos_err, ab_err, _ = check_dec(
+            lambda: chunk_kernel.run_chunk_near(planes, near, taylor,
+                                                decompose=True, **cargs),
+            lambda: cuda_engine.chunk_near_reference(
+                planes, near, taylor, decompose=True, **cargs),
+            cargs["num_water"], key)
+        # and at the width of its path (phase 16)
+        fargs = dict(ctx["fargs"], phys=phys)
+        fnear, ftaylor = ctx["fnear"], ctx["ftaylor"]
+        errs = check_dec(
+            lambda: chunk_kernel.run_chunk_near(full, fnear, ftaylor,
+                                                decompose=True, **fargs),
+            lambda: cuda_engine.chunk_near_reference(
+                full, fnear, ftaylor, decompose=True, **fargs),
+            fargs["num_water"], key)
+        pos_err, ab_err, plain = (max(pos_err, errs[0]),
+                                  max(ab_err, errs[1]), errs[2])
+        ms = time_chunk(lambda: chunk_kernel.run_chunk_near(
+            full, fnear, ftaylor, decompose=True, **fargs), 3)
+        sib = full[:6].contiguous()
+        sib_ms = time_chunk(lambda: chunk_kernel.run_chunk_near(
+            sib, fnear, ftaylor, **fargs), 3)
+        print(f"  {key}: one chunk ({full.shape[1]} walkers, K="
+              f"{big.near_k}, 4000 steps) kernel {ms:.3f} ms, plain-mode "
+              f"sibling {sib_ms:.3f} ms [{label}]", flush=True)
+        out[key] = dict(pos_err=pos_err, ab_err=ab_err, k=big.near_k, ms=ms,
+                        plain_ms=plain, sibling_ms=sib_ms,
+                        bound=chunk_bound(fargs["num_water"], phys,
+                                          decompose=True))
+    done(t0, f"{len(out)} decompose modes [{label}]")
+    return out
+
+
+def split_line(st):
+    return (f"run {st['wall_s']:.4f} s ({st['walker_steps_per_s']:.4e} "
+            f"walker-steps/s), {st['sprints']} sprints: device "
+            f"{st['device_s']:.4f} s, record copy {st['copy_s']:.4f} s, "
+            f"host {st['host_s']:.4f} s")
+
+
+def check_reconstruction(rec, cos, w, what, early=40):
+    """A reconstructed walker-mean curve against a direct run's Σcos:
+    within REC_TOL over the first ``early`` windows and REC_RUN_TOL over
+    the run; returns the two errors."""
+    check(len(rec) == len(cos), f"{what}: {len(rec)} vs {len(cos)} windows")
+    d = np.abs(rec - cos / w)
+    d_early, d_all = float(d[:early].max()), float(d.max())
+    print(f"  {what}: max |d(sum cos/W)| {d_early:.3e} over the first "
+          f"{min(early, len(d))} windows (tol {REC_TOL}), {d_all:.3e} over "
+          f"{len(d)} (tol {REC_RUN_TOL})", flush=True)
+    check(d_early < REC_TOL, f"{what}: {d_early} early")
+    check(d_all < REC_RUN_TOL, f"{what}: {d_all} over the run")
+    return d_early, d_all
+
+
+def decompose_headline(sc, direct_golden, oracle, label):
+    """Phase 15: README configuration 5c through the port CLI at full
+    width, the golden check of the Threefry decompose kernel, and the
+    variants on the headline; returns the decompose launches of each
+    path."""
+    t0 = phase("15 decomposition through the CLI, headline, fast generator")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "t2.csv")
+        argv = ["--num-water", "4032", "--num-cells", "270", "--totaltime",
+                "2", "--taucp", "0.25", "--chunk-steps", "4000", "--near-k",
+                "5", "--scene-seed", "42", "--seed", "7", "--moment-scales",
+                "0.5,1,2,4", "--echo-taucps", "0.05,0.1,0.25,0.5",
+                "--dump-record", os.path.join(tmp, "rec.npz"), "--fit-r2",
+                os.path.join(tmp, "r2.csv"), "--out", csv, "--device",
+                "cuda"]
+        ap = sim.build_parser()
+        p = sim.params_from_args(ap, ap.parse_args(argv))
+        check(p.t == 2_000_000 and p.num_water == 4032, "CLI params")
+        err = io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stderr(err):
+            rc = sim.main(argv)
+        got = launches()
+        text = err.getvalue()
+        print("  " + "\n  ".join(ln for ln in text.splitlines()
+                                  if "wrote" not in ln), flush=True)
+        check(rc == 0, f"CLI exit {rc}")
+        check(got == only(**{"chunk_kernel[fast+dec]": 500}),
+              f"kernel launches {got}, expected 500 chunk_kernel[fast+dec]")
+        out["chunk_kernel[fast+dec]"] = got["chunk_kernel[fast+dec]"]
+        m = re.search(r"(\d+) chunk escapes, (\d+) coverage violations",
+                      text)
+        check(m is not None and m.groups() == ("0", "0"),
+              "escapes or coverage violations")
+        paths = sorted(glob.glob(os.path.join(tmp, "t2_mscale=*.csv")))
+        check(len(paths) == 16, f"{len(paths)} CSVs, expected 16")
+        curves = {}
+        for path in paths:
+            rows = read_t2_csv(path)
+            check(len(rows[0]) == 2000, f"{path}: {len(rows[0])} rows")
+            check(bool(np.isfinite(rows[1]).all()), f"{path}: non-finite")
+            curves[os.path.basename(path)] = rows[1]
+        with np.load(os.path.join(tmp, "rec.npz")) as z:
+            keys = sorted(z.files)
+            rec_shape = z["A"].shape
+        check(keys == sorted(["times_ms", "A", "B", "params_fp", "mmoment",
+                              "seed", "taucp", "tau", "pfreq"]),
+              f"record keys {keys}")
+        check(rec_shape == (2000, 4032), f"record A {rec_shape}")
+        with open(os.path.join(tmp, "r2.csv")) as fh:
+            r2 = fh.read().splitlines()
+        check(len(r2) == 17, f"dispersion table of {len(r2)} lines")
+        print(f"  16 CSVs x 2000 rows, record A/B {rec_shape}, dispersion "
+              f"table of {len(r2) - 1} rows; launches {got}", flush=True)
+    base = BacteriaBox(p, seed=42).populate()
+    for s, t_cp in ((1.0, 0.25), (2.0, 0.25), (1.0, 0.1)):
+        pv = p.replace(mmoment=p.mmoment * s, taucp=t_cp).validate()
+        run = SimulationRunner(pv, scene=scaled(base, s), seed=7,
+                               device="cuda", check_coverage=False)
+        _, cos, _, st = run.run(progress=False)
+        check(st["escapes"] == 0 and st["coverage_violations"] == 0,
+              "direct run escapes or violations")
+        rec = curves[f"t2_mscale={s:g}_taucp={t_cp:g}.csv"] / p.num_water
+        check_reconstruction(rec, cos, p.num_water,
+                             f"CLI s={s:g} taucp={t_cp:g} vs direct run")
+    done(t0, f"[{label}]")
+
+    t0 = phase("15 (b) golden scene 6000 from one Threefry decompose run")
+    gpar = golden.framework_params()
+    scene = golden.load_scene(os.path.join(ROOT, "golden", "testdata",
+                                           "scene_6000"), gpar)
+    reset_launches()
+    res = dec.run_decomposition(scene, gpar, seed=golden.FW_RUN0,
+                                device="cuda", rng_impl="threefry")
+    got = launches()
+    check(got == only(**{"chunk_kernel[dec]": 500}),
+          f"kernel launches {got}, expected 500 chunk_kernel[dec]")
+    out["chunk_kernel[dec]"] = got["chunk_kernel[dec]"]
+    check(res.stats["escapes"] == 0 and res.stats["coverage_violations"]
+          == 0, "golden decompose run: escapes or violations")
+    curve = dec.curves_at_scales(res.A, res.B, [golden.MSCALE])[0]
+    n = len(curve)
+    diff = oracle[:n] - curve
+    rms = float(np.sqrt(np.mean(diff ** 2)))
+    d_direct = float(np.abs(curve - direct_golden[:n]).max())
+    print(f"  s = {golden.MSCALE:g}: rms {rms:.5f} (gate 0.025), final diff "
+          f"{diff[-1]:+.5f} (gate 0.060) against the oracle; max "
+          f"|d| {d_direct:.3e} against phase 5's direct run (tol "
+          f"{REC_RUN_TOL}); {split_line(res.stats)}", flush=True)
+    check(n == golden.STEPS // golden.PFREQ, f"{n} windows")
+    check(rms < 0.025, f"golden decompose rms {rms}")
+    check(abs(diff[-1]) < 0.060, f"golden decompose final diff {diff[-1]}")
+    check(d_direct < REC_RUN_TOL, f"golden decompose vs direct {d_direct}")
+    done(t0, f"[{label}]")
+
+    t0 = phase("15 (c) every variant in decompose mode, headline")
+    hp = all_variants(Params(**HEADLINE, taucp=0.05, totaltime=0.2))
+    for rng_impl in ("threefry", "hardware"):
+        reset_launches()
+        res = dec.run_decomposition(sc, hp, seed=7, device="cuda",
+                                    rng_impl=rng_impl)
+        got = launches()
+        key = chunk_kernel.chunk_mode(
+            "chunk_kernel", cuda_engine.chunk_physics(hp, rng_impl), True)
+        check(got == only(**{key: 50}), f"kernel launches {got}")
+        out[key] = got[key]
+        check(res.stats["escapes"] == 0 and res.stats[
+            "coverage_violations"] == 0, f"{key}: escapes or violations")
+        run = SimulationRunner(hp, scene=sc, seed=7, device="cuda",
+                               rng_impl=rng_impl, check_coverage=False)
+        _, cos, _, _ = run.run(progress=False)
+        check_reconstruction(dec.curves_at_scales(res.A, res.B, [1.0])[0],
+                             cos, hp.num_water, f"{key}, 2e5 steps, s=1")
+    done(t0, f"[{label}]")
+    return out
+
+
+def decompose_scaleup(ctx, label):
+    """Phase 16: the scale-up with a streaming plane on the fast
+    generator, then Threefry and every variant, each against a direct
+    run; returns the decompose launches of each path."""
+    t0 = phase("16 decomposition, scale-up, streaming plane, fast generator")
+    p = ctx["p"].replace(totaltime=0.1).validate()     # 2e5 steps
+    scene, cache = ctx["runner"].scene, ctx["runner"].cache
+    scales, taucps = [0.5, 1.0, 2.0], [0.01, 0.02, p.taucp]
+    plane = dec.StreamingPlane(p, p.t // p.pfreq, scales, taucps,
+                               quadrature=True)
+    reset_launches()
+    res = dec.run_decomposition(scene, p, seed=7, device="cuda",
+                                rng_impl="hardware", consumer=plane,
+                                cache=cache)
+    got = launches()
+    check(got == only(**{"chunk_near_kernel[fast+dec]": 50,
+                         "cand_model_kernel": 50}),
+          f"kernel launches {got}")
+    out = {"chunk_near_kernel[fast+dec]": got["chunk_near_kernel[fast+dec]"]}
+    check(res.stats["escapes"] == 0 and res.stats["coverage_violations"]
+          == 0, "scale-up decompose: escapes or violations")
+    curves = plane.result()
+    n_win = p.t // p.pfreq
+    check(curves.shape == (3, 3, n_win, 2)
+          and bool(np.isfinite(curves).all()), f"plane {curves.shape}")
+    _, cos, _, st = cuda_engine.run_simulation(
+        scene, p, seed=7, device="cuda", rng_impl="hardware", cache=cache)
+    check_reconstruction(curves[1, 2, :, 0], cos, p.num_water,
+                         "plane s=1 vs direct run", early=n_win)
+    print(f"  {p.num_water} walkers, 2e5 steps, 9 grid points: "
+          f"{split_line(res.stats)} [{label}]", flush=True)
+    done(t0, f"launches {got} [{label}]")
+
+    t0 = phase("16 (b) scale-up decompose on Threefry and every variant")
+    p = p.replace(totaltime=0.01).validate()           # 2e4 steps
+    for rng_impl, fn in (("threefry", lambda q: q),
+                         ("threefry", all_variants),
+                         ("hardware", all_variants)):
+        pv = fn(p)
+        reset_launches()
+        res = dec.run_decomposition(scene, pv, seed=7, device="cuda",
+                                    rng_impl=rng_impl, cache=cache)
+        got = launches()
+        key = chunk_kernel.chunk_mode(
+            "chunk_near_kernel", cuda_engine.chunk_physics(pv, rng_impl),
+            True)
+        check(got == only(**{key: 5, "cand_model_kernel": 5}),
+              f"kernel launches {got}")
+        out[key] = got[key]
+        check(res.stats["escapes"] == 0 and res.stats[
+            "coverage_violations"] == 0, f"{key}: escapes or violations")
+        _, cos, _, _ = cuda_engine.run_simulation(
+            scene, pv, seed=7, device="cuda", rng_impl=rng_impl,
+            cache=cache)
+        check_reconstruction(dec.curves_at_scales(res.A, res.B, [1.0])[0],
+                             cos, pv.num_water, f"{key}, 2e4 steps, s=1")
     done(t0, f"[{label}]")
     return out
 
@@ -818,6 +1316,8 @@ def large_scene_phases(dev, label):
         fpos, p, runner.cache, reach2), 20)
     near_ms = time_chunk(lambda: chunk_kernel.run_chunk_near(
         full, fnear, ftaylor, **fargs), 3)
+    near_bound = chunk_bound(fargs["num_water"], fargs["phys"])
+    cand_bound = cand_model_bound(p.num_water, p, runner.cache)
     done(t0, f"per chunk at {fpos.shape[1]} walkers: candidate-model "
          f"{cand_ms:.4f} ms (plain {cand_plain_ms:.2f} ms), near/taylor "
          f"chunk {near_ms:.3f} ms (plain {near_plain_ms:.1f} ms) [{label}]")
@@ -851,11 +1351,14 @@ def large_scene_phases(dev, label):
                                                idx0)
     far_ms = time_chunk(lambda: chunk_kernel.run_far_sums(
         apos, runner0.mnp_tbl.tbl, idx0), 5)
+    far_bound = far_sums_bound(p0.num_water, runner0.mnp_tbl.tbl.shape[1],
+                               idx0.shape[0])
     done(t0, f"far sums at {apos.shape[1]} walkers {far_ms:.3f} ms (plain "
          f"{far_plain_ms:.2f} ms) [{label}]")
 
     ctx = dict(p=p, runner=runner, planes=planes, near=near, taylor=taylor,
-               cargs=cargs)
+               cargs=cargs, full=full, fnear=fnear, ftaylor=ftaylor,
+               fargs=fargs)
     return ctx, [{
         "name": "chunk_near_kernel",
         "route": "cuda",
@@ -867,6 +1370,9 @@ def large_scene_phases(dev, label):
         "tolerance": {"positions": POS_TOL, "window_sums": WIN_TOL},
         "ms": near_ms,
         "plain_ms": near_plain_ms,
+        "bound_ms": near_bound[0],
+        "bound_by": near_bound[1],
+        "library_ms": None,
     }, {
         "name": "cand_model_kernel",
         "route": "cuda",
@@ -880,6 +1386,9 @@ def large_scene_phases(dev, label):
                           "tolerance": [TABLE_TOL, LOW_TOL]},
         "ms": cand_ms,
         "plain_ms": cand_plain_ms,
+        "bound_ms": cand_bound[0],
+        "bound_by": cand_bound[1],
+        "library_ms": None,
     }, {
         "name": "far_sums_kernel",
         "route": "cuda",
@@ -890,6 +1399,9 @@ def large_scene_phases(dev, label):
         "tolerance": {"relative": FAR_TOL},
         "ms": far_ms,
         "plain_ms": far_plain_ms,
+        "bound_ms": far_bound[0],
+        "bound_by": far_bound[1],
+        "library_ms": None,
     }]
 
 

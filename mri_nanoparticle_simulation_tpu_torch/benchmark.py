@@ -48,15 +48,17 @@ from pathlib import Path
 
 import torch
 
-from mri_nanoparticle_simulation_tpu.benchmark import K40_BASELINE
-from mri_nanoparticle_simulation_tpu.params import Params
-from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
-
 from .engine import chunk_kernel, cuda_engine
 from .engine.convert import key_words, mnp_table
 from .engine.reference_engine import init_state
 from .fields import expansion
+from .params import Params
+from .scene import BacteriaBox
 from .utils.device import card_label, require_cuda
+
+#: the reference's Tesla K40 on the headline run, walker-steps/s
+#: (BASELINE.md: 4032 walkers x 4e7 steps in ~14 min)
+K40_BASELINE = 1.9e8
 
 
 #: 2e6-step sprints timed after the warm-up sprint

@@ -4,4 +4,4 @@
 
 #include "chunk_kernel.cuh"
 
-CHUNK_ENTRY(chunk_kernel_launch, launch_chunk, false, model0)
+CHUNK_ENTRY(chunk_kernel_launch, launch_chunk, false, false, model0)

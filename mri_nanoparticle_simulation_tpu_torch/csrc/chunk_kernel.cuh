@@ -1,8 +1,8 @@
 // One chunk of the Monte Carlo MRI walk for every walker, on Hopper.
 //
 // Replaces the TPU kernel pallas_engine.make_chunk_kernel
-// (mri_nanoparticle_simulation_tpu/engine/pallas_engine.py:171-823), all
-// but its decompose mode, in two entries:
+// (mri_nanoparticle_simulation_tpu/engine/pallas_engine.py:171-823), every
+// mode of it, in two entries:
 //
 // * chunk_kernel (in-kernel rebuild, n_mnp_pad set): wrap, then the
 //   recandidate over the whole dipole table, then the steps.  The plain
@@ -14,15 +14,19 @@
 //   output is 0 (the caller counts coverage where it selects).  The plain
 //   version is engine/cuda_engine.py:chunk_near_reference.
 //
-// Each entry has four modes: the Threefry generator (the reference's
+// Each entry has eight modes: the Threefry generator (the reference's
 // validation path, bit for bit) or the fast one (its production path,
 // pallas_engine.py:603-684, with Philox4x32-10 in place of the TPU's
 // hardware PRNG), each with the default physics or with the variants
 // (reflection, intended kick, sphere directions, gradient) read as
-// launch flags.  This header holds the kernels and their host launchers;
-// chunk_kernel.cu, chunk_kernel_fast.cu, chunk_near_kernel.cu and
-// chunk_near_kernel_fast.cu each instantiate one entry and generator, so
-// the 128 kernels build in four parallel nvcc processes.
+// launch flags, each plain or in decompose mode (the state f32[8, w_pad]
+// with the phase split as A, comp_A, B, comp_B, and the per-walker
+// record wins f32[n_win, 2, w_pad] of (A, B) in place of the block
+// sums; pallas_engine.py:221-229, 736, 787-793).  This header holds the
+// kernels and their host launchers; chunk_kernel.cu, chunk_kernel_fast.cu,
+// chunk_near_kernel.cu, chunk_near_kernel_fast.cu and their four *_dec.cu
+// twins each instantiate one entry, generator and decompose flag, so the
+// 256 kernels build in eight parallel nvcc processes.
 //
 // What bounds it on the H100: integer ALU work.  Three Threefry-2x32-20
 // blocks per walker-step cost about 300 integer operations, against
@@ -36,7 +40,9 @@
 // kernels are templated on K so the slot arrays unroll into registers);
 // in rebuild mode the dipole table,
 // read by every thread at the same address, sits in shared memory.
-// Device memory is touched once at chunk start and once at chunk end.
+// Device memory is touched once at chunk start and once at chunk end,
+// and in decompose mode once per window for the record (8 bytes per
+// walker and window, coalesced: 128 KB per headline chunk).
 //
 // Arithmetic follows the reference kernel operation by operation (build
 // with --fmad=false so no multiply-add is contracted): the Threefry
@@ -62,7 +68,7 @@ namespace {
 
 constexpr int kMaxMnps = 2048;
 
-template <int K, bool kFast, bool kVariants>
+template <int K, bool kFast, bool kVariants, bool kDecompose>
 __global__ void __launch_bounds__(kBlock)
 chunk_kernel(const float* __restrict__ state_in, float* __restrict__ state_out,
              float* __restrict__ esc, float* __restrict__ cov,
@@ -89,6 +95,8 @@ chunk_kernel(const float* __restrict__ state_in, float* __restrict__ state_out,
   const float az = wrap(state_in[2 * w_pad + gid], a.bound);
   const float phase = state_in[4 * w_pad + gid];
   const float comp = state_in[5 * w_pad + gid];
+  const float phase_b = kDecompose ? state_in[6 * w_pad + gid] : 0.f;
+  const float comp_b = kDecompose ? state_in[7 * w_pad + gid] : 0.f;
 
   // recandidate: exact K-nearest by branchless sorted insertion, and the
   // count of dipoles within (cell_r + travel)^2
@@ -128,12 +136,12 @@ chunk_kernel(const float* __restrict__ state_in, float* __restrict__ state_out,
                       s_mnp[2][j], s_mnp[3][j]);
   }
 
-  run_steps<K, kFast, kVariants>(nx, ny, nz, nm, t, ax, ay, az, phase,
-                                 comp, valid, lane, a, s_red, wins,
-                                 state_out, esc, w_pad, gid);
+  run_steps<K, kFast, kVariants, kDecompose>(
+      nx, ny, nz, nm, t, ax, ay, az, phase, comp, phase_b, comp_b, valid,
+      lane, a, s_red, wins, state_out, esc, w_pad, gid);
 }
 
-template <int K, bool kFast, bool kVariants>
+template <int K, bool kFast, bool kVariants, bool kDecompose>
 __global__ void __launch_bounds__(kBlock)
 chunk_near_kernel(const float* __restrict__ state_in,
                   float* __restrict__ state_out, float* __restrict__ esc,
@@ -152,6 +160,8 @@ chunk_near_kernel(const float* __restrict__ state_in,
   const float az = state_in[2 * w_pad + gid];
   const float phase = state_in[4 * w_pad + gid];
   const float comp = state_in[5 * w_pad + gid];
+  const float phase_b = kDecompose ? state_in[6 * w_pad + gid] : 0.f;
+  const float comp_b = kDecompose ? state_in[7 * w_pad + gid] : 0.f;
 
   // the model: near [4, K, w_pad] (x, y, z, M * FIELD_SCALE) and taylor
   // [10, w_pad], each row read coalesced
@@ -167,16 +177,16 @@ chunk_near_kernel(const float* __restrict__ state_in,
   for (int c = 0; c < 10; ++c) t[c] = taylor[c * w_pad + gid];
   if (tid == 0) cov[blockIdx.x] = 0.f;
 
-  run_steps<K, kFast, kVariants>(nx, ny, nz, nm, t, ax, ay, az, phase,
-                                 comp, valid, lane, a, s_red, wins,
-                                 state_out, esc, w_pad, gid);
+  run_steps<K, kFast, kVariants, kDecompose>(
+      nx, ny, nz, nm, t, ax, ay, az, phase, comp, phase_b, comp_b, valid,
+      lane, a, s_red, wins, state_out, esc, w_pad, gid);
 }
 
 // Launch one rebuild-mode chunk on `stream` of device `device`; `mnp` is
 // f32[4, a->n_pad].  Returns a cudaError_t: cudaErrorInvalidValue for
 // arguments the kernel does not take, else cudaGetLastError() after the
 // launch.
-template <bool kFast>
+template <bool kFast, bool kDecompose>
 int launch_chunk(int device, void* stream, const float* state_in,
                  float* state_out, float* esc, float* cov, float* wins,
                  const float* mnp, int w_pad, int near_k, const Launch* a) {
@@ -192,11 +202,13 @@ int launch_chunk(int device, void* stream, const float* state_in,
   dispatch_k(near_k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     if (a->flags != 0) {
-      chunk_kernel<K, kFast, true><<<w_pad / kBlock, kBlock, 0, s>>>(
-          state_in, state_out, esc, cov, wins, mnp, w_pad, *a);
+      chunk_kernel<K, kFast, true, kDecompose>
+          <<<w_pad / kBlock, kBlock, 0, s>>>(state_in, state_out, esc, cov,
+                                             wins, mnp, w_pad, *a);
     } else {
-      chunk_kernel<K, kFast, false><<<w_pad / kBlock, kBlock, 0, s>>>(
-          state_in, state_out, esc, cov, wins, mnp, w_pad, *a);
+      chunk_kernel<K, kFast, false, kDecompose>
+          <<<w_pad / kBlock, kBlock, 0, s>>>(state_in, state_out, esc, cov,
+                                             wins, mnp, w_pad, *a);
     }
   });
   return static_cast<int>(cudaGetLastError());
@@ -204,7 +216,7 @@ int launch_chunk(int device, void* stream, const float* state_in,
 
 // Launch one near/taylor-mode chunk; `near` is f32[4, near_k, w_pad],
 // `taylor` f32[10, w_pad].  Returns a cudaError_t as above.
-template <bool kFast>
+template <bool kFast, bool kDecompose>
 int launch_chunk_near(int device, void* stream, const float* state_in,
                       float* state_out, float* esc, float* cov, float* wins,
                       const float* near, const float* taylor, int w_pad,
@@ -220,11 +232,13 @@ int launch_chunk_near(int device, void* stream, const float* state_in,
   dispatch_k(near_k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     if (a->flags != 0) {
-      chunk_near_kernel<K, kFast, true><<<w_pad / kBlock, kBlock, 0, s>>>(
-          state_in, state_out, esc, cov, wins, near, taylor, w_pad, *a);
+      chunk_near_kernel<K, kFast, true, kDecompose>
+          <<<w_pad / kBlock, kBlock, 0, s>>>(state_in, state_out, esc, cov,
+                                             wins, near, taylor, w_pad, *a);
     } else {
-      chunk_near_kernel<K, kFast, false><<<w_pad / kBlock, kBlock, 0, s>>>(
-          state_in, state_out, esc, cov, wins, near, taylor, w_pad, *a);
+      chunk_near_kernel<K, kFast, false, kDecompose>
+          <<<w_pad / kBlock, kBlock, 0, s>>>(state_in, state_out, esc, cov,
+                                             wins, near, taylor, w_pad, *a);
     }
   });
   return static_cast<int>(cudaGetLastError());
@@ -232,17 +246,19 @@ int launch_chunk_near(int device, void* stream, const float* state_in,
 
 }  // namespace
 
-// The C entry points, one per entry and generator, each defined in its own
-// source: fn(device, stream, state_in, state_out, esc, cov, wins, model0,
-// model1, w_pad, near_k, launch) with model0 = mnp and model1 unused in
-// rebuild mode, model0 = near and model1 = taylor in near/taylor mode.
-#define CHUNK_ENTRY(name, launcher, fast, ...)                              \
+// The C entry points, one per entry, generator and decompose flag, each
+// defined in its own source: fn(device, stream, state_in, state_out, esc,
+// cov, wins, model0, model1, w_pad, near_k, launch) with model0 = mnp and
+// model1 unused in rebuild mode, model0 = near and model1 = taylor in
+// near/taylor mode.  In decompose mode state_in and state_out are
+// f32[8, w_pad] and wins is f32[n_win, 2, w_pad].
+#define CHUNK_ENTRY(name, launcher, fast, dec, ...)                         \
   extern "C" int name(int device, void* stream, const float* state_in,     \
                       float* state_out, float* esc, float* cov,            \
                       float* wins, const float* model0,                    \
                       const float* model1, int w_pad, int near_k,          \
                       const Launch* a) {                                   \
     (void)model1;                                                          \
-    return launcher<fast>(device, stream, state_in, state_out, esc, cov,   \
-                          wins, __VA_ARGS__, w_pad, near_k, a);            \
+    return launcher<fast, dec>(device, stream, state_in, state_out, esc,   \
+                               cov, wins, __VA_ARGS__, w_pad, near_k, a);  \
   }

@@ -4,4 +4,4 @@
 
 #include "chunk_kernel.cuh"
 
-CHUNK_ENTRY(chunk_kernel_fast_launch, launch_chunk, true, model0)
+CHUNK_ENTRY(chunk_kernel_fast_launch, launch_chunk, true, false, model0)

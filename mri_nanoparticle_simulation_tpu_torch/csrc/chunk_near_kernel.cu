@@ -4,5 +4,5 @@
 
 #include "chunk_kernel.cuh"
 
-CHUNK_ENTRY(chunk_near_kernel_launch, launch_chunk_near, false, model0,
-            model1)
+CHUNK_ENTRY(chunk_near_kernel_launch, launch_chunk_near, false, false,
+            model0, model1)

@@ -9,13 +9,29 @@ NumPy arrays.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .. import rng
 from ..fields.expansion import SceneCache, pack_table
+from ..params import Params
 from .cuda_engine import MnpTable
 from .reference_engine import WalkerState
+
+
+def params_from_fields(d: dict) -> Params:
+    """The port's ``Params`` from a field dict, e.g.
+    ``dataclasses.asdict`` of the reference's ``Params``; lists become
+    tuples (the dataclass is frozen and hashable).  Raises for a name
+    that is not a field."""
+    names = {f.name for f in dataclasses.fields(Params)}
+    unknown = sorted(set(d) - names)
+    if unknown:
+        raise ValueError(f"not Params fields: {unknown}")
+    return Params(**{k: tuple(v) if isinstance(v, list) else v
+                     for k, v in d.items()})
 
 
 def _counters(ws, device):
@@ -27,7 +43,9 @@ def _counters(ws, device):
 def state_from_numpy(ws, device) -> WalkerState:
     """The port's WalkerState from a reference ``WalkerState`` whose
     fields are NumPy arrays (``init_state`` output, or ``np.asarray`` of
-    each field of a device state)."""
+    each field of a device state).  A decompose state of the reference's
+    scan engine (phase and comp ``[W, 2]``, columns A and B) carries over
+    as it is."""
     def t(a):
         return torch.as_tensor(np.asarray(a), device=device)
     return WalkerState(t(ws.pos), t(ws.in_cell).to(torch.bool), t(ws.phase),
@@ -36,14 +54,25 @@ def state_from_numpy(ws, device) -> WalkerState:
 
 def state_from_planes(ps, num_water: int, device) -> WalkerState:
     """The port's WalkerState from a reference ``PlaneState`` of NumPy
-    ``[R, 128]`` planes (``pallas_engine`` native form)."""
+    ``[R, 128]`` planes (``pallas_engine`` native form).
+
+    A decompose ``PlaneState`` (phase and phase_comp ``[2, R, 128]``) is
+    the reference sprint's own: it packs them as the kernel's state rows
+    4-7 (A, comp_A, B, comp_B; pallas_engine.py:881-885, 940-941), so
+    phase holds (A, comp_A) and phase_comp (B, comp_B).  They become
+    ``[W, 2]`` phase (A, B) and comp (comp_A, comp_B)."""
     def vec(a):
         return torch.as_tensor(
             np.asarray(a).reshape(-1)[:num_water].copy(), device=device)
+    phase, comp = np.asarray(ps.phase), np.asarray(ps.phase_comp)
+    if phase.ndim == 3:
+        ph = torch.stack([vec(phase[0]), vec(comp[0])], -1)
+        cp = torch.stack([vec(phase[1]), vec(comp[1])], -1)
+    else:
+        ph, cp = vec(phase), vec(comp)
     return WalkerState(
         torch.stack([vec(ps.px), vec(ps.py), vec(ps.pz)], -1),
-        vec(ps.in_cell) > 0.5, vec(ps.phase), vec(ps.phase_comp),
-        *_counters(ps, device))
+        vec(ps.in_cell) > 0.5, ph, cp, *_counters(ps, device))
 
 
 def state_to_numpy(ws: WalkerState) -> WalkerState:

@@ -1,9 +1,9 @@
 """Chunk engine: sprints of chunk-kernel launches, and the plain chunks.
 
-Counterpart of the reference's ``engine/pallas_engine.py`` (not its
-decompose mode) with both of its generators and every physics variant
-(kick mode, direction mode, membrane reflection, background gradient),
-on both of its paths:
+Counterpart of the reference's ``engine/pallas_engine.py`` with both of
+its generators, every physics variant (kick mode, direction mode,
+membrane reflection, background gradient) and its decompose mode, on
+both of its paths:
 
 * scenes of at most ``REBUILD_MAX_MNPS`` dipoles: one chunk of
   ``chunk_steps`` steps is one launch of the rebuild kernel
@@ -21,7 +21,11 @@ A sprint is a Python loop over chunks that never syncs with the host.
 Walker layout: structure of arrays ``f32[6, W_pad]`` (x, y, z, in_cell,
 phase, phase_comp), one CUDA thread per walker, W_pad the walker count
 rounded up to the kernel's block size.  Padding walkers start at the box
-centre and are masked out of every sum.
+centre and are masked out of every sum.  In decompose mode (a
+phase-decomposition run, ``engine/decompose.py``) the phase is split as
+phase = s * A + B for any moment scale s: ``f32[8, W_pad]`` (x, y, z,
+in_cell, A, comp_A, B, comp_B), and each window emits the per-walker
+record (A, B) in place of the walker sums.
 
 ``chunk_reference`` and ``chunk_near_reference`` are the plain PyTorch
 versions of one chunk in each mode, with the kernel's inputs, outputs and
@@ -51,12 +55,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mri_nanoparticle_simulation_tpu.params import (DIRECTION_SPHERE,
-                                                    KICK_INTENDED, Params)
-
 from .. import rng
 from ..fields import expansion
 from ..fields.dipole import FIELD_SCALE
+from ..params import DIRECTION_SPHERE, KICK_INTENDED, Params
 from . import chunk_kernel
 from .reference_engine import (WalkerState, cauchy_kick_sd, check_overrides,
                                constant_kick, intracellular_kick)
@@ -109,6 +111,7 @@ class ChunkPhysics(NamedTuple):
 class SoAState(NamedTuple):
     """Walker state in the kernel's layout."""
     planes: torch.Tensor   # f32[6, W_pad]: x, y, z, in_cell, phase, comp
+    #                        (decompose: f32[8, W_pad], A, comp_A, B, comp_B)
     step: int              # completed global steps
     escapes: torch.Tensor  # int64 scalar
     coverage: torch.Tensor  # int64 scalar
@@ -194,25 +197,41 @@ def pad_count(num_water: int) -> int:
 
 def to_soa(state: WalkerState, params: Params) -> SoAState:
     """[W]-vector state -> padded ``f32[6, W_pad]`` planes on the state's
-    device.  Padding walkers start at the box centre."""
+    device; a decompose state (phase and comp ``[W, 2]``, column 0 the
+    dipole-field part A, column 1 the kick part B) -> ``f32[8, W_pad]``
+    with rows A, comp_A, B, comp_B.  Padding walkers start at the box
+    centre."""
     w = state.pos.shape[0]
     wp = pad_count(w)
-    planes = torch.zeros((6, wp), dtype=state.pos.dtype,
+    dec = state.phase.dim() == 2
+    planes = torch.zeros((8 if dec else 6, wp), dtype=state.pos.dtype,
                          device=state.pos.device)
     planes[:3, w:] = torch.tensor(params.bound / 2, dtype=state.pos.dtype)
     planes[:3, :w] = state.pos.T
     planes[3, :w] = state.in_cell.to(state.pos.dtype)
-    planes[4, :w] = state.phase
-    planes[5, :w] = state.phase_comp
+    if dec:
+        planes[4, :w] = state.phase[:, 0]
+        planes[5, :w] = state.phase_comp[:, 0]
+        planes[6, :w] = state.phase[:, 1]
+        planes[7, :w] = state.phase_comp[:, 1]
+    else:
+        planes[4, :w] = state.phase
+        planes[5, :w] = state.phase_comp
     return SoAState(planes, int(state.step), state.escapes, state.coverage)
 
 
 def from_soa(ss: SoAState, num_water: int) -> WalkerState:
+    """The inverse of ``to_soa``: ``[W]`` phase, or ``[W, 2]`` (A, B)
+    from the 8 rows of a decompose state."""
     pl = ss.planes[:, :num_water]
+    if pl.shape[0] == 8:
+        phase = torch.stack([pl[4], pl[6]], -1)
+        comp = torch.stack([pl[5], pl[7]], -1)
+    else:
+        phase, comp = pl[4].clone(), pl[5].clone()
     return WalkerState(pos=pl[:3].T.contiguous(), in_cell=pl[3] > 0.5,
-                       phase=pl[4].clone(), phase_comp=pl[5].clone(),
-                       step=ss.step, escapes=ss.escapes,
-                       coverage=ss.coverage)
+                       phase=phase, phase_comp=comp, step=ss.step,
+                       escapes=ss.escapes, coverage=ss.coverage)
 
 
 def _wrap(v: torch.Tensor, bound: float) -> torch.Tensor:
@@ -222,7 +241,8 @@ def _wrap(v: torch.Tensor, bound: float) -> torch.Tensor:
 
 
 def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
-                    tcp, cell_r2, dstd, phys: ChunkPhysics):
+                    tcp, cell_r2, dstd, phys: ChunkPhysics,
+                    decompose: bool = False):
     """One rebuild-mode chunk in plain PyTorch: the CUDA rebuild kernel's
     contract.
 
@@ -230,7 +250,9 @@ def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
     Returns ``(state' f32[6, W_pad], esc f32[W_pad], cov f32[n_blocks],
     wins f32[n_blocks, n_win, 2])``: per-walker escape flags, per-block
     coverage-violation counts and per-block window sums (Σcos φ, Σsin φ),
-    all masked to the ``num_water`` real walkers.
+    all masked to the ``num_water`` real walkers.  With ``decompose``
+    the state is f32[8, W_pad] and ``wins`` the per-walker record
+    f32[n_win, 2, W_pad] of (A, B), padding walkers included.
 
     Chunk start: periodic wrap; exact K-nearest selection by sorted
     insertion over the table; the coverage count within
@@ -263,23 +285,27 @@ def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
     out, esc, wins = _chunk_steps(state, anchor, near, taylor, step0=step0,
                                   key=key, lane_offset=lane_offset,
                                   num_water=num_water, tcp=tcp,
-                                  cell_r2=cell_r2, dstd=dstd, phys=phys)
+                                  cell_r2=cell_r2, dstd=dstd, phys=phys,
+                                  decompose=decompose)
     return out, esc, cov, wins
 
 
 def chunk_near_reference(state, near, taylor, *, step0, key, lane_offset,
-                         num_water, tcp, cell_r2, dstd, phys: ChunkPhysics):
+                         num_water, tcp, cell_r2, dstd, phys: ChunkPhysics,
+                         decompose: bool = False):
     """One near/taylor-mode chunk in plain PyTorch: the CUDA
-    ``chunk_near_kernel``'s contract.  ``state`` f32[6, W_pad] is already
-    wrapped and is the anchor; ``near`` f32[4, K, W_pad] (x, y, z,
-    M * FIELD_SCALE) and ``taylor`` f32[10, W_pad] are the model.
-    Returns (state', esc, cov, wins) as ``chunk_reference``, with cov
-    all zero (coverage is counted where the model is selected)."""
+    ``chunk_near_kernel``'s contract.  ``state`` f32[6, W_pad] (f32[8,
+    W_pad] with ``decompose``) is already wrapped and is the anchor;
+    ``near`` f32[4, K, W_pad] (x, y, z, M * FIELD_SCALE) and ``taylor``
+    f32[10, W_pad] are the model.  Returns (state', esc, cov, wins) as
+    ``chunk_reference``, with cov all zero (coverage is counted where the
+    model is selected)."""
     out, esc, wins = _chunk_steps(state, state[:3], near, taylor,
                                   step0=step0, key=key,
                                   lane_offset=lane_offset,
                                   num_water=num_water, tcp=tcp,
-                                  cell_r2=cell_r2, dstd=dstd, phys=phys)
+                                  cell_r2=cell_r2, dstd=dstd, phys=phys,
+                                  decompose=decompose)
     cov = torch.zeros(state.shape[1] // BLOCK, dtype=state.dtype,
                       device=state.device)
     return out, esc, cov, wins
@@ -380,7 +406,8 @@ def _fast_draws(key, win_step0, lane, phys: ChunkPhysics, dt):
 
 
 def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
-                 num_water, tcp, cell_r2, dstd, phys: ChunkPhysics):
+                 num_water, tcp, cell_r2, dstd, phys: ChunkPhysics,
+                 decompose: bool = False):
     """The steps of one chunk from ``anchor`` [3, W] against the model
     ``near`` [4, K, W] and ``taylor`` [10, W], phases from ``state``.
     Each step (pallas_engine.py:493-583): random inputs
@@ -389,7 +416,13 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
     walker keeps its old position, field and in-cell test when its coin
     says bounce) -> field kick + intracellular kick + gradient kick.
     Each window: Kahan fold, sums, then the Carr-Purcell flip.  Returns
-    (state', esc, wins)."""
+    (state', esc, wins).
+
+    ``decompose`` (pallas_engine.py:564-575, 702-729): the field kick
+    goes into A (rows 4, 5 of the state), the intracellular and gradient
+    kicks into B (rows 6, 7), each with its own Kahan fold; each window
+    records the per-walker (A, B) as ``wins[w]`` f32[2, W], and the flip
+    negates all four rows."""
     dev, dt = state.device, state.dtype
     wp = state.shape[1]
     n_blk = wp // BLOCK
@@ -439,13 +472,16 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
     draws = _fast_draws if phys.fast_rng else _threefry_draws
     x, y, z = ax, ay, az
     phase, comp = state[4], state[5]
+    phase_b, comp_b = (state[6], state[7]) if decompose else (None, None)
     bprev, mind2 = eval_field(x, y, z)
     maxd2 = torch.zeros(wp, dtype=dt, device=dev)
     n_win = phys.chunk_steps // phys.pfreq
-    wins = torch.zeros((n_blk, n_win, 2), dtype=dt, device=dev)
+    wins = torch.zeros((n_win, 2, wp) if decompose else (n_blk, n_win, 2),
+                       dtype=dt, device=dev)
     for w in range(n_win):
         win_step0 = (step0 + w * phys.pfreq) & rng.MASK
         acc = torch.zeros(wp, dtype=dt, device=dev)
+        acc_b = torch.zeros(wp, dtype=dt, device=dev) if decompose else None
         for dx, dy, dz, inv_norm, nrm, coin, ukick, track in draws(
                 key, win_step0, lane, phys, dt):
             incell = mind2 < cr2
@@ -472,9 +508,14 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
             if any(phys.gradient):
                 bg = (x2 * gx + y2 * gy + z2 * gz) * phys.phase_per_tesla
                 intra = bg if intra is None else intra + bg
-            if intra is not None:
-                kick = kick + intra
-            acc = acc + kick
+            if decompose:
+                acc = acc + kick
+                if intra is not None:
+                    acc_b = acc_b + intra
+            else:
+                if intra is not None:
+                    kick = kick + intra
+                acc = acc + kick
             if track:
                 ex = x2 - ax
                 ey = y2 - ay
@@ -482,26 +523,40 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
                 maxd2 = torch.maximum(maxd2, ex * ex + ey * ey + ez * ez)
             x, y, z, mind2, bprev = x2, y2, z2, mind2_new, b
         # Kahan fold (performUpdate, cuda_sim.cu:814-828), then emit
-        ky = acc - comp
-        kt = phase + ky
-        comp = (kt - phase) - ky
-        phase = kt
-        wins[:, w, 0] = (torch.cos(phase) * validf).reshape(
-            n_blk, BLOCK).sum(1)
-        wins[:, w, 1] = (torch.sin(phase) * validf).reshape(
-            n_blk, BLOCK).sum(1)
+        phase, comp = _kahan(phase, comp, acc)
+        if decompose:
+            phase_b, comp_b = _kahan(phase_b, comp_b, acc_b)
+            wins[w, 0] = phase
+            wins[w, 1] = phase_b
+        else:
+            wins[:, w, 0] = (torch.cos(phase) * validf).reshape(
+                n_blk, BLOCK).sum(1)
+            wins[:, w, 1] = (torch.sin(phase) * validf).reshape(
+                n_blk, BLOCK).sum(1)
         # Carr-Purcell flip after emission (cuda_sim.cu:1015-1020)
         if ((win_step0 + phys.pfreq) & rng.MASK) % tcp == 0:
             phase = -phase
             comp = -comp
+            if decompose:
+                phase_b = -phase_b
+                comp_b = -comp_b
 
-    out = torch.stack([x, y, z, (mind2 < cr2).to(dt), phase, comp])
+    rows = [x, y, z, (mind2 < cr2).to(dt), phase, comp]
+    out = torch.stack(rows + [phase_b, comp_b] if decompose else rows)
     esc = ((maxd2 > phys.travel2) & valid).to(dt)
     return out, esc, wins
 
 
+def _kahan(phase, comp, acc):
+    """One Kahan fold of the window's kicks ``acc`` into (phase, comp)."""
+    ky = acc - comp
+    kt = phase + ky
+    return kt, (kt - phase) - ky
+
+
 def make_sprint_fn(params: Params, num_water: int, device,
-                   dtype=torch.float32, rng_impl: str = RNG_THREEFRY):
+                   dtype=torch.float32, rng_impl: str = RNG_THREEFRY,
+                   decompose: bool = False):
     """``sprint(mnp_tbl, key, state, lane_offset=0, cache=None, tcp=None,
     cell_r=None, d_scale=None, reflect=None) -> (state', wins)``:
     ``params.sprint_steps`` steps as a loop of chunk launches.
@@ -520,7 +575,13 @@ def make_sprint_fn(params: Params, num_water: int, device,
     needs reflection on in ``params``) override their ``params`` values
     as the kernels' launch scalars, as in the reference's sprint
     (pallas_engine.py:901-929): cell_r is squared as a float32 product
-    and d_scale rides as its float32 square root."""
+    and d_scale rides as its float32 square root.
+
+    ``decompose`` (pallas_engine.py:826-858): a phase-decomposition
+    sprint on both paths, its state the 8-row decompose planes
+    (``to_soa`` of an ``init_state(..., decompose=True)`` state) and
+    ``wins`` the per-walker record f32[n_windows, 2, W_pad] of (A, B),
+    padding walkers included."""
     params.validate()
     if dtype != torch.float32:
         raise ValueError("the chunk kernel runs in float32")
@@ -583,7 +644,8 @@ def make_sprint_fn(params: Params, num_water: int, device,
         for _ in range(n_chunks):
             if rebuild:
                 planes, esc, cov, wins = chunk_kernel.run_chunk(
-                    planes, mnp_tbl.tbl, step0=step & rng.MASK, **args)
+                    planes, mnp_tbl.tbl, step0=step & rng.MASK,
+                    decompose=decompose, **args)
             else:
                 planes = torch.cat([_wrap(planes[:3], phys.bound),
                                     planes[3:]])
@@ -591,11 +653,12 @@ def make_sprint_fn(params: Params, num_water: int, device,
                                                     reach2)
                 coverage = coverage + ((n_reach > k) & valid).sum()
                 planes, esc, cov, wins = chunk_kernel.run_chunk_near(
-                    planes, near, taylor, step0=step & rng.MASK, **args)
+                    planes, near, taylor, step0=step & rng.MASK,
+                    decompose=decompose, **args)
             escapes = escapes + esc.sum().to(torch.int64)
             coverage = coverage + cov.sum().to(torch.int64)
             step += params.chunk_steps
-            outs.append(wins.sum(0))
+            outs.append(wins if decompose else wins.sum(0))
         return SoAState(planes, step, escapes, coverage), torch.cat(outs)
 
     return sprint

@@ -1,0 +1,571 @@
+"""Phase-decomposition runs: the whole (moment x echo-spacing) plane
+from ONE simulation, on the card.
+
+Walker trajectories never depend on the dipole moment: diffusion,
+membrane reflection and cell residency are functions of the random
+stream and the scene geometry alone.  The moment enters only through the
+per-step field kick, linearly, and Carr-Purcell flips are sign changes.
+So every walker's phase is exactly linear in a global moment scale s:
+
+    phase_i(t; s) = s * A_i(t) + B_i(t)
+
+with A the accumulated dipole-field phase at the base moments and B the
+accumulated intracellular (and gradient) kick phase.  One run that
+records per-walker (A, B) at each output window gives the T2 curve at
+any moment scale, ``m(t; s) = mean_i cos(s * A_i(t) + B_i(t))``, where
+the reference reran (about 14 minutes on its K40) per value.  The echo
+axis falls out of the same record: a flip only multiplies the
+accumulated phase by -1 at a window boundary, so the raw per-window
+increments are recoverable (``window_increments``) and any taucp aligned
+to the output interval is one cumulative sum away
+(``reconstruct_curves``, ``curves_at_plane``, ``StreamingPlane``).
+
+Counterpart of the reference's ``engine/decompose.py`` on its record
+path: ``run_decomposition`` drives the chunk kernels in decompose mode
+(``cuda_engine.make_sprint_fn(..., decompose=True)``) and drains the
+per-walker record to the host; the reconstruction functions are its
+float64 NumPy code carried over as it is, and ``curves_at_scales`` runs
+in torch float32 on the record's device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..params import Params
+from ..utils.device import require_cuda
+from . import chunk_kernel
+from .convert import key_words, mnp_table
+from .cuda_engine import from_soa, make_sprint_fn, to_soa
+from .reference_engine import init_state
+
+
+class DecompositionResult(NamedTuple):
+    times_ms: np.ndarray   #: [n] window end times, ms
+    A: np.ndarray          #: [n, W] dipole-field phase at the base moments
+    B: np.ndarray          #: [n, W] kick phase (moment-independent)
+    stats: dict            #: escapes / coverage_violations / steps, and
+    #: the run's time split (see run_decomposition)
+
+
+def _unpack_wins(wins: np.ndarray, num_water: int):
+    """One sprint's record ``[n_win, 2, W_pad]`` -> ([n_win, W] A,
+    [n_win, W] B) with the padding walkers stripped."""
+    return wins[:, 0, :num_water], wins[:, 1, :num_water]
+
+
+def run_decomposition(scene, params: Params, seed: int = 0, *,
+                      device="cuda", rng_impl: str = "threefry",
+                      max_steps: Optional[int] = None, consumer=None,
+                      cache=None) -> DecompositionResult:
+    """One forward simulation recording per-walker (A, B) per window.
+
+    Runs on ``device`` ("cuda" unless the caller asks for "cpu"; a CUDA
+    device without a card raises).  ``rng_impl`` "threefry" reproduces
+    the reference engines' streams; "hardware" is the fast generator.
+    ``cache`` (``expansion.SceneCache``) is handed to every sprint, as
+    the runner does for scenes above ``REBUILD_MAX_MNPS`` dipoles.
+
+    ``consumer``: optionally a :class:`StreamingPlane` (or anything with
+    ``update(a_block, b_block)``) fed each sprint's [n_win, W] record
+    blocks in window order INSTEAD of materializing the record — the
+    returned result then carries empty (0-window) A/B arrays and the
+    reconstruction lives in the consumer.
+
+    The drain is one sprint deep, as in the reference: sprint i+1 is
+    queued before sprint i's record is read, and on a card the record is
+    copied to pinned host memory on a second stream, so the copy and the
+    host's work on sprint i overlap the device's work on sprint i+1.
+    ``stats`` holds, besides the counters, ``wall_s``, the
+    ``walker_steps_per_s`` of the whole run, and the split summed over
+    sprints: ``device_s`` (the sprints' kernels, CUDA events; on the CPU
+    the sprint calls), ``copy_s`` (device -> host copies of the record)
+    and ``host_s`` (unpacking and the consumer's update, or keeping the
+    blocks).
+    """
+    p = params.validate()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        require_cuda()
+        chunk_kernel.load_library()
+    num_water = scene.waters.shape[0]
+    sprint = make_sprint_fn(p, num_water, dev, rng_impl=rng_impl,
+                            decompose=True)
+    tbl = mnp_table(scene.mnps, torch.float32, dev)
+    key = key_words(seed)
+    ss = to_soa(init_state(scene.waters, p, dev, decompose=True), p)
+
+    total = p.t if max_steps is None else min(p.t, max_steps)
+    n_sprints = total // p.sprint_steps
+    a_parts, b_parts = [], []
+    n_emitted = 0
+    split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
+    copy_stream = torch.cuda.Stream(dev) if on_card else None
+
+    def emit(item):
+        nonlocal n_emitted
+        host, copy_done, timing = item
+        if on_card:
+            copy_done.synchronize()
+            dev0, dev1, cp0 = timing
+            split["device_s"] += dev0.elapsed_time(dev1) / 1e3
+            split["copy_s"] += cp0.elapsed_time(copy_done) / 1e3
+        t0 = time.perf_counter()
+        a_blk, b_blk = _unpack_wins(host.numpy(), num_water)
+        n_emitted += a_blk.shape[0]
+        if consumer is not None:
+            consumer.update(a_blk, b_blk)
+        else:
+            a_parts.append(a_blk.copy())
+            b_parts.append(b_blk.copy())
+        split["host_s"] += time.perf_counter() - t0
+
+    def launch(ss):
+        """Queue one sprint and the copy of its record; returns the new
+        state and the pending (host record, copy event, timing)."""
+        if not on_card:
+            t0 = time.perf_counter()
+            ss, wins = sprint(tbl, key, ss, cache=cache)
+            split["device_s"] += time.perf_counter() - t0
+            return ss, (wins, None, None)
+        dev0 = torch.cuda.Event(enable_timing=True)
+        dev1 = torch.cuda.Event(enable_timing=True)
+        dev0.record()
+        ss, wins = sprint(tbl, key, ss, cache=cache)
+        dev1.record()
+        host = torch.empty(wins.shape, dtype=wins.dtype, pin_memory=True)
+        cp0 = torch.cuda.Event(enable_timing=True)
+        cp1 = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(copy_stream):
+            copy_stream.wait_event(dev1)
+            wins.record_stream(copy_stream)
+            cp0.record(copy_stream)
+            host.copy_(wins, non_blocking=True)
+            cp1.record(copy_stream)
+        return ss, (host, cp1, (dev0, dev1, cp0))
+
+    t_start = time.perf_counter()
+    pending = None
+    for _ in range(n_sprints):
+        ss, item = launch(ss)
+        if pending is not None:
+            emit(pending)
+        pending = item
+    if pending is not None:
+        emit(pending)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t_start
+    final = from_soa(ss, num_water)
+
+    A = np.concatenate(a_parts) if a_parts else np.zeros((0, num_water))
+    B = np.concatenate(b_parts) if b_parts else np.zeros((0, num_water))
+    times = (np.arange(1, n_emitted + 1) * p.pfreq) * p.tau
+    stats = {
+        "steps": int(final.step),
+        "escapes": int(final.escapes),
+        "coverage_violations": int(final.coverage),
+        "wall_s": wall,
+        "walker_steps_per_s": n_sprints * p.sprint_steps * num_water / wall
+        if wall > 0 else 0.0,
+        "sprints": n_sprints,
+        **split,
+    }
+    return DecompositionResult(times_ms=times, A=A, B=B, stats=stats)
+
+
+def window_increments(A, B, params: Params):
+    """Undo the base run's Carr-Purcell flips: raw per-window phase
+    increments ``(dA, dB)`` as float64 host arrays.
+
+    The engines emit each window's accumulated phase BEFORE applying the
+    flip that fires at that window's end (cuda_sim.cu:996-1023 order:
+    performUpdate, reduce, THEN flipPhases), so with ``s_j = -1`` iff
+    ``(j*pfreq) % tcp == 0`` the recorded series satisfies
+    ``A_j = s_{j-1} * A_{j-1} + dA_j`` — the increments are exactly
+    recoverable in post-processing, no kernel support needed.
+    """
+    p = params.validate()
+    A = np.asarray(A, np.float64)
+    B = np.asarray(B, np.float64)
+    n = A.shape[0]
+    j = np.arange(1, n + 1, dtype=np.int64)
+    sign = np.where((j * p.pfreq) % p.tcp == 0, -1.0, 1.0)
+    dA, dB = A.copy(), B.copy()
+    dA[1:] -= sign[:-1, None] * A[:-1]
+    dB[1:] -= sign[:-1, None] * B[:-1]
+    return dA, dB
+
+
+def _flip_parity(n_windows: int, tcp: int, pfreq: int) -> np.ndarray:
+    """``g[r] = (-1)**F(r)`` where ``F(r)`` counts Carr-Purcell flips in
+    windows 1..r (flip after window j iff ``(j*pfreq) % tcp == 0``, i.e.
+    at multiples of tcp//pfreq windows).  Row r of the record holds
+    window j = r+1, whose phase needs the parity of flips BEFORE it,
+    ``g_{j-1} = g[r]``."""
+    r = np.arange(n_windows, dtype=np.int64)
+    flips = (r * pfreq) // tcp
+    return (1.0 - 2.0 * (flips & 1)).astype(np.float64)
+
+
+def flip_parity_schedule(n_windows: int, flip_windows) -> np.ndarray:
+    """``g`` for an ARBITRARY refocusing schedule: ``flip_windows`` lists
+    the (1-based) output windows after whose end a 180-degree pulse
+    fires.  Row r of the record holds window j = r+1, whose phase needs
+    the parity of pulses BEFORE it — the count of schedule entries
+    <= r."""
+    f = np.asarray(sorted({int(x) for x in flip_windows}), np.int64)
+    if f.size and (f[0] < 1 or f[-1] > n_windows):
+        raise ValueError(
+            f"flip windows must be 1-based window indices in "
+            f"[1, {n_windows}]; got range [{f[0]}, {f[-1]}]")
+    counts = np.searchsorted(f, np.arange(n_windows, dtype=np.int64),
+                             side="right")
+    return (1.0 - 2.0 * (counts & 1)).astype(np.float64)
+
+
+def _reconstruct(dA, dB, s_arr, g_stack, quadrature: bool,
+                 walker_block: int) -> np.ndarray:
+    """Shared inner loop: walker-mean curves [n_scales, n_schedules,
+    n_windows(, 2)] given per-schedule parity vectors ``g_stack``
+    [n_schedules, n_windows].  float64, streamed over walker blocks."""
+    n, w = dA.shape
+    comps = 2 if quadrature else 1
+    acc = np.zeros((len(s_arr), g_stack.shape[0], n, comps), np.float64)
+    for lo in range(0, w, walker_block):
+        hi = min(lo + walker_block, w)
+        a_blk, b_blk = dA[:, lo:hi], dB[:, lo:hi]
+        for si, sv in enumerate(s_arr):
+            dphi = sv * a_blk + b_blk
+            for ti in range(g_stack.shape[0]):
+                gi = g_stack[ti][:, None]
+                phi = gi * np.cumsum(gi * dphi, axis=0)
+                acc[si, ti, :, 0] += np.sum(np.cos(phi), axis=1)
+                if quadrature:
+                    acc[si, ti, :, 1] += np.sum(np.sin(phi), axis=1)
+    acc /= w
+    return acc if quadrature else acc[..., 0]
+
+
+def reconstruct_curves(dA, dB, scales, taucps, params: Params,
+                       quadrature: bool = False,
+                       walker_block: int = 1024) -> np.ndarray:
+    """T2 curves over the whole (moment-scale x echo-spacing) plane from
+    ONE simulation's increment record.
+
+    Phase is linear in the moment scale (phase_j = s*dA_j + dB_j per
+    window) and a Carr-Purcell schedule only multiplies prefix sums by
+    +-1, so for any taucp' whose flips land on window boundaries
+
+        phi'_j = g_{j-1} * sum_{k<=j} g_{k-1} * dphi_k,
+        g_m = (-1)**(number of flips among windows 1..m)
+
+    — one cumulative sum per (scale, taucp) pair.  The reference answers
+    this question with one ~14-minute recompile-and-rerun per grid point
+    (README.md:13,16); here the whole plane is closed-form post-processing
+    on common random numbers.
+
+    Returns walker-MEAN curves ``[n_scales, n_taucps, n_windows]`` of
+    cos(phi) (or ``[..., 2]`` stacking cos/sin when ``quadrature``).
+    Accumulation is float64, streamed over walker blocks so the peak
+    temporary stays ~``n_windows x walker_block`` regardless of the
+    record size.
+    """
+    dA = np.asarray(dA, np.float64)
+    dB = np.asarray(dB, np.float64)
+    n = dA.shape[0]
+    s_arr = np.asarray(scales, np.float64).reshape(-1)
+    taucps = list(np.asarray(taucps, np.float64).reshape(-1))
+    # one validated tcp per taucp (reuses the params error messages for
+    # misaligned / sub-window echo spacings)
+    tcps = [params.replace(taucp=float(t)).validate().tcp for t in taucps]
+    g = np.stack([_flip_parity(n, tcp, params.pfreq) for tcp in tcps])
+    return _reconstruct(dA, dB, s_arr, g, quadrature, walker_block)
+
+
+def reconstruct_at_schedule(dA, dB, scales, schedules,
+                            quadrature: bool = False,
+                            walker_block: int = 1024) -> np.ndarray:
+    """Curves for ARBITRARY refocusing-pulse schedules from one record —
+    echo trains the engines never simulated.
+
+    ``schedules`` is a list of pulse schedules, each a sequence of
+    1-based output-window indices after whose end a 180-degree pulse
+    fires (an empty schedule = free decay).  A 180-degree pulse only
+    negates every walker's accumulated phase — it changes neither
+    trajectories nor the per-window phase increments — so the exact
+    reconstruction argument of :func:`reconstruct_curves` applies
+    verbatim to non-uniform trains: variable-spacing CPMG, T2-prep
+    blocks, or any other aligned sequence is one ±1-signed cumulative
+    sum over the recorded increments.  (For the uniform-taucp grid the
+    reference's workflow targets, use :func:`reconstruct_curves`; this
+    is the generalization it cannot express at all.)
+
+    Returns ``[n_scales, n_schedules, n_windows]`` walker-mean curves
+    (``[..., 2]`` stacking cos/sin when ``quadrature``).
+    """
+    dA = np.asarray(dA, np.float64)
+    dB = np.asarray(dB, np.float64)
+    n = dA.shape[0]
+    s_arr = np.asarray(scales, np.float64).reshape(-1)
+    g = np.stack([flip_parity_schedule(n, sched) for sched in schedules])
+    return _reconstruct(dA, dB, s_arr, g, quadrature, walker_block)
+
+
+class StreamingPlane:
+    """Incremental (moment-scale x taucp) plane reconstruction from
+    per-sprint record blocks — the dense-sweep workflow WITHOUT ever
+    materializing the [n_windows, W] record.
+
+    Per window the phase increment is linear in the moment scale
+    (dphi = s*dA + dB) and a Carr-Purcell train only signs prefix sums
+    (reconstruct_curves), so per echo spacing it suffices to carry the
+    per-walker SIGNED increment sums ``S_A = sum g_{k-1} dA_k`` and
+    ``S_B`` — window j's phase at ANY scale is ``g_{j-1}(s*S_A + S_B)``,
+    closed form.  Memory is ``2 x n_taucps x W`` float64, independent of
+    BOTH the window count and the scale count: the full record for a
+    100k-walker x 40k-window scale-up run is 32 GB; this is ~16 MB.
+
+    Feed the engines' RAW recorded rows (accumulated phase with the base
+    run's CP flips applied, exactly what ``run_decomposition`` drains per
+    sprint) via :meth:`update` in window order — pass this object as
+    ``run_decomposition(..., consumer=plane)``.  ``result()`` returns
+    what :func:`curves_at_plane` returns, to float64 summation-order
+    rounding (the batch path sums walkers in blocks of 1024).
+
+    ``echo_pairs``: optional [(scale, taucp), ...] whose per-walker echo
+    cos-matrices are captured during the stream (memory n_echoes x W
+    each) and returned by :meth:`echo_matrix`: the per-walker cos at
+    every spin echo, from which Monte-Carlo error bars follow with no
+    record.
+    """
+
+    def __init__(self, params: Params, n_windows: int, scales,
+                 taucps=None, quadrature: bool = False,
+                 echo_pairs=(), row_block: int = 256):
+        from ..analysis import echo_indices
+
+        p = params.validate()
+        self._p = p
+        n = int(n_windows)
+        if n <= 0:
+            raise ValueError(f"n_windows must be > 0, got {n_windows!r}")
+        if row_block < 1:
+            raise ValueError(f"row_block must be >= 1, got {row_block!r}")
+        self._n = n
+        self._scales = np.asarray(scales, np.float64).reshape(-1)
+        self._taucps = [p.taucp] if taucps is None else \
+            [float(t) for t in np.asarray(taucps, np.float64).reshape(-1)]
+        tcps = [p.replace(taucp=t).validate().tcp for t in self._taucps]
+        self._g = np.stack([_flip_parity(n, tcp, p.pfreq) for tcp in tcps])
+        # sign applied to the base run's accumulated phase AFTER window j
+        # (1-based) — undoing it recovers raw increments, as in
+        # window_increments
+        j = np.arange(1, n + 1, dtype=np.int64)
+        self._undo = np.where((j * p.pfreq) % p.tcp == 0, -1.0, 1.0)
+        self._quad = bool(quadrature)
+        self._row_block = int(row_block)
+        self._curves = np.zeros(
+            (len(self._scales), len(self._taucps), n,
+             2 if self._quad else 1), np.float64)
+        self.times_ms = np.arange(1, n + 1, dtype=np.float64) \
+            * p.pfreq * p.tau
+        self._echo = []
+        for es, et in echo_pairs:
+            tcp_e = p.replace(taucp=float(et)).validate().tcp
+            eidx = echo_indices(self.times_ms, float(et))
+            if eidx.size == 0:
+                raise ValueError(
+                    f"no spin echo (t = 2k*taucp = {2 * float(et):g} ms) "
+                    f"falls inside the {self.times_ms[-1]:g} ms stream")
+            self._echo.append({
+                "scale": float(es), "taucp": float(et),
+                "g": _flip_parity(n, tcp_e, p.pfreq),
+                "eidx": eidx, "times": self.times_ms[eidx],
+                "mat": None, "SA": None, "SB": None})
+        self._r = 0
+        self._prev_A = self._prev_B = None
+        self._SA = self._SB = None
+
+    def update(self, a_block, b_block) -> None:
+        """Consume the next [n_block, W] raw record rows (window order)."""
+        a_block = np.asarray(a_block, np.float64)
+        b_block = np.asarray(b_block, np.float64)
+        if a_block.shape != b_block.shape or a_block.ndim != 2:
+            raise ValueError(
+                f"expected matching [n_block, W] blocks; got "
+                f"{a_block.shape} and {b_block.shape}")
+        nb, w = a_block.shape
+        if self._r + nb > self._n:
+            raise ValueError(
+                f"stream overflow: {self._r} + {nb} rows > the declared "
+                f"{self._n} windows")
+        if self._SA is None:
+            t = len(self._taucps)
+            self._SA = np.zeros((t, w), np.float64)
+            self._SB = np.zeros((t, w), np.float64)
+            for e in self._echo:
+                e["SA"] = np.zeros(w, np.float64)
+                e["SB"] = np.zeros(w, np.float64)
+                e["mat"] = np.empty((e["eidx"].size, w), np.float64)
+        elif w != self._SA.shape[1]:
+            raise ValueError(f"walker count changed mid-stream: "
+                             f"{self._SA.shape[1]} -> {w}")
+
+        for c0 in range(0, nb, self._row_block):
+            c1 = min(c0 + self._row_block, nb)
+            g0 = self._r + c0
+            # undo the base run's flips: dA_r = A_r - undo[r-1] * A_{r-1}
+            dA = a_block[c0:c1].copy()
+            dB = b_block[c0:c1].copy()
+            if g0 > 0:
+                dA[0] -= self._undo[g0 - 1] * self._prev_A
+                dB[0] -= self._undo[g0 - 1] * self._prev_B
+            if c1 - c0 > 1:
+                u = self._undo[g0:g0 + (c1 - c0) - 1, None]
+                dA[1:] -= u * a_block[c0:c1 - 1]
+                dB[1:] -= u * b_block[c0:c1 - 1]
+            self._prev_A = a_block[c1 - 1]
+            self._prev_B = b_block[c1 - 1]
+
+            for ti in range(len(self._taucps)):
+                gc = self._g[ti, g0:g0 + (c1 - c0)][:, None]
+                sa = self._SA[ti] + np.cumsum(gc * dA, axis=0)
+                sb = self._SB[ti] + np.cumsum(gc * dB, axis=0)
+                self._SA[ti] = sa[-1]
+                self._SB[ti] = sb[-1]
+                for si, sv in enumerate(self._scales):
+                    inner = sv * sa + sb        # phi = g * inner
+                    self._curves[si, ti, g0:g0 + (c1 - c0), 0] = \
+                        np.mean(np.cos(inner), axis=1)
+                    if self._quad:
+                        self._curves[si, ti, g0:g0 + (c1 - c0), 1] = \
+                            gc[:, 0] * np.mean(np.sin(inner), axis=1)
+            for e in self._echo:
+                gc = e["g"][g0:g0 + (c1 - c0)][:, None]
+                sa = e["SA"] + np.cumsum(gc * dA, axis=0)
+                sb = e["SB"] + np.cumsum(gc * dB, axis=0)
+                e["SA"], e["SB"] = sa[-1], sb[-1]
+                lo = np.searchsorted(e["eidx"], g0)
+                hi = np.searchsorted(e["eidx"], g0 + (c1 - c0))
+                for k in range(lo, hi):
+                    r_loc = e["eidx"][k] - g0
+                    e["mat"][k] = np.cos(
+                        e["scale"] * sa[r_loc] + sb[r_loc])
+        self._r += nb
+
+    # -- snapshot / restore: resume a stream from a state_dict --
+    def config_digest(self) -> str:
+        """Hash of everything that shapes the stream's state and its
+        float64 summation order — a snapshot may only be restored into
+        an identically-configured plane."""
+        import hashlib
+        h = hashlib.sha256()
+        h.update(repr((self._n, self._scales.tolist(), self._taucps,
+                       self._quad, self._row_block, self._p.tcp,
+                       self._p.pfreq,
+                       [(e["scale"], e["taucp"]) for e in self._echo]))
+                 .encode())
+        return h.hexdigest()[:16]
+
+    def state_dict(self) -> dict:
+        """The consumed-stream state as flat numpy arrays (npz-able);
+        :meth:`load_state` restores it exactly (bitwise)."""
+        d = {"r": np.int64(self._r), "digest": self.config_digest()}
+        if self._SA is not None:
+            d.update(SA=self._SA, SB=self._SB, prev_A=self._prev_A,
+                     prev_B=self._prev_B, curves=self._curves)
+            for i, e in enumerate(self._echo):
+                d[f"echo{i}_SA"] = e["SA"]
+                d[f"echo{i}_SB"] = e["SB"]
+                d[f"echo{i}_mat"] = e["mat"]
+        return d
+
+    def load_state(self, d: dict) -> None:
+        """Restore a :meth:`state_dict` snapshot (same configuration
+        required; refuses a digest mismatch)."""
+        theirs = str(np.asarray(d["digest"]))
+        if theirs != self.config_digest():
+            raise ValueError(
+                f"stream snapshot was taken under a different plane "
+                f"configuration (digest {theirs} != "
+                f"{self.config_digest()}); scales/taucps/quadrature/"
+                f"row_block/echo_pairs must match exactly")
+        self._r = int(np.asarray(d["r"]))
+        if "SA" in d:
+            self._SA = np.array(d["SA"], np.float64)
+            self._SB = np.array(d["SB"], np.float64)
+            self._prev_A = np.array(d["prev_A"], np.float64)
+            self._prev_B = np.array(d["prev_B"], np.float64)
+            self._curves = np.array(d["curves"], np.float64)
+            for i, e in enumerate(self._echo):
+                e["SA"] = np.array(d[f"echo{i}_SA"], np.float64)
+                e["SB"] = np.array(d[f"echo{i}_SB"], np.float64)
+                e["mat"] = np.array(d[f"echo{i}_mat"], np.float64)
+        elif self._r:
+            raise ValueError("stream snapshot claims consumed rows but "
+                             "carries no state arrays")
+
+    def _check_complete(self):
+        if self._r != self._n:
+            raise ValueError(
+                f"stream incomplete: {self._r}/{self._n} windows consumed")
+
+    def result(self) -> np.ndarray:
+        """Walker-mean curves ``[n_scales, n_taucps, n_windows]``
+        (``[..., 2]`` when quadrature) — :func:`curves_at_plane`'s
+        contract, computed in one pass."""
+        self._check_complete()
+        return self._curves if self._quad else self._curves[..., 0]
+
+    def echo_matrix(self, i: int = 0):
+        """``(echo_times_ms, cos_echo [n_echoes, W])`` for echo_pairs[i]:
+        the cos of each walker's phase at that pair's scale and spacing
+        at every spin echo t = 2k taucp, captured in-stream."""
+        if not self._echo:
+            raise ValueError("no echo_pairs were requested at construction")
+        self._check_complete()
+        e = self._echo[i]
+        return e["times"], e["mat"]
+
+
+def curves_at_plane(A, B, scales, taucps, params: Params,
+                    quadrature: bool = False) -> np.ndarray:
+    """Convenience: ``window_increments`` + ``reconstruct_curves`` —
+    the (moment x taucp) sweep plane from one decomposition record."""
+    dA, dB = window_increments(A, B, params)
+    return reconstruct_curves(dA, dB, scales, taucps, params,
+                              quadrature=quadrature)
+
+
+def curves_at_scales(A, B, scales, quadrature: bool = False):
+    """Reconstruct normalized magnetization curves at each moment scale:
+    ``curves[s, t] = mean_i cos(scales[s] * A[t, i] + B[t, i])``
+    (and the sin component when ``quadrature``), as a NumPy array
+    ``[n_scales, n_windows]`` (``[n_scales, 2, n_windows]``).
+
+    float32 torch on the record's device (a tensor's own, the CPU for a
+    NumPy record), one scale at a time, so sweeping hundreds of scales
+    over a full-run record stays bounded in memory."""
+    dev = A.device if isinstance(A, torch.Tensor) else torch.device("cpu")
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32)
+                               if not isinstance(x, torch.Tensor) else x,
+                               device=dev).to(torch.float32)
+
+    A, B = f32(A), f32(B)
+    out = []
+    for sv in np.asarray(scales, np.float32).reshape(-1):
+        ph = torch.tensor(sv, device=dev) * A + B
+        if quadrature:
+            out.append(torch.stack([torch.cos(ph).mean(-1),
+                                    torch.sin(ph).mean(-1)]))
+        else:
+            out.append(torch.cos(ph).mean(-1))
+    return torch.stack(out).cpu().numpy()

@@ -14,12 +14,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mri_nanoparticle_simulation_tpu.params import (KICK_AS_WRITTEN,
-                                                    KICK_CONSTANT,
-                                                    KICK_INTENDED, KICK_NONE,
-                                                    Params)
-
 from .. import rng
+from ..params import (KICK_AS_WRITTEN, KICK_CONSTANT, KICK_INTENDED,
+                      KICK_NONE, Params)
 
 
 class WalkerState(NamedTuple):
@@ -28,7 +25,8 @@ class WalkerState(NamedTuple):
     kernel's counters, and keeping it on the host costs no sync."""
     pos: torch.Tensor         # [W, 3] positions, µm
     in_cell: torch.Tensor     # [W] bool
-    phase: torch.Tensor       # [W] accumulated phase, rad
+    phase: torch.Tensor       # [W] accumulated phase, rad ([W, 2] (A, B)
+    #                           in a phase-decomposition run)
     phase_comp: torch.Tensor  # [W] Kahan compensation for phase
     step: int                 # completed global steps
     escapes: torch.Tensor     # int64 scalar: chunk-anchor escapes
@@ -38,11 +36,15 @@ class WalkerState(NamedTuple):
 
 
 def init_state(waters: np.ndarray, params: Params, device,
-               dtype=torch.float32) -> WalkerState:
-    """Walkers at ``waters`` [W, 3] with zero phase, on ``device``."""
+               dtype=torch.float32, decompose: bool = False) -> WalkerState:
+    """Walkers at ``waters`` [W, 3] with zero phase, on ``device``.
+    ``decompose`` builds the state of a phase-decomposition run: phase
+    and phase_comp ``[W, 2]``, column 0 the dipole-field part A, column
+    1 the kick part B (the reference's reference_engine.py:112-128)."""
     device = torch.device(device)
     w = waters.shape[0]
-    zeros = torch.zeros(w, dtype=dtype, device=device)
+    zeros = torch.zeros((w, 2) if decompose else w, dtype=dtype,
+                        device=device)
     return WalkerState(
         pos=torch.as_tensor(np.asarray(waters), device=device).to(dtype),
         in_cell=torch.zeros(w, dtype=torch.bool, device=device),

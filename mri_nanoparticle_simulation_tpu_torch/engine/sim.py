@@ -6,6 +6,11 @@ tables) cover it, build the large-scene cache once, run sprints of
 chunk-kernel launches without syncing the host, drain the window sums
 every ``drain_depth`` sprints, and stream the T2 curve to CSV.
 
+With ``--moment-scales`` and/or ``--echo-taucps`` the CLI runs one
+phase-decomposition simulation (``engine/decompose.py``) and writes one
+CSV per (moment scale, echo spacing) grid point, the reference's
+sim.py:1198-1395.
+
 Run as a CLI:
     python -m mri_nanoparticle_simulation_tpu_torch.engine.sim \
         --num-water 4032 --totaltime 40 --out t2.csv --device cuda
@@ -14,6 +19,7 @@ Run as a CLI:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import Optional
@@ -21,13 +27,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mri_nanoparticle_simulation_tpu.params import Params
-from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
-
+from .. import analysis
 from ..fields import expansion
 from ..io import writer as writer_mod
+from ..params import Params, params_fingerprint
+from ..scene import BacteriaBox
 from ..utils.device import require_cuda
 from . import chunk_kernel, cuda_engine
+from . import decompose as dec
 from .convert import key_words, mnp_table
 from .reference_engine import init_state
 
@@ -187,7 +194,8 @@ class SimulationRunner:
             writer.append_windows(first_idx, wins)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's flags, those of the reference CLI that the port runs."""
     ap = argparse.ArgumentParser(
         description="Monte Carlo MRI T2 simulation on an NVIDIA GPU "
                     "(PyTorch + CUDA port; reference: "
@@ -242,8 +250,63 @@ def main(argv=None):
                          "bit-reproducible validation path")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' fails without a card")
-    args = ap.parse_args(argv)
+    ap.add_argument("--moment-scales", default=None, metavar="S1,S2,...",
+                    help="reconstruct the T2 curve at each moment scale s "
+                         "(dipole moment = s * --mmoment) from ONE "
+                         "phase-decomposition run, writing one CSV per "
+                         "scale next to --out: trajectories never depend "
+                         "on the moment, so a single simulation is a "
+                         "complete basis for the whole moment axis "
+                         "(engine/decompose.py).  All scales share the "
+                         "same trajectories (common random numbers).  "
+                         "Host memory: the per-walker record is 8 bytes x "
+                         "windows x waters (~1.3 GB for the full 4032 x "
+                         "40 ms run)")
+    ap.add_argument("--echo-taucps", default=None, metavar="T1,T2,...",
+                    help="reconstruct the curve at each Carr-Purcell "
+                         "half-echo spacing (ms) from the SAME "
+                         "decomposition run: flips only multiply window "
+                         "prefix sums by +-1, so any taucp aligned to "
+                         "the output interval is a closed-form cumsum "
+                         "over the recorded increments "
+                         "(engine/decompose.py).  Composes with "
+                         "--moment-scales into the full (moment x taucp) "
+                         "plane — the reference re-ran nvcc + ~14 min of "
+                         "GPU per grid point; one CSV per pair")
+    ap.add_argument("--dump-record", default=None, metavar="PATH",
+                    help="with --moment-scales/--echo-taucps: also save "
+                         "the raw per-walker decomposition record "
+                         "(times_ms, A [n,W], B [n,W] + params "
+                         "fingerprint) as .npz — a complete basis for "
+                         "offline reconstruction at ANY moment scale / "
+                         "aligned echo spacing (engine/decompose.py)")
+    ap.add_argument("--stream-plane", action="store_true",
+                    help="with --moment-scales/--echo-taucps: reconstruct "
+                         "the plane INCREMENTALLY per sprint "
+                         "(decompose.StreamingPlane) instead of "
+                         "materializing the per-walker record — host "
+                         "memory drops from 8 bytes x windows x waters "
+                         "(32 GB at 100k walkers x 40k windows) to "
+                         "O(taucps x waters).  Same curves to f64 "
+                         "rounding; incompatible with --dump-record "
+                         "(there is no record to save)")
+    ap.add_argument("--fit-r2", default=None, metavar="PATH",
+                    help="with --echo-taucps: fit each grid point's "
+                         "spin-echo envelope (analysis.fit_t2 at "
+                         "t = 2k*taucp) and write the CPMG dispersion "
+                         "table mscale,taucp_ms,r2_per_ms,t2_ms,"
+                         "r_squared,n_echoes to PATH — R2(taucp) is the "
+                         "quantity MRI relaxometry experiments measure, "
+                         "here from ONE simulation; grid points whose "
+                         "envelope cannot be fit (too few echoes, no "
+                         "decay) get nan rows")
+    return ap
 
+
+def params_from_args(ap: argparse.ArgumentParser, args) -> Params:
+    """The run's Params from parsed flags, as the reference CLI builds
+    them (sim.py:808-836): chunk and sprint sizes fitted to the step
+    count, then the permeability flags."""
     params = Params(
         num_water=args.num_water, num_cells=args.num_cells,
         totaltime=args.totaltime, taucp=args.taucp, mmoment=args.mmoment,
@@ -270,11 +333,20 @@ def main(argv=None):
         params = params.with_permeability()
     if args.impermeable:
         params = params.impermeable()
-    params.validate()
+    return params.validate()
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    params = params_from_args(ap, args)
 
     csv_path = args.out or writer_mod.default_output_path(params)
     print(f"Starting simulation on {args.device}...\nPrinting to: "
           f"{csv_path}", file=sys.stderr)
+    _check_decomposition_flags(ap, args)
+    if args.moment_scales or args.echo_taucps:
+        return _run_decomposition_cli(ap, args, params, csv_path)
     runner = SimulationRunner(params, scene_seed=args.scene_seed,
                               seed=args.seed, device=args.device,
                               rng_impl=args.rng)
@@ -287,6 +359,161 @@ def main(argv=None):
           f"{stats['coverage_violations']} coverage violations",
           file=sys.stderr)
     return 0
+
+
+def _check_decomposition_flags(ap, args) -> None:
+    """The reference CLI's rules for the decomposition flags, in its
+    order and words (sim.py:953-995, those of the flags the port has)."""
+    decomp_mode = bool(args.moment_scales or args.echo_taucps)
+    if args.fit_r2 and not args.echo_taucps:
+        ap.error("--fit-r2 is the dispersion over the --echo-taucps "
+                 "grid; pass the echo spacings to fit")
+    if args.stream_plane:
+        if not decomp_mode:
+            ap.error("--stream-plane streams a phase-decomposition "
+                     "reconstruction; run with --moment-scales and/or "
+                     "--echo-taucps")
+        if args.dump_record:
+            ap.error("--stream-plane never materializes the record; "
+                     "drop --dump-record (or drop --stream-plane to "
+                     "save the record)")
+    if args.dump_record:
+        if not decomp_mode:
+            ap.error("--dump-record saves a phase-decomposition record; "
+                     "run with --moment-scales and/or --echo-taucps")
+        d = os.path.dirname(os.path.abspath(args.dump_record)) or "."
+        if not os.path.isdir(d):
+            # fail fast: discovering an unwritable path AFTER a
+            # multi-hour decomposition run would lose everything
+            ap.error(f"--dump-record directory does not exist: {d}")
+        if not args.dump_record.endswith(".npz"):
+            args.dump_record += ".npz"   # np.savez appends it anyway
+
+
+def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
+    """``--moment-scales`` / ``--echo-taucps``: one decomposition run, one
+    CSV per (scale, taucp) grid point, and optionally the record
+    (``--dump-record``) and the CPMG dispersion table (``--fit-r2``); the
+    reference CLI's sim.py:1198-1395 on its record and streaming paths."""
+    try:
+        scales = ([float(v) for v in args.moment_scales.split(",")]
+                  if args.moment_scales else [1.0])
+        taucps = ([float(v) for v in args.echo_taucps.split(",")]
+                  if args.echo_taucps else None)
+    except ValueError:
+        ap.error("--moment-scales/--echo-taucps must be "
+                 "comma-separated lists of numbers")
+    for s in scales:
+        # fail fast on scales the single-run path would reject
+        params.replace(mmoment=params.mmoment * s).validate()
+    for t_cp in taucps or ():
+        # fail fast on sub-window / misaligned echo spacings
+        params.replace(taucp=t_cp).validate()
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        require_cuda()
+    sc = BacteriaBox(params, seed=args.scene_seed).populate()
+    cache = None
+    if cuda_engine.needs_cache(params.num_water, len(sc.mnps)):
+        tbl = mnp_table(sc.mnps, torch.float32, device)
+        cache = expansion.build_cache(tbl.pos, tbl.m, params)
+    taucps_eff = taucps if taucps is not None else [params.taucp]
+    t0 = time.perf_counter()
+    t_rec = None
+    if args.stream_plane:
+        plane = dec.StreamingPlane(params, params.t // params.pfreq,
+                                   scales, taucps, quadrature=True)
+        res = dec.run_decomposition(sc, params, seed=args.seed,
+                                    device=device, rng_impl=args.rng,
+                                    consumer=plane, cache=cache)
+        curves = plane.result()          # [s, t, n, 2], walker means
+    else:
+        res = dec.run_decomposition(sc, params, seed=args.seed,
+                                    device=device, rng_impl=args.rng,
+                                    cache=cache)
+        t_rec = time.perf_counter()
+        if taucps is None:
+            curves = dec.curves_at_scales(res.A, res.B, scales,
+                                          quadrature=True)
+            # [s, 2, n] -> [s, 1, n, 2] so one writer loop serves both
+            curves = np.moveaxis(curves, 1, -1)[:, None]
+        else:
+            curves = dec.curves_at_plane(res.A, res.B, scales, taucps,
+                                         params, quadrature=True)
+    wall = time.perf_counter() - t0
+    recon_s = 0.0 if t_rec is None else t0 + wall - t_rec
+    stem, ext = os.path.splitext(csv_path)
+    for si, s in enumerate(scales):
+        for ti, t_cp in enumerate(taucps_eff):
+            pv = params.replace(mmoment=params.mmoment * s,
+                                taucp=t_cp).validate()
+            path = f"{stem}_mscale={s:g}"
+            if taucps is not None:
+                path += f"_taucp={t_cp:g}"
+            path += ext or ".csv"
+            # walker MEANS -> the reference schema's walker SUMS
+            # (cuda_sim.cu:1013,1022)
+            wins = curves[si, ti] * params.num_water
+            with writer_mod.T2CsvWriter(path, pv,
+                                        quadrature=args.quadrature) as w:
+                w.append_windows(0, wins)
+            print(f"  mscale={s:g} taucp={t_cp:g}: wrote {path}",
+                  file=sys.stderr)
+    if args.dump_record:
+        # after the CSVs: a dump failure must never cost the run's
+        # primary products
+        np.savez_compressed(
+            args.dump_record, times_ms=res.times_ms, A=res.A, B=res.B,
+            params_fp=params_fingerprint(params), mmoment=params.mmoment,
+            seed=args.seed, taucp=params.taucp, tau=params.tau,
+            pfreq=params.pfreq)
+        print(f"Decomposition record written: {args.dump_record} "
+              f"(A/B {res.A.shape})", file=sys.stderr)
+    if args.fit_r2:
+        _write_dispersion(args.fit_r2, res.times_ms, curves, scales,
+                          taucps_eff, params.num_water)
+        print(f"CPMG dispersion table written: {args.fit_r2}",
+              file=sys.stderr)
+    st = res.stats
+    n_pts = len(scales) * len(taucps_eff)
+    rate = params.t * params.num_water / wall if wall > 0 else 0.0
+    # the run's own rate and the split (the device's sprints, the record's
+    # copies to the host, the host's work on each sprint's record while
+    # the next sprint runs), then the reconstruction after the run
+    print(f"  decomposition run: {st['wall_s']:.4f} s "
+          f"({st['walker_steps_per_s']:.4e} walker-steps/s) over "
+          f"{st['sprints']} sprints: device {st['device_s']:.4f} s, "
+          f"record copy {st['copy_s']:.4f} s, host per sprint "
+          f"{st['host_s']:.4f} s; reconstruction after the run "
+          f"{recon_s:.4f} s", file=sys.stderr)
+    print(f"(moment x taucp)-plane reconstruction complete: {n_pts} "
+          f"grid point(s) from ONE {params.t}-step run in {wall:.1f}s "
+          f"({rate:.3e} walker-steps/s), {st['escapes']} chunk escapes, "
+          f"{st['coverage_violations']} coverage violations",
+          file=sys.stderr)
+    return 0
+
+
+def _write_dispersion(path, times_ms, curves, scales, taucps, num_water):
+    """The CPMG dispersion table: a T2 fit of each grid point's spin-echo
+    envelope, nan rows where it cannot be fit."""
+    with open(path, "w") as f:
+        f.write("mscale,taucp_ms,r2_per_ms,t2_ms,r_squared,n_echoes,"
+                "t2_stderr_ms\n")
+        for si, s in enumerate(scales):
+            for ti, t_cp in enumerate(taucps):
+                curve = curves[si, ti, :, 0] * num_water
+                try:
+                    te, me = analysis.sample_at_echoes(times_ms, curve,
+                                                       t_cp)
+                    fit = analysis.fit_t2(te, me)
+                    f.write(f"{s:g},{t_cp:g},{1.0 / fit.t2_ms},"
+                            f"{fit.t2_ms},{fit.r_squared},{fit.n_used},"
+                            f"{fit.t2_stderr_ms}\n")
+                except ValueError as e:
+                    print(f"  fit-r2: mscale={s:g} taucp={t_cp:g} "
+                          f"unfittable ({e})", file=sys.stderr)
+                    f.write(f"{s:g},{t_cp:g},nan,nan,nan,0,nan\n")
 
 
 if __name__ == "__main__":

@@ -35,10 +35,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mri_nanoparticle_simulation_tpu.params import Params
-from mri_nanoparticle_simulation_tpu.utils import cache as cache_mod
-
 from ..engine import chunk_kernel
+from ..params import Params
+from ..utils import cache as cache_mod
 from . import fartable
 from .dipole import FIELD_SCALE, bz_taylor_parts
 

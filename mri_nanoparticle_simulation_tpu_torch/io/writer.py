@@ -16,7 +16,7 @@ from typing import IO, Optional
 
 import numpy as np
 
-from mri_nanoparticle_simulation_tpu.params import Params
+from ..params import Params
 
 
 class T2CsvWriter:

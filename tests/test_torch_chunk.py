@@ -8,6 +8,8 @@ Tolerances are those of tests/test_pallas.py:34-36: state within 5e-6,
 window sums within 1e-3; escapes and coverage counts equal.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,9 @@ from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
 from mri_nanoparticle_simulation_tpu_torch.engine import (chunk_kernel,
                                                           convert,
                                                           cuda_engine)
+from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import \
+    init_state
+from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox as TBox
 
 torch.set_num_threads(1)
 
@@ -55,19 +60,26 @@ def _params(over):
     return P.small_test_params(**base)
 
 
+def _tp(p):
+    """The port's Params of the JAX Params ``p``."""
+    return convert.params_from_fields(dataclasses.asdict(p))
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
     """Inputs and the Pallas kernel's outputs, shared by the tests."""
     c = CASES[request.param]
     p = _params(c["p"])
+    tp = _tp(p)
     nw = p.num_water
     sc = BacteriaBox(p, seed=3).populate()
-    tbl = convert.mnp_table(sc.mnps, torch.float32, "cpu")
+    tbl = convert.mnp_table(TBox(tp, seed=3).populate().mnps, torch.float32,
+                            "cpu")
     st = jre.init_state(sc.waters, p)
     ps = pe.to_planes(st, p)
     kern = pe.make_chunk_kernel(p, ps.px.shape[0], jnp.float32, "threefry",
                                 interpret=True, n_mnp_pad=tbl.tbl.shape[1])
-    cr2 = np.float32(cuda_engine.cell_r2_f32(p.cell_r))
+    cr2 = np.float32(cuda_engine.cell_r2_f32(tp.cell_r))
     scal = np.array([c["step0"], KEY[0], KEY[1], 0, c["lane_offset"], nw,
                      p.tcp, cr2.view(np.uint32),
                      np.float32(1.0).view(np.uint32), 0, 0], np.uint32)
@@ -79,11 +91,11 @@ def case(request):
     ref = dict(state=so.reshape(6, -1)[:, :nw],
                esc=int(esc.reshape(-1)[:nw].sum()), cov=int(cov.sum()),
                wins=wins.sum(0))
-    ss = cuda_engine.to_soa(convert.state_from_numpy(st, "cpu"), p)
+    ss = cuda_engine.to_soa(convert.state_from_numpy(st, "cpu"), tp)
     got = chunk_kernel.run_chunk(
         ss.planes, tbl.tbl, step0=c["step0"], key=KEY,
-        lane_offset=c["lane_offset"], num_water=nw, tcp=p.tcp,
-        cell_r2=float(cr2), dstd=1.0, phys=cuda_engine.chunk_physics(p))
+        lane_offset=c["lane_offset"], num_water=nw, tcp=tp.tcp,
+        cell_r2=float(cr2), dstd=1.0, phys=cuda_engine.chunk_physics(tp))
     return request.param, p, ref, got
 
 
@@ -130,11 +142,10 @@ class TestWrapperChecks:
                     dstd=1.0, phys=cuda_engine.chunk_physics(p))
 
     def _inputs(self):
-        p = _params(dict(chunk_steps=100, num_water=64))
-        sc = BacteriaBox(p, seed=3).populate()
+        p = _tp(_params(dict(chunk_steps=100, num_water=64)))
+        sc = TBox(p, seed=3).populate()
         tbl = convert.mnp_table(sc.mnps, torch.float32, "cpu").tbl
-        st = cuda_engine.to_soa(
-            convert.state_from_numpy(jre.init_state(sc.waters, p), "cpu"), p)
+        st = cuda_engine.to_soa(init_state(sc.waters, p, "cpu"), p)
         return p, st.planes, tbl
 
     def test_rejects_bad_inputs(self):

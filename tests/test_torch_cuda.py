@@ -12,21 +12,26 @@ mode: the Threefry and the fast generator, each with the default
 physics and with every variant on.  The candidate-model
 kernel: near slots equal (ties excepted), taylor within 1e-5 of the
 largest |component|, n_reach equal.  The far-sums kernel: 1e-5 relative
-(tests/test_fields.py:375).
+(tests/test_fields.py:375).  The decompose mode of both chunk-kernel
+entries, in every generator and physics mode: positions within 1e-4, the
+state's A and B and the per-walker record within 1e-5 (both expected
+bitwise), escapes and coverage equal; a decomposition run on the card
+reconstructs the run on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mri_nanoparticle_simulation_tpu import params as P
-from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
+from mri_nanoparticle_simulation_tpu_torch import params as P
 from mri_nanoparticle_simulation_tpu_torch.engine import (chunk_kernel,
                                                           convert,
                                                           cuda_engine, sim)
+from mri_nanoparticle_simulation_tpu_torch.engine import decompose as dec
 from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import \
     init_state
 from mri_nanoparticle_simulation_tpu_torch.fields import expansion
+from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox
 
 pytestmark = pytest.mark.cuda
 
@@ -348,3 +353,106 @@ def test_cube_path_sprint_on_card_matches_cpu(dev, monkeypatch):
     np.testing.assert_allclose(w_g.numpy(), w_c.numpy(), atol=0.05)
     assert int(st_g.escapes) == int(st_c.escapes)
     assert int(st_g.coverage) == int(st_c.coverage)
+
+
+# -- the decompose mode --------------------------------------------------------
+
+#: name -> (generator, physics) of each decompose mode
+DEC_MODES = {
+    "dec": (cuda_engine.RNG_THREEFRY, lambda p: p),
+    "fast+dec": (cuda_engine.RNG_HARDWARE, lambda p: p),
+    "variants+dec": (cuda_engine.RNG_THREEFRY, _all_variants),
+    "fast+variants+dec": (cuda_engine.RNG_HARDWARE, _all_variants),
+}
+
+
+def _dec_planes(planes):
+    """8 decompose rows from 6: B and comp_B half of A and comp_A."""
+    return torch.cat([planes[:6], 0.5 * planes[4:6]]).contiguous()
+
+
+def _assert_dec_close(got, again, ref, n):
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    out, esc, cov, wins = got
+    r_out, r_esc, r_cov, r_wins = ref
+    assert torch.isfinite(out).all() and torch.isfinite(wins).all()
+    torch.testing.assert_close(out[:3, :n], r_out[:3, :n], rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(out[4:, :n], r_out[4:, :n], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(wins[..., :n], r_wins[..., :n], rtol=0,
+                               atol=1e-5)
+    assert torch.equal(esc, r_esc)
+    assert torch.equal(cov, r_cov)
+
+
+@pytest.mark.parametrize("mode", sorted(DEC_MODES))
+def test_decompose_kernel_matches_plain_version(dev, mode):
+    """The rebuild entry in decompose mode: 200 walkers (56 padding), a
+    Carr-Purcell flip at each window, bitwise in two runs, counted."""
+    rng_impl, physics = DEC_MODES[mode]
+    p = physics(_params(dict(
+        chunk_steps=200, num_water=200, taucp=0.0001, mmoment=3.5e-15,
+        water_start_bound=7.9, avoid_intracellular_throw=False))).validate()
+    sc = BacteriaBox(p, seed=3).populate()
+    planes, tbl, args = _chunk(p, sc, dev, step0=1000, rng_impl=rng_impl)
+    planes = _dec_planes(planes)
+    key = "chunk_kernel[" + mode + "]"
+    assert chunk_kernel.chunk_mode("chunk_kernel", args["phys"], True) == key
+    before = chunk_kernel.LAUNCHES[key]
+    got = chunk_kernel.run_chunk(planes, tbl, decompose=True, **args)
+    again = chunk_kernel.run_chunk(planes, tbl, decompose=True, **args)
+    assert chunk_kernel.LAUNCHES[key] == before + 2
+    assert got[0].shape == (8, 256) and got[3].shape == (2, 2, 256)
+    ref = cuda_engine.chunk_reference(planes, tbl, decompose=True, **args)
+    torch.cuda.synchronize()
+    _assert_dec_close(got, again, ref, p.num_water)
+
+
+@pytest.mark.parametrize("mode", sorted(DEC_MODES))
+def test_decompose_near_kernel_matches_plain_version(large, mode):
+    p, _, cache, planes, reach2 = large
+    rng_impl, physics = DEC_MODES[mode]
+    p = physics(p).validate()
+    near, taylor, _ = expansion.build_planes(planes[:3].contiguous(), p,
+                                             cache, reach2=reach2)
+    args = dict(step0=p.chunk_steps, key=KEY, lane_offset=3,
+                num_water=p.num_water - 6, tcp=p.tcp,
+                cell_r2=cuda_engine.cell_r2_f32(p.cell_r), dstd=1.0,
+                phys=cuda_engine.chunk_physics(p, rng_impl))
+    dplanes = _dec_planes(planes)
+    key = "chunk_near_kernel[" + mode + "]"
+    before = chunk_kernel.LAUNCHES[key]
+    got = chunk_kernel.run_chunk_near(dplanes, near, taylor, decompose=True,
+                                      **args)
+    again = chunk_kernel.run_chunk_near(dplanes, near, taylor,
+                                        decompose=True, **args)
+    assert chunk_kernel.LAUNCHES[key] == before + 2
+    ref = cuda_engine.chunk_near_reference(dplanes, near, taylor,
+                                           decompose=True, **args)
+    torch.cuda.synchronize()
+    _assert_dec_close(got, again, ref, p.num_water - 6)
+    assert float(got[2].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("rng_impl", [cuda_engine.RNG_THREEFRY,
+                                      cuda_engine.RNG_HARDWARE])
+def test_decomposition_on_card_matches_cpu(dev, rng_impl):
+    """run_decomposition on the card and on the CPU: the same records
+    (within the kernels' tolerances), the card's time split measured."""
+    p = _params(dict(chunk_steps=200, num_water=64, taucp=0.0003,
+                     mmoment=3.5e-15, water_start_bound=7.9,
+                     avoid_intracellular_throw=False))
+    sc = BacteriaBox(p, seed=4).populate()
+    key = "chunk_kernel[fast+dec]" if rng_impl == cuda_engine.RNG_HARDWARE \
+        else "chunk_kernel[dec]"
+    before = chunk_kernel.LAUNCHES[key]
+    gpu = dec.run_decomposition(sc, p, seed=5, rng_impl=rng_impl)
+    assert chunk_kernel.LAUNCHES[key] - before == p.t // p.chunk_steps
+    cpu = dec.run_decomposition(sc, p, seed=5, device="cpu",
+                                rng_impl=rng_impl)
+    np.testing.assert_allclose(gpu.A, cpu.A, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gpu.B, cpu.B, rtol=0, atol=1e-5)
+    assert gpu.stats["escapes"] == cpu.stats["escapes"] == 0
+    assert gpu.stats["device_s"] > 0 and gpu.stats["copy_s"] > 0

@@ -14,6 +14,7 @@ The physics variants and the fast generator are held against the JAX
 package in tests/test_torch_variants.py.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -36,9 +37,15 @@ from mri_nanoparticle_simulation_tpu_torch.engine import (chunk_kernel,
 from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import \
     init_state
 from mri_nanoparticle_simulation_tpu_torch.io import writer
+from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox as TBox
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tp(p):
+    """The port's Params of the JAX Params ``p``."""
+    return convert.params_from_fields(dataclasses.asdict(p))
 
 # tests/test_pallas.py TestEngineEquivalence, the configurations of the
 # default physics (its reflection and intended-kick cases are in
@@ -61,7 +68,8 @@ def engines(request):
     scan = jre.run_simulation(sc, p, seed=1, dtype=jnp.float32)
     pallas = pe.run_simulation(sc, p, seed=1, dtype=jnp.float32,
                                interpret=True)
-    port = cuda_engine.run_simulation(sc, p, seed=1, device="cpu")
+    port = cuda_engine.run_simulation(TBox(_tp(p), seed=3).populate(),
+                                      _tp(p), seed=1, device="cpu")
     return p, scan, pallas, port
 
 
@@ -109,10 +117,12 @@ def two_sprints():
 
 def test_resume_jax_sprint_then_port_sprint(two_sprints):
     p, sc, _, _, ps1, (ps2, _, w2) = two_sprints
+    tp = _tp(p)
     ws = convert.state_from_planes(ps1, p.num_water, "cpu")
-    sprint = cuda_engine.make_sprint_fn(p, p.num_water, "cpu")
-    ss, wins = sprint(convert.mnp_table(sc.mnps, torch.float32, "cpu"),
-                      convert.key_words(5), cuda_engine.to_soa(ws, p))
+    sprint = cuda_engine.make_sprint_fn(tp, p.num_water, "cpu")
+    ss, wins = sprint(convert.mnp_table(TBox(tp, seed=4).populate().mnps,
+                                        torch.float32, "cpu"),
+                      convert.key_words(5), cuda_engine.to_soa(ws, tp))
     ref = pe.from_planes(ps2, p.num_water)
     got = cuda_engine.from_soa(ss, p.num_water)
     np.testing.assert_allclose(got.pos.numpy(), np.asarray(ref.pos),
@@ -126,11 +136,14 @@ def test_resume_jax_sprint_then_port_sprint(two_sprints):
 
 
 def test_resume_port_sprint_then_jax_sprint(two_sprints):
-    p, sc, jsprint, jargs, _, (ps2, w1, w2) = two_sprints
-    sprint = cuda_engine.make_sprint_fn(p, p.num_water, "cpu")
+    p, _, jsprint, jargs, _, (ps2, w1, w2) = two_sprints
+    tp = _tp(p)
+    sc = TBox(tp, seed=4).populate()
+    sprint = cuda_engine.make_sprint_fn(tp, p.num_water, "cpu")
     ss, wins = sprint(convert.mnp_table(sc.mnps, torch.float32, "cpu"),
                       convert.key_words(5),
-                      cuda_engine.to_soa(init_state(sc.waters, p, "cpu"), p))
+                      cuda_engine.to_soa(init_state(sc.waters, tp, "cpu"),
+                                         tp))
     np.testing.assert_allclose(wins.numpy(), w1, atol=1e-3)
     ws = convert.state_to_numpy(cuda_engine.from_soa(ss, p.num_water))
     assert ws.step.dtype == np.uint32 and ws.escapes.dtype == np.int32
@@ -148,7 +161,7 @@ def test_state_from_numpy_roundtrip():
     back = convert.state_to_numpy(ws)
     np.testing.assert_array_equal(back.pos, st.pos)
     np.testing.assert_array_equal(back.in_cell, st.in_cell)
-    ss = cuda_engine.to_soa(ws, p)
+    ss = cuda_engine.to_soa(ws, _tp(p))
     assert ss.planes.shape == (6, 128)
     assert float(ss.planes[0, 50:].min()) == p.bound / 2
     np.testing.assert_array_equal(
@@ -158,7 +171,8 @@ def test_state_from_numpy_roundtrip():
 def test_mnp_table_packs_as_the_pallas_sprint():
     p = P.small_test_params()
     sc = BacteriaBox(p, seed=3).populate()
-    t = convert.mnp_table(sc.mnps, torch.float32, "cpu")
+    t = convert.mnp_table(TBox(_tp(p), seed=3).populate().mnps,
+                          torch.float32, "cpu")
     n = len(sc.mnps)
     assert t.n_mnp == n and t.tbl.shape == (4, -(-n // 8) * 8)
     m = jnp.asarray(sc.mnps[:, 4], jnp.float32) * jnp.float32(1e11)
@@ -176,7 +190,7 @@ def runner_csvs(tmp_path_factory):
                                rng_impl="threefry", interpret=True)
     j = jr.run(csv_path=str(d / "jax.csv"), quadrature=True,
                progress=False)
-    tr = sim.SimulationRunner(p, scene_seed=3, seed=2, device="cpu",
+    tr = sim.SimulationRunner(_tp(p), scene_seed=3, seed=2, device="cpu",
                               rng_impl="threefry")
     t = tr.run(csv_path=str(d / "port.csv"), quadrature=True,
                progress=False, drain_depth=1)
@@ -208,8 +222,8 @@ def test_runner_returns_the_jax_runner_contract(runner_csvs):
 def test_writer_bytes_equal_jax_writer(tmp_path, quadrature):
     p = P.small_test_params()
     wins = np.random.default_rng(0).normal(size=(7, 2)).astype(np.float32)
-    for mod, name in ((jwriter, "j.csv"), (writer, "t.csv")):
-        with mod.T2CsvWriter(str(tmp_path / name), p, quadrature) as w:
+    for mod, name, q in ((jwriter, "j.csv", p), (writer, "t.csv", _tp(p))):
+        with mod.T2CsvWriter(str(tmp_path / name), q, quadrature) as w:
             w.append_windows(0, wins[:3])
             w.append_windows(3, wins[3:])
             assert w.rows_written == 7
@@ -217,7 +231,7 @@ def test_writer_bytes_equal_jax_writer(tmp_path, quadrature):
         (tmp_path / "j.csv").read_bytes()
     got = writer.read_t2_csv(str(tmp_path / "t.csv"))
     assert len(got) == (3 if quadrature else 2)
-    assert writer.default_output_path(p, "d") == \
+    assert writer.default_output_path(_tp(p), "d") == \
         os.path.join("d", os.path.basename(jwriter.default_output_path(p)))
 
 
@@ -226,9 +240,9 @@ def test_fit_steps_match_jax(t, req):
     p = P.small_test_params(totaltime=t * 1e-6, tau=1e-6, taucp=1e-3,
                             print_interval=1e-4, sprint_steps=t,
                             chunk_steps=100)
-    assert sim.fit_chunk_steps(p, req) == jsim.fit_chunk_steps(p, req)
-    pc = p.replace(chunk_steps=sim.fit_chunk_steps(p, req))
-    assert sim.fit_sprint_steps(pc, req * 3) == \
+    assert sim.fit_chunk_steps(_tp(p), req) == jsim.fit_chunk_steps(p, req)
+    pc = p.replace(chunk_steps=sim.fit_chunk_steps(_tp(p), req))
+    assert sim.fit_sprint_steps(_tp(pc), req * 3) == \
         jsim.fit_sprint_steps(pc, req * 3)
 
 
@@ -239,7 +253,7 @@ UNPORTED = {
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_physics_raises(name):
-    p = P.small_test_params(**UNPORTED[name])
+    p = _tp(P.small_test_params(**UNPORTED[name]))
     with pytest.raises(NotImplementedError,
                        match="scan engine.*ROADMAP Queue 1 item 1"):
         cuda_engine.make_sprint_fn(p, p.num_water, "cpu")
@@ -248,7 +262,7 @@ def test_unported_physics_raises(name):
 def test_unported_paths_raise():
     """The hardware generator builds and runs on the CPU (its plain
     version), as the runner's default; an unknown generator raises."""
-    p = P.small_test_params(totaltime=0.0002, sprint_steps=200)
+    p = _tp(P.small_test_params(totaltime=0.0002, sprint_steps=200))
     runner = sim.SimulationRunner(p, scene_seed=3, device="cpu")
     assert runner.rng_impl == "hardware"
     _, c, _, stats = runner.run(progress=False)
@@ -261,7 +275,7 @@ def test_unported_paths_raise():
 
 
 def test_near_k_above_dipole_count_raises():
-    p = P.small_test_params(near_k=6)
+    p = _tp(P.small_test_params(near_k=6))
     mnps = np.zeros((3, 5))
     mnps[:, :3] = [[1, 1, 1], [2, 2, 2], [3, 3, 3]]
     sprint = cuda_engine.make_sprint_fn(p, p.num_water, "cpu")
@@ -274,7 +288,7 @@ def test_near_k_above_dipole_count_raises():
 def test_cuda_runner_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks a box without one")
-    p = P.small_test_params()
+    p = _tp(P.small_test_params())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim.SimulationRunner(p, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -284,8 +298,8 @@ def test_cuda_runner_raises_without_card():
 
 def test_cuda_sprint_refuses_cpu_state():
     """A sprint built for the card never computes on the CPU."""
-    p = P.small_test_params()
-    sc = BacteriaBox(p, seed=3).populate()
+    p = _tp(P.small_test_params())
+    sc = TBox(p, seed=3).populate()
     sprint = cuda_engine.make_sprint_fn(p, p.num_water, "cuda")
     before = dict(chunk_kernel.LAUNCHES)
     with pytest.raises(ValueError, match="state is on cpu"):
@@ -340,7 +354,8 @@ def test_cli_params_match_jax_cli(monkeypatch, tmp_path, flags):
     p, rng_impl = _cli_runner_args(monkeypatch, sim,
                                    flags + out + ["--device", "cpu"])
     jp, jrng_impl = _cli_runner_args(monkeypatch, jsim, flags + out)
-    assert p == jp
+    assert dataclasses.asdict(p) == dataclasses.asdict(jp)
+    assert p == _tp(jp)
     assert rng_impl == jrng_impl == ("threefry" if "threefry" in flags
                                      else "hardware")
 
@@ -363,17 +378,21 @@ def test_cli_rejects_malformed_gradient(bad, capsys):
 
 def test_package_imports_without_jax():
     """In a subprocess: xdist runs several files per worker, and a
-    poisoned ``sys.modules['jax']`` must not leak into them."""
+    poisoned ``sys.modules['jax']`` (and the JAX package's) must not leak
+    into them.  Every module of the port, and chip_smoke.py, imports with
+    neither importable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['mri_nanoparticle_simulation_tpu'] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "import mri_nanoparticle_simulation_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m, v in sys.modules.items()\n"
-        "       if v is not None and m.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "       if v is not None and m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "           'mri_nanoparticle_simulation_tpu', 'golden_paired')]\n"
         "assert not bad, bad\n"
         "print('ok', len(list(pkgutil.walk_packages(pkg.__path__))))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

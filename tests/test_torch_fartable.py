@@ -21,7 +21,9 @@ from mri_nanoparticle_simulation_tpu.fields import dipole as jdipole
 from mri_nanoparticle_simulation_tpu.fields import expansion as jexp
 from mri_nanoparticle_simulation_tpu.fields import fartable as jfar
 from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
+from mri_nanoparticle_simulation_tpu_torch import params as TP
 from mri_nanoparticle_simulation_tpu_torch.fields import dipole, fartable
+from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox as TBox
 
 torch.set_num_threads(1)
 
@@ -75,16 +77,20 @@ def test_cube_centers_match_jax():
 @pytest.fixture(scope="module")
 def table_scene():
     """A scene whose 64 cubes each keep 8 of its ~150 dipoles as
-    candidates, and the candidate ids of the JAX cache (float64)."""
-    p = P.small_test_params(num_cells=30, cube_hash_dim=4,
-                            cube_candidates=8, far_table_order=3)
+    candidates, and the candidate ids of the JAX cache (float64).  The
+    port's inputs come from the port's own scene, the same arrays."""
+    over = dict(num_cells=30, cube_hash_dim=4, cube_candidates=8,
+                far_table_order=3)
+    p = P.small_test_params(**over)
     sc = BacteriaBox(p, seed=3).populate()
+    tsc = TBox(TP.small_test_params(**over), seed=3).populate()
+    np.testing.assert_array_equal(tsc.mnps, sc.mnps)
     with jax.enable_x64(True):
         mp = jnp.asarray(sc.mnps[:, :3], jnp.float64)
         mM = jnp.asarray(sc.mnps[:, 4], jnp.float64)
         cache = jexp.build_cache(mp, mM, p, far_table=False)
         cand = np.asarray(cache.payload[..., 4]).astype(np.int32)
-    return p, sc, cand
+    return p, tsc, cand
 
 
 @pytest.mark.parametrize("order", [1, 2, 3])

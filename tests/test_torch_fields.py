@@ -12,7 +12,9 @@ from mri_nanoparticle_simulation_tpu import params as P
 from mri_nanoparticle_simulation_tpu.fields import dipole as jdipole
 from mri_nanoparticle_simulation_tpu.fields import expansion as jexp
 from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
+from mri_nanoparticle_simulation_tpu_torch import params as TP
 from mri_nanoparticle_simulation_tpu_torch.fields import dipole, expansion
+from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox as TBox
 
 torch.set_num_threads(1)
 
@@ -116,17 +118,18 @@ def test_excluded_weight_matches_jax():
 
 @pytest.mark.parametrize("chunk_steps, near_k", [(100, 6), (1000, 2)])
 def test_scene_guards_match_jax(chunk_steps, near_k):
-    p = P.small_test_params(chunk_steps=chunk_steps, near_k=near_k,
-                            totaltime=0.002, sprint_steps=1000)
-    sc = BacteriaBox(p, seed=3).populate()
-    assert expansion.default_travel_bound(p) == \
+    over = dict(chunk_steps=chunk_steps, near_k=near_k, totaltime=0.002,
+                sprint_steps=1000)
+    p, tp = P.small_test_params(**over), TP.small_test_params(**over)
+    sc, tsc = BacteriaBox(p, seed=3).populate(), TBox(tp, seed=3).populate()
+    assert expansion.default_travel_bound(tp) == \
         jexp.default_travel_bound(p)
-    assert expansion.validate_near_k(sc.mnps[:, :3], p) == \
+    assert expansion.validate_near_k(tsc.mnps[:, :3], tp) == \
         jexp.validate_near_k(sc.mnps[:, :3], p) >= 1
     # the lattice bound is computed, not only read from the cache
     assert expansion._max_count_bound(
-        np.asarray(sc.mnps[:, :3], np.float64),
-        p.cell_r + expansion.default_travel_bound(p), p.bound) == \
+        np.asarray(tsc.mnps[:, :3], np.float64),
+        tp.cell_r + expansion.default_travel_bound(tp), tp.bound) == \
         jexp._max_count_bound(
             np.asarray(sc.mnps[:, :3], np.float64),
             p.cell_r + jexp.default_travel_bound(p), p.bound)

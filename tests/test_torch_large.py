@@ -22,6 +22,8 @@ Tolerances:
   equal.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,7 @@ from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import \
 from mri_nanoparticle_simulation_tpu_torch.fields import expansion, fartable
 from mri_nanoparticle_simulation_tpu_torch.fields.dipole import FIELD_SCALE
 from mri_nanoparticle_simulation_tpu_torch.io import writer
+from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox as TBox
 
 torch.set_num_threads(1)
 
@@ -54,6 +57,11 @@ def _params(**over):
                 near_k=4, far_table_order=3)
     base.update(over)
     return P.small_test_params(**base)
+
+
+def _tp(p):
+    """The port's Params of the JAX Params ``p``."""
+    return convert.params_from_fields(dataclasses.asdict(p))
 
 
 def _jax_cache(p, sc, far_table=True):
@@ -96,7 +104,7 @@ def test_build_cache_matches_jax(scene, h, c):
     payload, _ = _jax_cache(p, sc, far_table=False)
     pos = torch.from_numpy(sc.mnps[:, :3].astype(np.float32))
     m = torch.from_numpy(sc.mnps[:, 4].astype(np.float32))
-    got = expansion.build_cache(pos, m, p, far_table=False)
+    got = expansion.build_cache(pos, m, _tp(p), far_table=False)
     assert got.far_coeffs is None
     assert got.payload.shape == payload.shape == (h ** 3, c, 5)
     g_idx = got.payload[..., 4].numpy().astype(np.int64)
@@ -114,7 +122,7 @@ def test_build_cache_with_table(scene):
     p, sc, _, coeffs, _ = scene
     pos = torch.from_numpy(sc.mnps[:, :3].astype(np.float32))
     m = torch.from_numpy(sc.mnps[:, 4].astype(np.float32))
-    got = expansion.build_cache(pos, m, p)
+    got = expansion.build_cache(pos, m, _tp(p))
     assert got.far_coeffs.shape == coeffs.shape
     assert got.far_coeffs.dtype == torch.float32
     # same table to float32 rounding where the candidate sets agree
@@ -136,7 +144,7 @@ def test_scene_cache_from_numpy(scene):
 @pytest.fixture(scope="module")
 def planes_pair(scene):
     p, _, payload, coeffs, anchors = scene
-    r2 = expansion.coverage_reach2(p)
+    r2 = expansion.coverage_reach2(_tp(p))
     pl = [jnp.asarray(anchors[:, i].reshape(W // 128, 128))
           for i in range(3)]
     jc = jexp.SceneCache(jnp.asarray(payload), jnp.asarray(coeffs))
@@ -144,7 +152,7 @@ def planes_pair(scene):
         a, b, c, p, jc, interpret=True, reach2=r2))(*pl)
     ref = [np.asarray(a).reshape(*a.shape[:-2], W) for a in ref]
     cache = convert.scene_cache_from_numpy(payload, coeffs, "cpu")
-    got = expansion.build_planes(torch.from_numpy(anchors.T.copy()), p,
+    got = expansion.build_planes(torch.from_numpy(anchors.T.copy()), _tp(p),
                                  cache, reach2=r2)
     return p, anchors, ref, got
 
@@ -173,7 +181,7 @@ def test_build_planes_taylor_and_counts_match_jax(planes_pair):
 
 
 def test_build_planes_rejects_cache_without_table():
-    p = _params(far_table_order=0)
+    p = _tp(_params(far_table_order=0))
     cache = expansion.SceneCache(torch.zeros((64, 16, 5)), None)
     with pytest.raises(ValueError, match="far table"):
         expansion.build_planes(torch.zeros((3, 128)), p, cache)
@@ -218,7 +226,8 @@ def test_build_cube_path_matches_jax(scene, with_table):
     mM = sc.mnps[:, 4].astype(np.float32)
     jc = jexp.SceneCache(jnp.asarray(payload),
                          None if coeffs is None else jnp.asarray(coeffs))
-    r2 = expansion.coverage_reach2(p)
+    tp = _tp(p)
+    r2 = expansion.coverage_reach2(tp)
     ref = jax.jit(lambda a: jexp.build(
         a, jnp.asarray(mp), jnp.asarray(mM), p, cache=jc, far_impl="pallas",
         interpret=True, reach2=r2))(jnp.asarray(anchors))
@@ -227,9 +236,9 @@ def test_build_cube_path_matches_jax(scene, with_table):
     if with_table:
         with pytest.raises(ValueError, match="build_planes"):
             expansion.build(torch.from_numpy(anchors), torch.from_numpy(mp),
-                            torch.from_numpy(mM), p, cache=cache)
+                            torch.from_numpy(mM), tp, cache=cache)
         near, taylor, cnt = expansion.build_planes(
-            torch.from_numpy(anchors.T.copy()), p, cache, reach2=r2)
+            torch.from_numpy(anchors.T.copy()), tp, cache, reach2=r2)
         got = dict(b0=taylor[0].numpy(), grad=taylor[1:4].T.numpy(),
                    hess=taylor[4:10].T.numpy(), n_reach=cnt.numpy())
         rows = near.permute(2, 1, 0).numpy()                  # [W, K, 4]
@@ -246,7 +255,8 @@ def test_build_cube_path_matches_jax(scene, with_table):
         assert same.mean() > 0.99
     else:
         nf = expansion.build(torch.from_numpy(anchors), torch.from_numpy(mp),
-                             torch.from_numpy(mM), p, cache=cache, reach2=r2)
+                             torch.from_numpy(mM), tp, cache=cache,
+                             reach2=r2)
         np.testing.assert_array_equal(nf.near_pos.numpy(), r_pos)
         np.testing.assert_array_equal(nf.near_M.numpy(), r_M)
         got = {f: getattr(nf, f).numpy()
@@ -268,7 +278,7 @@ def test_build_whole_table_path_selects_as_jax(scene):
     ref = jexp.build(jnp.asarray(anchors), jnp.asarray(mp), jnp.asarray(mM),
                      p, far_impl="pallas", interpret=True)
     got = expansion.build(torch.from_numpy(anchors), torch.from_numpy(mp),
-                          torch.from_numpy(mM), p)
+                          torch.from_numpy(mM), _tp(p))
     same = [set(map(tuple, a)) == set(map(tuple, b)) for a, b in
             zip(got.near_pos.numpy(), np.asarray(ref.near_pos))]
     assert np.mean(same) > 0.95
@@ -306,7 +316,7 @@ def near_chunk(planes_pair):
         torch.from_numpy(state), torch.from_numpy(near.copy()),
         torch.from_numpy(taylor.copy()), step0=4000, key=KEY, lane_offset=9,
         num_water=nw, tcp=p.tcp, cell_r2=cuda_engine.cell_r2_f32(p.cell_r),
-        dstd=1.0, phys=cuda_engine.chunk_physics(p))
+        dstd=1.0, phys=cuda_engine.chunk_physics(_tp(p)))
     return p, ref, got
 
 
@@ -360,10 +370,12 @@ def sprints(request):
             ps, wins = jsprint(mp, mM, key_arr, ps, 0, jcache)
             jw.append(np.asarray(wins))
         ref = (pe.from_planes(ps, 128), np.concatenate(jw))
-        tsprint = cuda_engine.make_sprint_fn(p, 128, "cpu")
-        tbl = convert.mnp_table(sc.mnps, torch.float32, "cpu")
+        tp = _tp(p)
+        tsc = TBox(tp, seed=3).populate()
+        tsprint = cuda_engine.make_sprint_fn(tp, 128, "cpu")
+        tbl = convert.mnp_table(tsc.mnps, torch.float32, "cpu")
         cache = convert.scene_cache_from_numpy(payload, coeffs, "cpu")
-        ss = cuda_engine.to_soa(init_state(sc.waters, p, "cpu"), p)
+        ss = cuda_engine.to_soa(init_state(tsc.waters, tp, "cpu"), tp)
         tw = []
         for _ in range(p.t // p.sprint_steps):
             ss, wins = tsprint(tbl, convert.key_words(9), ss, cache=cache)
@@ -397,8 +409,8 @@ def test_large_scene_takes_cube_path(monkeypatch):
     """A scene of more than REBUILD_MAX_MNPS dipoles runs: the sprint
     builds its model with build_planes over the cache and counts
     coverage there."""
-    p = _params(num_water=128, chunk_steps=100, sprint_steps=100,
-                totaltime=0.0001, far_table_order=2)
+    p = _tp(_params(num_water=128, chunk_steps=100, sprint_steps=100,
+                    totaltime=0.0001, far_table_order=2))
     n = cuda_engine.REBUILD_MAX_MNPS + 52
     r = np.random.default_rng(5)
     mnps = np.zeros((n, 5))
@@ -453,6 +465,7 @@ def test_runner_and_cli_take_cube_path_on_cpu(tmp_path, monkeypatch):
 
 def test_new_wrappers_have_no_fallback(scene):
     p, sc, payload, coeffs, anchors = scene
+    p = _tp(p)
     cache = convert.scene_cache_from_numpy(payload, coeffs, "meta")
     before = dict(chunk_kernel.LAUNCHES)
     with pytest.raises(ValueError, match="no candidate-model kernel"):

@@ -21,6 +21,8 @@ versions).
   (the criterion of tests/test_pallas.py:113-130) with no escapes.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,9 +34,11 @@ from mri_nanoparticle_simulation_tpu.engine import pallas_engine as pe
 from mri_nanoparticle_simulation_tpu.engine import reference_engine as jre
 from mri_nanoparticle_simulation_tpu.fields import expansion as jexp
 from mri_nanoparticle_simulation_tpu.scene import BacteriaBox
+from mri_nanoparticle_simulation_tpu_torch import params as TP
 from mri_nanoparticle_simulation_tpu_torch.engine import convert, cuda_engine
 from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import \
     init_state
+from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox as TBox
 
 torch.set_num_threads(1)
 
@@ -55,6 +59,16 @@ IN_CELLS = dict(water_start_bound=7.9, avoid_intracellular_throw=False)
 
 def _variant(name, **base):
     return VARIANTS[name](P.small_test_params(**base)).validate()
+
+
+def _tp(p):
+    """The port's Params of the JAX Params ``p``."""
+    return convert.params_from_fields(dataclasses.asdict(p))
+
+
+def _tscene(p, seed):
+    """The port's scene of the JAX Params ``p``."""
+    return TBox(_tp(p), seed=seed).populate()
 
 
 def _jax_key(seed):
@@ -84,7 +98,8 @@ def rebuild_runs(request):
     pallas = pe.run_simulation(sc, p, seed=1, dtype=jnp.float32,
                                interpret=True)
     scan = jre.run_simulation(sc, p, seed=1, dtype=jnp.float32)
-    port = cuda_engine.run_simulation(sc, p, seed=1, device="cpu")
+    port = cuda_engine.run_simulation(_tscene(p, 3), _tp(p), seed=1,
+                                      device="cpu")
     return p, pallas, scan, port
 
 
@@ -106,9 +121,9 @@ def test_variant_matches_scan_engine(rebuild_runs):
 
 def test_gradient_leaves_trajectories_unbent():
     """tests/test_gradient.py:77-85: the gradient changes phase only."""
-    p0 = P.small_test_params(num_water=32, totaltime=0.0005,
-                             sprint_steps=500)
-    sc = BacteriaBox(p0, seed=3).populate()
+    p0 = TP.small_test_params(num_water=32, totaltime=0.0005,
+                              sprint_steps=500)
+    sc = TBox(p0, seed=3).populate()
     _, c0, _, st0 = cuda_engine.run_simulation(sc, p0, seed=2, device="cpu")
     _, cg, _, stg = cuda_engine.run_simulation(
         sc, p0.replace(b0_gradient=(0.0, 0.0, 2e-4)), seed=2, device="cpu")
@@ -139,11 +154,12 @@ def large_runs(request):
         ps = pe.to_planes(jre.init_state(sc.waters, p), p)
         ps, jw = pe.make_sprint_fn(p, 128, interpret=True)(
             mp, mM, _jax_key(9), ps, 0, jc)
-        ss = cuda_engine.to_soa(init_state(sc.waters, p, "cpu"), p)
+        tp, tsc = _tp(p), _tscene(p, 3)
+        ss = cuda_engine.to_soa(init_state(tsc.waters, tp, "cpu"), tp)
         cache = convert.scene_cache_from_numpy(
             np.asarray(jc.payload), np.asarray(jc.far_coeffs), "cpu")
-        ss, tw = cuda_engine.make_sprint_fn(p, 128, "cpu")(
-            convert.mnp_table(sc.mnps, torch.float32, "cpu"),
+        ss, tw = cuda_engine.make_sprint_fn(tp, 128, "cpu")(
+            convert.mnp_table(tsc.mnps, torch.float32, "cpu"),
             convert.key_words(9), ss, cache=cache)
     finally:
         mpatch.undo()
@@ -177,8 +193,8 @@ def _sprints(p, sc, seed=9, rng_impl=cuda_engine.RNG_THREEFRY, **over):
 def _perm_params():
     """tests/test_pallas.py:427-433: D x100 so 500 steps cross many
     membranes."""
-    base = P.small_test_params(num_water=64, totaltime=0.0005,
-                               sprint_steps=500, **IN_CELLS)
+    base = TP.small_test_params(num_water=64, totaltime=0.0005,
+                                sprint_steps=500, **IN_CELLS)
     return base.replace(D_cell=base.D_cell * 100,
                         D_extra=base.D_extra * 100).with_permeability()
 
@@ -191,16 +207,17 @@ def _assert_same_run(a, b):
 
 
 def test_tcp_and_cell_r_overrides_match_static():
-    p = P.small_test_params(num_water=64, totaltime=0.001, sprint_steps=500)
+    p = TP.small_test_params(num_water=64, totaltime=0.001,
+                             sprint_steps=500)
     pv = p.replace(taucp=0.0003, cell_r=0.4).validate()
-    sc = BacteriaBox(pv, seed=3).populate()
+    sc = TBox(pv, seed=3).populate()
     _assert_same_run(_sprints(p, sc, tcp=pv.tcp, cell_r=pv.cell_r),
                      _sprints(pv, sc))
 
 
 def test_identity_overrides_are_bitwise_identical():
     p = _perm_params()
-    sc = BacteriaBox(p, seed=5).populate()
+    sc = TBox(p, seed=5).populate()
     _assert_same_run(
         _sprints(p, sc, tcp=p.tcp, cell_r=p.cell_r, d_scale=1.0,
                  reflect=(p.reflect_io, p.reflect_oi)),
@@ -211,7 +228,7 @@ def test_d_scale_override_matches_pallas_engine():
     p = P.small_test_params(num_water=64, totaltime=0.0005,
                             sprint_steps=500)
     sc = BacteriaBox(p, seed=3).populate()
-    st, w = _sprints(p, sc, d_scale=0.25)
+    st, w = _sprints(_tp(p), _tscene(p, 3), d_scale=0.25)
     sprint = pe.make_sprint_fn(p, 64, interpret=True)
     ps, jw = sprint(jnp.asarray(sc.mnps[:, :3], jnp.float32),
                     jnp.asarray(sc.mnps[:, 4], jnp.float32), _jax_key(9),
@@ -220,7 +237,7 @@ def test_d_scale_override_matches_pallas_engine():
     np.testing.assert_allclose(
         st.pos.numpy(), np.asarray(pe.from_planes(ps, 64).pos), atol=5e-6)
     np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=1e-3)
-    st1, _ = _sprints(p, sc)
+    st1, _ = _sprints(_tp(p), _tscene(p, 3))
     assert not torch.equal(st.pos, st1.pos)
 
 
@@ -231,7 +248,7 @@ def test_reflect_override_matches_static(rng_impl):
     probabilities equals the same values built in; transparent
     membranes differ (the scalars are live)."""
     p = _perm_params()
-    sc = BacteriaBox(p, seed=5).populate()
+    sc = TBox(p, seed=5).populate()
     dyn = _sprints(p, sc, rng_impl=rng_impl, reflect=(0.9, 0.3))
     _assert_same_run(dyn, _sprints(p.replace(reflect_io=0.9, reflect_oi=0.3),
                                    sc, rng_impl=rng_impl))
@@ -246,15 +263,15 @@ def test_reflect_override_matches_static(rng_impl):
     (dict(reflect=(0.2, -0.1)), "reflect_oi")])
 def test_bad_overrides_raise(over, what):
     p = _perm_params()
-    sc = BacteriaBox(p, seed=5).populate()
+    sc = TBox(p, seed=5).populate()
     with pytest.raises(ValueError, match=what):
         _sprints(p, sc, **over)
 
 
 def test_reflect_override_needs_reflection_compiled_in():
-    p = P.small_test_params(num_water=64, totaltime=0.0005,
-                            sprint_steps=500)
-    sc = BacteriaBox(p, seed=5).populate()
+    p = TP.small_test_params(num_water=64, totaltime=0.0005,
+                             sprint_steps=500)
+    sc = TBox(p, seed=5).populate()
     with pytest.raises(ValueError, match="reflection enabled"):
         _sprints(p, sc, reflect=(0.5, 0.5))
 
@@ -278,9 +295,9 @@ def _fast_run(p, sc, seed=7, lane_offset=0):
 def test_fast_path_is_deterministic(variant):
     base = dict(num_water=64, totaltime=0.0004, sprint_steps=400,
                 **IN_CELLS)
-    p = _variant(variant, **base) if variant else \
-        P.small_test_params(**base)
-    sc = BacteriaBox(p, seed=3).populate()
+    p = _tp(_variant(variant, **base)) if variant else \
+        TP.small_test_params(**base)
+    sc = TBox(p, seed=3).populate()
     a, b = _fast_run(p, sc), _fast_run(p, sc)
     _assert_same_run(a, b)
     assert torch.isfinite(a[0].pos).all() and torch.isfinite(a[1]).all()
@@ -288,9 +305,9 @@ def test_fast_path_is_deterministic(variant):
 
 
 def test_fast_lane_offset_changes_the_stream():
-    p = P.small_test_params(num_water=64, totaltime=0.0002,
-                            sprint_steps=200)
-    sc = BacteriaBox(p, seed=3).populate()
+    p = TP.small_test_params(num_water=64, totaltime=0.0002,
+                             sprint_steps=200)
+    sc = TBox(p, seed=3).populate()
     st0, _ = _fast_run(p, sc)
     st1, _ = _fast_run(p, sc, lane_offset=64)
     assert not torch.equal(st0.pos, st1.pos)
@@ -306,15 +323,15 @@ def test_fast_odd_pfreq_counts_steps_exactly():
     package runs only on a TPU: pfreq = 125 pairs 62 step pairs with a
     single trailing step; a constant kick in one big cell makes the
     phase count steps."""
-    p = P.Params(num_water=32, num_cells=1, mmoment=0.0,
-                 kick_mode=P.KICK_CONSTANT, phase_k=400.0, bound=8.0,
-                 cell_r=3.5, water_start_bound=1.0,
-                 avoid_intracellular_throw=False, tau=8e-6,
-                 totaltime=0.002, taucp=0.001, print_interval=1e-3,
-                 sprint_steps=250, chunk_steps=125, near_k=1,
-                 hash_dim=4, max_neighbors=4).validate()
+    p = TP.Params(num_water=32, num_cells=1, mmoment=0.0,
+                  kick_mode=TP.KICK_CONSTANT, phase_k=400.0, bound=8.0,
+                  cell_r=3.5, water_start_bound=1.0,
+                  avoid_intracellular_throw=False, tau=8e-6,
+                  totaltime=0.002, taucp=0.001, print_interval=1e-3,
+                  sprint_steps=250, chunk_steps=125, near_k=1,
+                  hash_dim=4, max_neighbors=4).validate()
     assert p.pfreq % 2 == 1
-    sc = BacteriaBox(p, seed=2).populate()
+    sc = TBox(p, seed=2).populate()
     _, c, _, st = cuda_engine.run_simulation(
         sc, p, seed=8, device="cpu", rng_impl=cuda_engine.RNG_HARDWARE)
     k = p.phase_k * p.tau
@@ -330,11 +347,11 @@ def test_fast_odd_pfreq_counts_steps_exactly():
 
 def test_fast_pfreq_even_not_multiple_of_4_runs():
     """pfreq = 50: step pairs, escapes sampled at every pair."""
-    p = P.small_test_params(num_water=64, totaltime=0.0002,
-                            print_interval=0.00005, sprint_steps=200,
-                            chunk_steps=100, taucp=0.0001)
+    p = TP.small_test_params(num_water=64, totaltime=0.0002,
+                             print_interval=0.00005, sprint_steps=200,
+                             chunk_steps=100, taucp=0.0001)
     assert p.pfreq % 2 == 0 and p.pfreq % 4 != 0
-    sc = BacteriaBox(p, seed=3).populate()
+    sc = TBox(p, seed=3).populate()
     st, w = _fast_run(p, sc)
     assert w.shape == (4, 2) and torch.isfinite(w).all()
     assert (w[:, 0].abs() <= 64).all()
@@ -351,7 +368,8 @@ def test_fast_curve_matches_jax_threefry_curve():
                             mmoment=3.5e-13)
     sc = BacteriaBox(p, seed=3).populate()
     _, c_fast, _, st = cuda_engine.run_simulation(
-        sc, p, seed=7, device="cpu", rng_impl=cuda_engine.RNG_HARDWARE)
+        _tscene(p, 3), _tp(p), seed=7, device="cpu",
+        rng_impl=cuda_engine.RNG_HARDWARE)
     _, c_tf, _, _ = jre.run_simulation(sc, p, seed=7, dtype=jnp.float32)
     d = (c_fast - np.asarray(c_tf)) / p.num_water
     assert np.abs(d).max() < 5.0 * np.sqrt(2.0 / p.num_water)
@@ -366,10 +384,10 @@ def test_fast_variants_rebuild_and_large_path_agree(monkeypatch):
     dipole (the far table is zero, the partition exact, as
     tests/test_pallas.py:420-452), the large path reproduces the rebuild
     path with every variant on."""
-    p = _variant("all", num_water=128, totaltime=0.001, sprint_steps=500,
-                 mmoment=3.5e-15, cube_hash_dim=8, far_table_order=3,
-                 **IN_CELLS)
-    sc = BacteriaBox(p, seed=3).populate()
+    p = _tp(_variant("all", num_water=128, totaltime=0.001,
+                     sprint_steps=500, mmoment=3.5e-15, cube_hash_dim=8,
+                     far_table_order=3, **IN_CELLS))
+    sc = TBox(p, seed=3).populate()
     assert sc.mnps.shape[0] <= p.cube_candidates
     rebuild = _fast_run(p, sc)
     tbl = convert.mnp_table(sc.mnps, torch.float32, "cpu")
