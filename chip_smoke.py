@@ -15,8 +15,11 @@ measured, and any failure raises (exit code != 0, no final line):
    variants), each for K = 1..16;
 3. rebuild kernel vs plain version (engine/cuda_engine.chunk_reference)
    on the same CUDA inputs at the main path's shapes, 50 and 4032
-   walkers: positions within 1e-4, window sums within 0.05, escapes and
-   coverage equal, two kernel runs bitwise equal; times of both;
+   walkers, in the split layout (128 blocks of one walker warp and three
+   generator warps at 4032): the state bitwise equal, window sums within
+   0.05, escapes and coverage equal, two kernel runs bitwise equal; times
+   of both; then above the split layout's threshold (walkers from the
+   occupancy API and the SM count), where it takes the flat layout;
 4. the main path at full width on Threefry: SimulationRunner on the
    4032-water, 270-cell scene (seed 42), 2e6 steps, counting kernel
    launches;
@@ -42,6 +45,9 @@ measured, and any failure raises (exit code != 0, no final line):
    kernel's path): 50 launches each of far sums and near/taylor chunk,
    Σcos/W within 1e-5 of phase 7's first 2e5 steps; then the far-sums
    kernel against its plain version at full width, with times of both;
+8b. the layout of every mode of both entries at its path's width:
+   blocks, threads, generator warps, dynamic shared memory, resident
+   blocks per SM, waves, registers and spills;
 9. (a) the fast and variant modes against their plain versions: the
    rebuild kernel on the headline scene at 50 and 4032 walkers, fast
    with the default physics, Threefry with every variant on (intended
@@ -89,7 +95,8 @@ measured, and any failure raises (exit code != 0, no final line):
    curve within 5e-5 of a direct run; the time split; then 2e4 steps on
    Threefry and with every variant on, on each generator;
 17. the kernels line (every entry and mode, with its launches in the
-   run of its path, its time beside its plain version's and its bound),
+   run of its path, its time beside its plain version's and its bound,
+   its layout, registers and spills),
    then {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
@@ -115,7 +122,7 @@ import torch  # noqa: E402
 
 from mri_nanoparticle_simulation_tpu_torch import golden  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (  # noqa: E402
-    SCALEUP)
+    SCALEUP, all_variants)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
     chunk_kernel, cuda_engine, sim)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
@@ -148,7 +155,6 @@ REC_TOL = 5e-5     # Σcos/W, reconstruction vs a direct run (early windows;
 #                    tests/test_decompose.py:57)
 REC_RUN_TOL = 1e-3  # the same over the whole run
 HEADLINE = dict(chunk_steps=4000, near_k=5)
-GRADIENT = (0.0, 0.0, 3e-5)   # T/µm, the golden gradient arm's
 #: golden arm -> (committed curves and config, RMS gate, |final diff|
 #: gate): about 2.5x the committed JAX arm's own reading against oracle
 #: row 0 (scene 6000), and phase 5's gates for the as-written arm
@@ -159,22 +165,37 @@ ARMS = {"intended": ("GOLDEN_T2_FULL_intended", 0.025, 0.060),
 PKG = "mri_nanoparticle_simulation_tpu_torch/csrc/"
 REF = "mri_nanoparticle_simulation_tpu/"
 REPLACES = REF + "engine/pallas_engine.py:171"
-#: the card's peak rates for the bounds (NVIDIA H100 SXM at 700 W): HBM3
-#: bytes/s; FP32 operations/s as published (67 TFLOP/s); INT32
-#: operations/s, 64 INT32 lanes per SM x 132 SMs x 1.98 GHz
+#: the card's peak rates for the bounds (NVIDIA H100 SXM at 700 W, 132
+#: SMs at 1.98 GHz): HBM3 bytes/s; issue slots, 4 schedulers x 32 lanes
+#: per SM and cycle, which every float and integer operation takes one
+#: of (the kernels are built with --fmad=false, so an add and a multiply
+#: are two instructions on the FP32 pipe's 128 lanes, not one fused
+#: multiply-add counted as two operations: the published 67 TFLOP/s
+#: counts FMAs, twice what uncontracted code can reach); and the INT32
+#: lanes, 64 per SM and cycle
 PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
+PEAK_ISSUE = 128 * 132 * 1.98e9
 PEAK_INT32 = 64 * 132 * 1.98e9
 
 
 def bound(nbytes, flops, iops):
     """(bound_ms, bound_by): the least time the card could take for work
     that moves ``nbytes`` and does ``flops`` float and ``iops`` integer
-    operations, at the peak rates above."""
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(flops / PEAK_FP32, iops / PEAK_INT32)
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    operations: the largest of the bytes over the memory rate, all
+    operations over the issue rate (float and integer share the
+    schedulers' issue slots, so their times add), and the integer ones
+    over the INT32 lanes' rate; ``bound_by`` names it ("bytes", "issue"
+    or "integer").  The published FP32 peak, 67e12/s, is not used: it
+    counts a fused multiply-add as two operations, and the kernels are
+    built with --fmad=false, so each add and each multiply is one
+    instruction on one of 128 FP32 lanes per SM and cycle (3.345e13/s).
+    Nor may the float and integer times be taken apart (their maximum):
+    the two pipes are fed from the same issue slots."""
+    t = {"bytes": nbytes / PEAK_BYTES,
+         "issue": (flops + iops) / PEAK_ISSUE,
+         "integer": iops / PEAK_INT32}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], by
 
 
 def cand_model_bound(w, p, cache):
@@ -200,7 +221,7 @@ def far_sums_bound(w, n_pad, k):
 
 
 #: integer operations per walker of one Threefry-2x32-20 block
-#: (field_math.cuh:threefry2x32): 20 rounds of add, rotate (one funnel
+#: (field_math.cuh:threefry2x32_n): 20 rounds of add, rotate (one funnel
 #: shift), xor; of each key injection only the add into x1, since
 #: ``kb + (g + 1)`` is the same for every walker and ``x0 += ka`` folds
 #: into the next round's add (one three-input add), plus the last
@@ -258,7 +279,7 @@ def chunk_bound(w, phys, n_pad=0, decompose=False):
     walkers (the padding walkers are no work): the rebuild entry over an
     ``n_pad``-entry dipole table, or (``n_pad`` 0) the near entry.
     Bytes: the state in and out, escapes, coverage, the window output
-    (block sums, or the per-walker record in decompose mode), and the
+    (warp sums, or the per-walker record in decompose mode), and the
     model (the table once; near and taylor per walker).  Operations:
     ``step_ops`` per walker-step (+1 float for the second accumulator in
     decompose mode), and in the rebuild entry the chunk-start selection
@@ -266,9 +287,9 @@ def chunk_bound(w, phys, n_pad=0, decompose=False):
     k = phys.near_k
     n_win = phys.chunk_steps // phys.pfreq
     rows = 8 if decompose else 6
-    blocks = -(-w // 128)
-    wins = n_win * 2 * w if decompose else blocks * n_win * 2
-    nbytes = 4 * (2 * rows * w + w + blocks + wins)
+    warps = -(-w // 32)
+    wins = n_win * 2 * w if decompose else warps * n_win * 2
+    nbytes = 4 * (2 * rows * w + w + warps + wins)
     f, i = step_ops(phys, k)
     flops = w * phys.chunk_steps * (f + decompose)
     iops = w * phys.chunk_steps * i
@@ -299,13 +320,6 @@ def chunk_args(p, n_water, step0, tcp=None, rng_impl="threefry"):
                 num_water=n_water, tcp=p.tcp if tcp is None else tcp,
                 cell_r2=cuda_engine.cell_r2_f32(p.cell_r), dstd=1.0,
                 phys=cuda_engine.chunk_physics(p, rng_impl))
-
-
-def all_variants(p):
-    """Every physics variant on: the intended kick with sphere
-    directions, permeable membranes and a z gradient."""
-    return p.replace(kick_mode="intended", direction_mode="sphere",
-                     b0_gradient=GRADIENT).with_permeability().validate()
 
 
 def compare_chunk(p, sc, dev, n_water, tcp=None, rng_impl="threefry"):
@@ -340,6 +354,7 @@ def compare_chunk(p, sc, dev, n_water, tcp=None, rng_impl="threefry"):
           f"{int(esc.sum())}/{int(r_esc.sum())}, coverage "
           f"{int(cov.sum())}/{int(r_cov.sum())}", flush=True)
     check(pos_err < POS_TOL, f"positions differ by {pos_err}")
+    check(torch.equal(out, r_out), "state not bitwise equal")
     check(win_err < WIN_TOL, f"window sums differ by {win_err}")
     check(torch.equal(esc, r_esc), "escapes differ")
     check(torch.equal(cov, r_cov), "coverage differs")
@@ -429,11 +444,13 @@ def main():
     build_s = time.perf_counter() - t0
     chunk_kernel.load_library()
     res = ptxas_resources(chunk_kernel.build_log())
-    registers = {}
-    for name in chunk_kernel.LAUNCHES:
+    split_names = [chunk_kernel.chunk_mode(
+        "chunk_split_kernel", SimpleNamespace(
+            fast_rng="fast" in m, variants="variants" in m), "dec" in m)
+        for m in chunk_kernel.CHUNK_MODES]
+    for name in [*chunk_kernel.LAUNCHES, *split_names]:
         ks = sorted(k for n, k in res if n == name)
         check(ks == list(range(1, 17)), f"{name}: built for K = {ks}")
-        registers[name] = {k: res[name, k][0] for k in ks}
         print(f"  {name} registers by K: "
               f"{' '.join(f'{k}:{res[name, k][0]}' for k in ks)}")
         print(f"  {name} K=5: {res[name, 5][1]}; K=10: {res[name, 10][1]}")
@@ -454,9 +471,25 @@ def main():
     plain_ms = time_chunk(
         lambda: cuda_engine.chunk_reference(planes, tbl, **args), 1)
     main_bound = chunk_bound(args["num_water"], args["phys"], tbl.shape[1])
+    lay = chunk_kernel.LAYOUTS["chunk_kernel"]
+    check(lay.split and lay.blocks >= 120 and lay.waves == 1,
+          f"headline layout {lay}")
+    # the other side of the split layout's threshold: the flat layout
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    edge = chunk_kernel.split_threshold(sms, {
+        "split": chunk_kernel.kernel_info("chunk_kernel", args["phys"],
+                                          False, "split", tbl.shape[1])},
+        args["phys"].fast_rng)
+    wide = Params(chunk_steps=1000, near_k=5, num_water=edge + 100).validate()
+    compare_chunk(wide, BacteriaBox(wide, seed=42).populate(), dev,
+                  wide.num_water)
+    wlay = chunk_kernel.LAYOUTS["chunk_kernel"]
+    check(not wlay.split, f"{wide.num_water} walkers took {wlay}")
     done(t0, f"one chunk (4032 walkers, K=5, 4000 steps): kernel "
          f"{kernel_ms:.3f} ms, plain version {plain_ms:.1f} ms, bound "
-         f"{main_bound[0]:.4f} ms ({main_bound[1]}) [{label}]")
+         f"{main_bound[0]:.4f} ms ({main_bound[1]}); layout {lay}; above "
+         f"the split threshold ({edge} walkers) at {wide.num_water}: "
+         f"{wlay} [{label}]")
 
     t0 = phase("4 main path, full width")
     runner = SimulationRunner(Params(**HEADLINE), scene_seed=42, seed=7,
@@ -512,7 +545,11 @@ def main():
          f"[{label}]")
 
     ctx, big = large_scene_phases(dev, label)
-    big[0]["registers"] = registers["chunk_near_kernel"][ctx["p"].near_k]
+    layouts = layout_report(dev, p, tbl.shape[1], ctx["p"], res, label)
+    big[0].update(layouts["chunk_near_kernel"])
+    for entry in big[1:]:            # the candidate-model and far-sums
+        regs, spill = res[entry["name"], ctx["p"].near_k]   # kernels, K 10
+        entry.update(registers=regs, spill_bytes=spill_bytes(spill))
     modes = mode_phases(dev, label, p, sc, ctx)
     fast_launches = fast_headline(runner, cos, label)
     arm_launches = golden_arms(label)
@@ -556,7 +593,7 @@ def main():
                {"max_abs_err_wins": m["win_err"],
                 "tolerance": {"positions": POS_TOL,
                               "window_sums": WIN_TOL}}),
-            "registers": registers[name][m["k"]],
+            **layouts[name],
             "ms": m["ms"],
             "plain_ms": m["plain_ms"],
             "bound_ms": m["bound"][0],
@@ -572,7 +609,7 @@ def main():
         "max_abs_err": max(pos50, pos_err),
         "max_abs_err_wins": max(win50, win_err),
         "tolerance": {"positions": POS_TOL, "window_sums": WIN_TOL},
-        "registers": registers["chunk_kernel"][5],
+        **layouts["chunk_kernel"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": main_bound[0],
@@ -586,6 +623,53 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def spill_bytes(line):
+    """The spill stores of a -Xptxas -v line (0 if none)."""
+    m = re.search(r"(\d+) bytes spill stores", line or "")
+    return int(m.group(1)) if m else 0
+
+
+def layout_report(dev, hp, n_pad, sp, res, label):
+    """Phase 8 (b): each mode of both chunk-kernel entries at its path's
+    width, the rebuild entry at the headline (``hp``, an ``n_pad``-entry
+    table) and the near entry at the scale-up (``sp``): its layout
+    (blocks, threads, generator warps, dynamic shared memory; the
+    runtime's answer), resident blocks per SM (the occupancy API), waves,
+    and the registers and spills of the kernel it launches.  Returns
+    {LAUNCHES key: kernels-line fields}."""
+    t0 = phase("8 (b) layouts of every chunk-kernel mode")
+    out = {}
+    for entry, q in (("chunk_kernel", hp), ("chunk_near_kernel", sp)):
+        w_pad = cuda_engine.pad_count(q.num_water)
+        for m in chunk_kernel.CHUNK_MODES:
+            dec = "dec" in m
+            pm = all_variants(q) if "variants" in m else q
+            phys = cuda_engine.chunk_physics(
+                pm, "hardware" if "fast" in m else "threefry")
+            lay = chunk_kernel.launch_layout(
+                entry, torch.empty((8 if dec else 6, w_pad), device=dev),
+                phys, dec, n_pad if entry == "chunk_kernel" else 0)
+            kernel = "chunk_split_kernel" if lay.split else entry
+            regs, spill = res[chunk_kernel.chunk_mode(kernel, phys, dec),
+                              phys.near_k]
+            key = chunk_kernel.chunk_mode(entry, phys, dec)
+            out[key] = {"layout": {**lay._asdict(), "kernel": kernel},
+                        "registers": regs, "spill_bytes": spill_bytes(spill)}
+            print(f"  {key}, {w_pad} walkers: {kernel} {lay.blocks} x "
+                  f"{lay.threads} threads, {lay.gen_warps} generator warps, "
+                  f"{lay.smem} B dynamic shared memory; {lay.blocks_per_sm} "
+                  f"resident per SM, {lay.waves} wave(s); {regs} registers, "
+                  f"{spill_bytes(spill)} B spilled", flush=True)
+            if entry == "chunk_kernel":
+                check(lay.split and lay.blocks >= 120 and lay.waves == 1,
+                      f"{key}: headline layout {lay}")
+            if key == "chunk_near_kernel":   # compiled for one wave
+                check(lay.blocks_per_sm >= 6 and lay.waves == 1,
+                      f"{key}: scale-up layout {lay}")
+    done(t0, f"[{label}]")
+    return out
 
 
 def mode_phases(dev, label, p, sc, ctx):
@@ -812,6 +896,7 @@ def check_dec(run, ref, n, what):
           flush=True)
     check(pos_err < POS_TOL, f"{what}: positions differ by {pos_err}")
     check(ab_err < DEC_TOL, f"{what}: A, B differ by {ab_err}")
+    check(bitwise, f"{what}: state or record not bitwise equal")
     check(torch.equal(esc, r[1]), f"{what}: escapes differ")
     check(torch.equal(cov, r[2]), f"{what}: coverage differs")
     check(bool(torch.isfinite(out).all() and torch.isfinite(wins).all()),
@@ -1176,6 +1261,7 @@ def compare_near_chunk(planes, near, taylor, cargs):
     pos_err = float((out[:3, :n] - cref[0][:3, :n]).abs().max())
     win_err = float((wins.sum(0) - cref[3].sum(0)).abs().max())
     check(pos_err < POS_TOL, f"1c positions differ by {pos_err}")
+    check(torch.equal(out, cref[0]), "1c state not bitwise equal")
     check(win_err < WIN_TOL, f"1c window sums differ by {win_err}")
     check(torch.equal(esc, cref[1]), "1c escapes differ")
     check(float(cov.abs().sum()) == 0.0, "1c coverage output not zero")

@@ -25,11 +25,17 @@ Two further modes print one JSON line each:
 * ``--profile``: the scale-up path's device time per kernel over 20
   chunks (torch.profiler), and its device idle share (one minus the
   traced device time over the wall time of the same chunks untraced);
-* ``--rebuild-ms [DIR]``: the rebuild kernel's ms per chunk at the
-  headline shape (4032 walkers, K 5, 4000 steps; 7 rounds of 10
-  launches, CUDA events).  With DIR, the port's package of the checkout
-  at DIR (e.g. the parent commit, unpacked with ``git archive``) is
-  loaded beside this one and timed in turns: DIR, this, this, DIR.
+* ``--rebuild-ms [DIR]``: the chunk kernel's ms per chunk in every mode of
+  both entries: the rebuild entry at the headline shape (4032 walkers, K 5)
+  and the near entry at the scale-up width (100096 walkers, K 10), 4000
+  steps, 7 rounds of 10 launches between CUDA events, with the layout each
+  launch took; then the rebuild entry on the headline's scene at the
+  widths of ``REBUILD_WIDTHS`` (both sides of the split layout's
+  threshold, up to a 100k-walker small scene) in both its layouts.  With
+  DIR, the port's package of the checkout at DIR (e.g. the parent commit,
+  unpacked with ``git archive``) is loaded beside this one and timed in
+  turns on the same inputs: DIR, this, this, DIR (DIR, flat, split,
+  split, flat, DIR at the widths).
 
     python -m mri_nanoparticle_simulation_tpu_torch.benchmark [--profile |
         --rebuild-ms [DIR]]
@@ -68,12 +74,27 @@ SCALEUP = dict(num_water=100_000, num_cells=2000, tau=5e-7,
                sprint_steps=20_000, mmoment=3.5e-17, water_start_bound=28.0,
                max_neighbors=24, near_k=10, cube_candidates=32,
                chunk_steps=4000)
+#: the background gradient of the every-variant runs, T/µm (the golden
+#: gradient arm's)
+GRADIENT = (0.0, 0.0, 3e-5)
 #: 2e4-step scale-up sprints timed after the warm-up sprint
 N_SCALEUP_SPRINTS = 10
 #: scale-up sprints (5 chunks each) traced by --profile
 N_PROFILE_SPRINTS = 4
+#: walkers at which --rebuild-ms times the rebuild entry in both layouts:
+#: on a 132-SM card just above the split layout's all-resident width
+#: (8448 walkers at 2 blocks per SM), then multiples of it, up to a
+#: 100k-walker small scene
+REBUILD_WIDTHS = (8576, 16896, 33792, 50688, 67584, 100000)
 _GENERATOR = {cuda_engine.RNG_THREEFRY: "Threefry-20",
               cuda_engine.RNG_HARDWARE: "fast generator (Philox4x32-10)"}
+
+
+def all_variants(p: Params) -> Params:
+    """``p`` with every physics variant on: the intended kick with
+    sphere directions, permeable membranes and a z gradient."""
+    return p.replace(kick_mode="intended", direction_mode="sphere",
+                     b0_gradient=GRADIENT).with_permeability().validate()
 
 
 def _timed_sprints(sprint, n, ss, *args, **kw):
@@ -183,24 +204,62 @@ def _load_tree(root: str, alias: str):
     return alias
 
 
-def _rebuild_timer(pkg: str, rounds: int, launches: int):
-    """A function timing ``rounds`` x ``launches`` rebuild-kernel chunks
-    of package ``pkg`` at the headline shape; returns ms per launch for
-    each round."""
-    ck = importlib.import_module(pkg + ".engine.chunk_kernel")
-    ce = importlib.import_module(pkg + ".engine.cuda_engine")
-    cv = importlib.import_module(pkg + ".engine.convert")
-    re_ = importlib.import_module(pkg + ".engine.reference_engine")
-    dev = require_cuda()
-    p = Params(chunk_steps=4000, near_k=5).validate()
-    sc = BacteriaBox(p, seed=42).populate()
-    tbl = cv.mnp_table(sc.mnps, torch.float32, dev).tbl
-    planes = ce.to_soa(re_.init_state(sc.waters, p, dev), p).planes
-    args = dict(key=cv.key_words(7), lane_offset=0, num_water=p.num_water,
-                tcp=p.tcp, cell_r2=ce.cell_r2_f32(p.cell_r), dstd=1.0,
-                phys=ce.chunk_physics(p))
-    ck.load_library()
-    planes, *_ = ck.run_chunk(planes, tbl, step0=0, **args)
+def _chunk_cases(dev) -> dict:
+    """The chunk-kernel calls ``--rebuild-ms`` times, as functions of a
+    tree's ``chunk_kernel`` module, by ``LAUNCHES`` key: every mode of
+    the rebuild entry at the headline shape (4032 walkers, 716 dipoles,
+    K 5) and of the near entry at the scale-up width (100096 walkers,
+    K 10, the model of the initial walkers), each one 4000-step chunk on
+    inputs built once by this tree, so every tree runs the same launches.
+    The variant modes have every variant on (``all_variants``)."""
+    hp = Params(chunk_steps=4000, near_k=5).validate()
+    hsc = BacteriaBox(hp, seed=42).populate()
+    tbl = mnp_table(hsc.mnps, torch.float32, dev).tbl
+    sp = Params(**SCALEUP).validate()
+    ssc = BacteriaBox(sp, seed=42).populate()
+    stbl = mnp_table(ssc.mnps, torch.float32, dev)
+    cache = expansion.build_cache(stbl.pos, stbl.m, sp)
+    splanes = cuda_engine.to_soa(init_state(ssc.waters, sp, dev), sp).planes
+    splanes = torch.cat([cuda_engine._wrap(splanes[:3], sp.bound),
+                         splanes[3:]])
+    near, taylor, _ = expansion.build_planes(
+        splanes[:3].contiguous(), sp, cache,
+        reach2=expansion.coverage_reach2(sp))
+    planes = {}
+    for dec in (False, True):
+        st = init_state(hsc.waters, hp, dev, decompose=dec)
+        planes["chunk_kernel", dec] = cuda_engine.to_soa(st, hp).planes
+        planes["chunk_near_kernel", dec] = (
+            torch.cat([splanes, 0.5 * splanes[4:6]]).contiguous() if dec
+            else splanes)
+
+    cases = {}
+    for entry, p in (("chunk_kernel", hp), ("chunk_near_kernel", sp)):
+        for variants in (False, True):
+            pm = all_variants(p) if variants else p
+            for dec in (False, True):
+                for rng_impl in (cuda_engine.RNG_THREEFRY,
+                                 cuda_engine.RNG_HARDWARE):
+                    a = dict(step0=p.chunk_steps, key=key_words(7),
+                             lane_offset=0, num_water=p.num_water,
+                             tcp=p.tcp,
+                             cell_r2=cuda_engine.cell_r2_f32(pm.cell_r),
+                             dstd=1.0, decompose=dec,
+                             phys=cuda_engine.chunk_physics(pm, rng_impl))
+                    pl = planes[entry, dec]
+                    mode = chunk_kernel.chunk_mode(entry, a["phys"], dec)
+                    cases[mode] = (
+                        (lambda ck, a=a, pl=pl: ck.run_chunk(pl, tbl, **a))
+                        if entry == "chunk_kernel" else
+                        (lambda ck, a=a, pl=pl: ck.run_chunk_near(
+                            pl, near, taylor, **a)))
+    return cases
+
+
+def _chunk_timer(ck, call, rounds: int, launches: int):
+    """A function timing ``rounds`` x ``launches`` calls of ``call(ck)``
+    between CUDA events; returns ms per launch for each round."""
+    call(ck)                                     # build, load, warm up
     torch.cuda.synchronize()
 
     def run():
@@ -210,7 +269,7 @@ def _rebuild_timer(pkg: str, rounds: int, launches: int):
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(launches):
-                ck.run_chunk(planes, tbl, step0=p.chunk_steps, **args)
+                call(ck)
             end.record()
             torch.cuda.synchronize()
             out.append(start.elapsed_time(end) / launches)
@@ -218,25 +277,97 @@ def _rebuild_timer(pkg: str, rounds: int, launches: int):
     return run
 
 
-def rebuild_ms(other: str | None = None, rounds: int = 7,
-               launches: int = 10) -> dict:
-    """Rebuild-kernel ms per chunk of this tree, or of ``other`` and this
-    tree in turns (other, this, this, other) in one process."""
-    this = _rebuild_timer(__package__, rounds, launches)
-    order = [("this", this)]
-    if other is not None:
-        that = _rebuild_timer(_load_tree(other, "_other_tree"), rounds,
-                              launches)
-        order = [(other, that), ("this", this), ("this", this),
-                 (other, that)]
+def _width_cases(dev) -> list:
+    """The rebuild entry's calls at ``REBUILD_WIDTHS``: every mode on the
+    headline's scene (K 5) with its walkers widened, as (mode, walkers,
+    the call through a tree's ``run_chunk``, the call of this tree in a
+    forced layout)."""
+    wp = Params(chunk_steps=4000, near_k=5,
+                num_water=max(REBUILD_WIDTHS)).validate()
+    sc = BacteriaBox(wp, seed=42).populate()
+    tbl = mnp_table(sc.mnps, torch.float32, dev).tbl
+    cases = []
+    for variants in (False, True):
+        pm = all_variants(wp) if variants else wp
+        for dec in (False, True):
+            for rng_impl in (cuda_engine.RNG_THREEFRY,
+                             cuda_engine.RNG_HARDWARE):
+                phys = cuda_engine.chunk_physics(pm, rng_impl)
+                for n in REBUILD_WIDTHS:
+                    pl = cuda_engine.to_soa(init_state(
+                        sc.waters[:n], wp, dev, decompose=dec), wp).planes
+                    a = dict(step0=wp.chunk_steps, key=key_words(7),
+                             lane_offset=0, num_water=n, tcp=wp.tcp,
+                             cell_r2=cuda_engine.cell_r2_f32(pm.cell_r),
+                             dstd=1.0, phys=phys)
+                    cases.append((
+                        chunk_kernel.chunk_mode("chunk_kernel", phys, dec),
+                        n,
+                        lambda ck, a=a, pl=pl, dec=dec: ck.run_chunk(
+                            pl, tbl, decompose=dec, **a),
+                        lambda kind, a=a, pl=pl, dec=dec: (
+                            lambda ck: ck._run_chunk_kernel(
+                                "chunk_kernel", pl, [tbl], a, dec,
+                                tbl.shape[1], kind))))
+    return cases
+
+
+def _turns(timers: dict, names: list) -> list:
+    """Each timer of ``names`` in turn, then in the reverse order."""
     runs = []
-    for name, fn in order:
-        ms = fn()
+    for name in names + names[::-1]:
+        ms = timers[name]()
         runs.append({"tree": name, "median_ms": statistics.median(ms),
                      "rounds_ms": ms})
-    return {"config": "rebuild kernel, 4032 walkers x 716 dipoles, K 5, "
-                      f"4000 steps, {rounds} rounds x {launches} launches",
-            "label": card_label(), "runs": runs}
+    return runs
+
+
+def rebuild_ms(other: str | None = None, rounds: int = 7,
+               launches: int = 10) -> dict:
+    """Chunk-kernel ms per chunk of this tree, or of ``other`` and this
+    tree in turns (other, this, this, other) in one process: every mode
+    of the rebuild entry at the headline shape and of the near entry at
+    the scale-up width, with this tree's layout of each; then the
+    rebuild entry at ``REBUILD_WIDTHS`` in both its layouts, in turns:
+    other, flat, split, split, flat, other."""
+    dev = require_cuda()
+    that = None
+    if other is not None:
+        that = importlib.import_module(
+            _load_tree(other, "_other_tree") + ".engine.chunk_kernel")
+    out = []
+    for mode, call in _chunk_cases(dev).items():
+        timers = {"this": _chunk_timer(chunk_kernel, call, rounds, launches)}
+        names = ["this"]
+        if that is not None:
+            timers[other] = _chunk_timer(that, call, rounds, launches)
+            names.insert(0, other)
+        runs = _turns(timers, names)
+        call(chunk_kernel)
+        out.append({"kernel": mode,
+                    "layout": chunk_kernel.LAYOUTS[mode]._asdict(),
+                    "runs": runs})
+    widths = []
+    for mode, n, call, forced in _width_cases(dev):
+        timers = {f"this, {kind} layout": _chunk_timer(
+            chunk_kernel, forced(kind), rounds, launches)
+            for kind in ("flat", "split")}
+        names = list(timers)
+        if that is not None:
+            timers[other] = _chunk_timer(that, call, rounds, launches)
+            names.insert(0, other)
+        runs = _turns(timers, names)
+        call(chunk_kernel)
+        widths.append({"kernel": mode, "walkers": n,
+                       "layout": chunk_kernel.LAYOUTS[mode]._asdict(),
+                       "runs": runs})
+    return {"config": "rebuild entry: 4032 walkers x 716 dipoles, K 5; "
+                      "near entry: 100096 walkers (100000 real), K 10; "
+                      "4000 steps; every variant on in the variant modes; "
+                      f"{rounds} rounds x {launches} launches; widths: the "
+                      "rebuild entry on the headline's scene at "
+                      f"{REBUILD_WIDTHS} walkers",
+            "label": card_label(), "cases": out, "widths": widths}
 
 
 def _headline_run(rng_impl: str) -> dict:
@@ -298,8 +429,9 @@ def main(argv=None):
                       help="device time per kernel of the scale-up path")
     mode.add_argument("--rebuild-ms", nargs="?", const="", default=None,
                       metavar="DIR",
-                      help="rebuild-kernel ms per chunk; with DIR, also "
-                           "that checkout's, in turns")
+                      help="chunk-kernel ms per chunk (every mode of both "
+                           "entries); with DIR, also that checkout's, in "
+                           "turns")
     args = ap.parse_args(argv)
     if args.profile:
         out = scaleup_profile()

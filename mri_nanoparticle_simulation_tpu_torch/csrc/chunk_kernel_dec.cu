@@ -1,8 +1,8 @@
-// The rebuild-mode chunk kernel with the Threefry generator in decompose
-// mode (the per-walker (A, B) record of a phase-decomposition run),
-// K = 1..16, default physics and variants: instantiated here, defined in
-// chunk_kernel.cuh.
+// The rebuild-mode chunk kernel with the Threefry generator in decompose mode
+// (the per-walker (A, B) record of a phase-decomposition run), K = 1..16,
+// default physics and variants, flat and split layouts: instantiated here,
+// defined in chunk_kernel.cuh.
 
 #include "chunk_kernel.cuh"
 
-CHUNK_ENTRY(chunk_kernel_dec_launch, launch_chunk, false, true, model0)
+CHUNK_ENTRY(chunk_kernel_dec, launch_chunk, info_chunk, false, true, model0)

@@ -1,7 +1,7 @@
-// The rebuild-mode chunk kernel with the fast generator (Philox4x32-10),
-// K = 1..16, default physics and variants: instantiated here, defined in
-// chunk_kernel.cuh.
+// The rebuild-mode chunk kernel with the fast generator (Philox4x32-10), K =
+// 1..16, default physics and variants, flat and split layouts: instantiated
+// here, defined in chunk_kernel.cuh.
 
 #include "chunk_kernel.cuh"
 
-CHUNK_ENTRY(chunk_kernel_fast_launch, launch_chunk, true, false, model0)
+CHUNK_ENTRY(chunk_kernel_fast, launch_chunk, info_chunk, true, false, model0)

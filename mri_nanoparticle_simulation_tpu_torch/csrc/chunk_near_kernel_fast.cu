@@ -4,5 +4,5 @@
 
 #include "chunk_kernel.cuh"
 
-CHUNK_ENTRY(chunk_near_kernel_fast_launch, launch_chunk_near, true, false,
-            model0, model1)
+CHUNK_ENTRY(chunk_near_kernel_fast, launch_chunk_near, info_chunk_near,
+            true, false, model0, model1)

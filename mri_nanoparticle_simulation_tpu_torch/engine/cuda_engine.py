@@ -21,7 +21,8 @@ A sprint is a Python loop over chunks that never syncs with the host.
 Walker layout: structure of arrays ``f32[6, W_pad]`` (x, y, z, in_cell,
 phase, phase_comp), one CUDA thread per walker, W_pad the walker count
 rounded up to the kernel's block size.  Padding walkers start at the box
-centre and are masked out of every sum.  In decompose mode (a
+centre and are masked out of every sum; window sums and coverage counts
+come per warp of 32 walkers, whichever layout the kernel ran in.  In decompose mode (a
 phase-decomposition run, ``engine/decompose.py``) the phase is split as
 phase = s * A + B for any moment scale s: ``f32[8, W_pad]`` (x, y, z,
 in_cell, A, comp_A, B, comp_B), and each window emits the per-walker
@@ -69,8 +70,10 @@ RNG_HARDWARE = "hardware"
 #: dipole-table limit of the in-kernel rebuild: the table is copied into
 #: each block's shared memory (f32[4, 2048] = 32 KB)
 REBUILD_MAX_MNPS = chunk_kernel.MAX_MNPS
-#: threads per block; W_pad is a multiple of it
+#: threads per block of the kernels' flat layout; W_pad is a multiple
 BLOCK = chunk_kernel.BLOCK
+#: walkers per row of the window sums and coverage counts (one warp)
+GROUP = chunk_kernel.WARP
 #: Threefry words per walker-step: direction xyz + normal pair, then the
 #: reflection coin (word 5) and the intended kick's uniform (word 6)
 N_WORDS = 5
@@ -247,9 +250,9 @@ def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
     contract.
 
     ``state`` f32[6, W_pad], ``mnp`` f32[4, n_pad] (the packed table).
-    Returns ``(state' f32[6, W_pad], esc f32[W_pad], cov f32[n_blocks],
-    wins f32[n_blocks, n_win, 2])``: per-walker escape flags, per-block
-    coverage-violation counts and per-block window sums (Σcos φ, Σsin φ),
+    Returns ``(state' f32[6, W_pad], esc f32[W_pad], cov f32[W_pad / 32],
+    wins f32[W_pad / 32, n_win, 2])``: per-walker escape flags, per-warp
+    coverage-violation counts and per-warp window sums (Σcos φ, Σsin φ),
     all masked to the ``num_water`` real walkers.  With ``decompose``
     the state is f32[8, W_pad] and ``wins`` the per-walker record
     f32[n_win, 2, W_pad] of (A, B), padding walkers included.
@@ -279,7 +282,7 @@ def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
     for j in range(mnp.shape[1]):
         d2s, near, ids = expansion.sorted_insert(
             d2s, near, ids, d2[j], mnp[:, j:j + 1], j)
-    cov = ((cnt > k) & valid).to(dt).reshape(-1, BLOCK).sum(1)
+    cov = ((cnt > k) & valid).to(dt).reshape(-1, GROUP).sum(1)
     anchor = torch.stack([ax, ay, az])
     taylor = expansion.far_sums_reference(anchor, mnp, ids)
     out, esc, wins = _chunk_steps(state, anchor, near, taylor, step0=step0,
@@ -306,7 +309,7 @@ def chunk_near_reference(state, near, taylor, *, step0, key, lane_offset,
                                   num_water=num_water, tcp=tcp,
                                   cell_r2=cell_r2, dstd=dstd, phys=phys,
                                   decompose=decompose)
-    cov = torch.zeros(state.shape[1] // BLOCK, dtype=state.dtype,
+    cov = torch.zeros(state.shape[1] // GROUP, dtype=state.dtype,
                       device=state.device)
     return out, esc, cov, wins
 
@@ -425,7 +428,7 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
     negates all four rows."""
     dev, dt = state.device, state.dtype
     wp = state.shape[1]
-    n_blk = wp // BLOCK
+    n_grp = wp // GROUP
     k = phys.near_k
 
     def const(v):
@@ -476,7 +479,7 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
     bprev, mind2 = eval_field(x, y, z)
     maxd2 = torch.zeros(wp, dtype=dt, device=dev)
     n_win = phys.chunk_steps // phys.pfreq
-    wins = torch.zeros((n_win, 2, wp) if decompose else (n_blk, n_win, 2),
+    wins = torch.zeros((n_win, 2, wp) if decompose else (n_grp, n_win, 2),
                        dtype=dt, device=dev)
     for w in range(n_win):
         win_step0 = (step0 + w * phys.pfreq) & rng.MASK
@@ -530,9 +533,9 @@ def _chunk_steps(state, anchor, near, taylor, *, step0, key, lane_offset,
             wins[w, 1] = phase_b
         else:
             wins[:, w, 0] = (torch.cos(phase) * validf).reshape(
-                n_blk, BLOCK).sum(1)
+                n_grp, GROUP).sum(1)
             wins[:, w, 1] = (torch.sin(phase) * validf).reshape(
-                n_blk, BLOCK).sum(1)
+                n_grp, GROUP).sum(1)
         # Carr-Purcell flip after emission (cuda_sim.cu:1015-1020)
         if ((win_step0 + phys.pfreq) & rng.MASK) % tcp == 0:
             phase = -phase

@@ -90,6 +90,24 @@ def sorted_insert(d2s, fields, ids, d2, new_fields, j):
             put(ids_new, ids, 0))
 
 
+def merge_sorted(d2s, ids):
+    """The K nearest of ``P`` sorted K-lists, as the rebuild kernel's
+    split layout merges the lists its warps select over consecutive
+    parts of the table (csrc/chunk_kernel.cuh merge_selected).
+
+    ``d2s`` / ``ids``: ``[P, K, ...]``, list p from ``sorted_insert``
+    over table part p, the parts in table order.  Slot by slot the
+    smallest head is taken, a tie going to the lower part: that is the
+    order (d2, id) in which the serial insertion over the whole table
+    keeps its K, so the result is the same (d2s, ids) ``[K, ...]``.
+    The plain version of the kernel's merge, for the tests."""
+    p, k = d2s.shape[:2]
+    flat_d2 = d2s.reshape(p * k, *d2s.shape[2:])
+    order = torch.sort(flat_d2, dim=0, stable=True).indices[:k]
+    return (torch.gather(flat_d2, 0, order),
+            torch.gather(ids.reshape(p * k, *ids.shape[2:]), 0, order))
+
+
 def excluded_weight(ids, j, dtype):
     """1.0 where candidate ``j`` is in none of the K id slots of ``ids``
     (``[K, ...]``), else 0.0.  ``j`` may be a tensor of ids that

@@ -110,7 +110,7 @@ def test_window_sums_match_pallas_kernel(case):
     _, p, ref, (_, _, _, wins) = case
     n_win = p.chunk_steps // p.pfreq
     assert wins.shape == (cuda_engine.pad_count(p.num_water)
-                          // cuda_engine.BLOCK, n_win, 2)
+                          // cuda_engine.GROUP, n_win, 2)
     np.testing.assert_allclose(wins.sum(0).numpy(), ref["wins"], rtol=0,
                                atol=1e-3)
     assert abs(float(wins.sum(0)[0, 0])) <= p.num_water + 1e-3

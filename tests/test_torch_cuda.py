@@ -7,7 +7,14 @@ on a machine with an NVIDIA H100:
 
 Tolerances: the chunk kernels have the reference's compiled-kernel ones
 (tests/test_pallas.py:109-111): positions within 1e-4, window sums
-within 0.05; escapes and coverage counts equal.  That holds in every
+within 0.05; escapes and coverage counts equal.  The layout tests hold
+every mode of both entries tighter: the state, escapes, coverage and
+decompose record bitwise equal to the plain version (the same
+operations in the same order), the window sums within 0.05 (the warp's
+shuffle tree adds in another order than torch) -- the rebuild entry in
+its split layout at 50 and 4032 walkers (and in two waves on Threefry)
+and in its flat layout above the threshold, the near entry at 4096 and
+100096 walkers (its Threefry kernel in one wave).  That holds in every
 mode: the Threefry and the fast generator, each with the default
 physics and with every variant on.  The candidate-model
 kernel: near slots equal (ties excepted), taylor within 1e-5 of the
@@ -456,3 +463,205 @@ def test_decomposition_on_card_matches_cpu(dev, rng_impl):
     np.testing.assert_allclose(gpu.B, cpu.B, rtol=0, atol=1e-5)
     assert gpu.stats["escapes"] == cpu.stats["escapes"] == 0
     assert gpu.stats["device_s"] > 0 and gpu.stats["copy_s"] > 0
+
+
+# -- the layouts: every mode bitwise, on both sides of the threshold -----------
+
+#: name -> (generator, physics, decompose) of all eight chunk-kernel modes
+ALL_MODES = {
+    "": (cuda_engine.RNG_THREEFRY, lambda p: p, False),
+    "fast": (cuda_engine.RNG_HARDWARE, lambda p: p, False),
+    "variants": (cuda_engine.RNG_THREEFRY, _all_variants, False),
+    "fast+variants": (cuda_engine.RNG_HARDWARE, _all_variants, False),
+    **{k: (*v, True) for k, v in DEC_MODES.items()},
+}
+
+
+def _key(entry, mode):
+    return entry + (f"[{mode}]" if mode else "")
+
+
+def _assert_bitwise(got, again, ref, dec):
+    """State, escapes, coverage (and the decompose record) bitwise equal
+    to the plain version and between two runs; window sums within the
+    reference's compiled-kernel tolerance (their order is the warp's
+    shuffle tree)."""
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    out, esc, cov, wins = got
+    r_out, r_esc, r_cov, r_wins = ref
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, r_out)
+    assert torch.equal(esc, r_esc)
+    assert torch.equal(cov, r_cov)
+    if dec:
+        assert torch.equal(wins, r_wins)
+    else:
+        assert wins.shape == r_wins.shape
+        torch.testing.assert_close(wins.sum(0), r_wins.sum(0), rtol=0,
+                                   atol=0.05)
+
+
+@pytest.fixture(scope="module")
+def headline(dev):
+    p = P.Params(chunk_steps=1000, near_k=5).validate()
+    return p, BacteriaBox(p, seed=42).populate()
+
+
+def _rebuild_case(p, sc, dev, mode, n, tcp=None):
+    """The state after one kernel chunk of ``n`` walkers in ``mode``, and
+    the arguments of the next chunk."""
+    rng_impl, physics, dec = ALL_MODES[mode]
+    pm = physics(p).validate()
+    st = init_state(sc.waters[:n], pm, dev, decompose=dec)
+    planes = cuda_engine.to_soa(st, pm).planes
+    tbl = convert.mnp_table(sc.mnps, torch.float32, dev).tbl
+    args = dict(step0=0, key=KEY, lane_offset=3, num_water=n,
+                tcp=pm.tcp if tcp is None else tcp,
+                cell_r2=cuda_engine.cell_r2_f32(pm.cell_r), dstd=1.0,
+                phys=cuda_engine.chunk_physics(pm, rng_impl))
+    planes, *_ = chunk_kernel.run_chunk(planes, tbl, decompose=dec, **args)
+    if dec:
+        planes = _dec_planes(planes[:6])
+    return planes, tbl, dict(args, step0=pm.chunk_steps), dec
+
+
+def _check_rebuild(planes, tbl, args, dec, mode):
+    key = _key("chunk_kernel", mode)
+    before = chunk_kernel.LAUNCHES[key]
+    got = chunk_kernel.run_chunk(planes, tbl, decompose=dec, **args)
+    again = chunk_kernel.run_chunk(planes, tbl, decompose=dec, **args)
+    assert chunk_kernel.LAUNCHES[key] == before + 2
+    ref = cuda_engine.chunk_reference(planes, tbl, decompose=dec, **args)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, again, ref, dec)
+    return chunk_kernel.LAYOUTS[key]
+
+
+@pytest.mark.parametrize("n", [50, 4032])
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_split_layout_bitwise(headline, dev, mode, n):
+    """The rebuild entry's split layout (one walker warp fed by three
+    generator warps) in every mode, at 50 walkers (a Carr-Purcell flip
+    every two windows) and at the headline's 4032."""
+    p, sc = headline
+    planes, tbl, args, dec = _rebuild_case(p, sc, dev, mode, n,
+                                           tcp=2 * p.pfreq if n == 50
+                                           else None)
+    lay = _check_rebuild(planes, tbl, args, dec, mode)
+    assert lay.split and lay.gen_warps == 3 and lay.threads == 128
+    assert lay.blocks == planes.shape[1] // 32 and lay.waves == 1
+    if n == 4032:
+        assert lay.blocks >= 120
+
+
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_flat_layout_above_threshold_bitwise(dev, mode):
+    """Wider than the split layout's threshold the rebuild entry takes
+    the flat layout (one walker per thread), in every mode."""
+    rng_impl, physics, dec = ALL_MODES[mode]
+    phys = cuda_engine.chunk_physics(physics(P.Params(
+        chunk_steps=1000, near_k=5)).validate(), rng_impl)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    edge = chunk_kernel.split_threshold(sms, {
+        "split": chunk_kernel.kernel_info("chunk_kernel", phys, dec, "split",
+                                          720)}, phys.fast_rng)
+    p = P.Params(chunk_steps=1000, near_k=5,
+                 num_water=edge + 100).validate()
+    sc = BacteriaBox(p, seed=42).populate()
+    planes, tbl, args, dec = _rebuild_case(p, sc, dev, mode, p.num_water)
+    assert tbl.shape[1] == 720
+    lay = _check_rebuild(planes, tbl, args, dec, mode)
+    assert not lay.split and lay.threads == 128
+    assert planes.shape[1] > edge
+
+
+@pytest.mark.parametrize("mode", sorted(m for m in ALL_MODES
+                                        if "fast" not in m))
+def test_split_layout_in_two_waves_bitwise(dev, mode):
+    """On Threefry the rebuild entry keeps the split layout past one wave
+    (chunk_kernel.SPLIT_WAVES): just wider than one wave it runs two."""
+    rng_impl, physics, dec = ALL_MODES[mode]
+    phys = cuda_engine.chunk_physics(physics(P.Params(
+        chunk_steps=1000, near_k=5)).validate(), rng_impl)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bps = chunk_kernel.kernel_info("chunk_kernel", phys, dec, "split",
+                                   720).blocks_per_sm
+    p = P.Params(chunk_steps=1000, near_k=5,
+                 num_water=32 * sms * bps + 100).validate()
+    sc = BacteriaBox(p, seed=42).populate()
+    planes, tbl, args, dec = _rebuild_case(p, sc, dev, mode, p.num_water)
+    lay = _check_rebuild(planes, tbl, args, dec, mode)
+    assert lay.split and lay.waves == 2
+
+
+@pytest.fixture(scope="module")
+def scaleup(dev):
+    """The scale-up scene (100000 waters, 2000 cells, K 10) with its
+    model at the initial walkers, wrapped, on the card."""
+    from mri_nanoparticle_simulation_tpu_torch.benchmark import SCALEUP
+    p = P.Params(**SCALEUP).replace(chunk_steps=2000).validate()
+    sc = BacteriaBox(p, seed=42).populate()
+    tbl = convert.mnp_table(sc.mnps, torch.float32, dev)
+    cache = expansion.build_cache(tbl.pos, tbl.m, p)
+    planes = cuda_engine.to_soa(init_state(sc.waters, p, dev), p).planes
+    planes = torch.cat([cuda_engine._wrap(planes[:3], p.bound), planes[3:]])
+    near, taylor, _ = expansion.build_planes(
+        planes[:3].contiguous(), p, cache,
+        reach2=expansion.coverage_reach2(p))
+    return p, planes, near, taylor
+
+
+@pytest.mark.parametrize("n", [4096, 100000])
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_near_entry_bitwise(scaleup, mode, n):
+    """The near entry in every mode on the scale-up scene's model, on its
+    first 4096 walkers and at its full width (100096 padded)."""
+    p, planes, near, taylor = scaleup
+    rng_impl, physics, dec = ALL_MODES[mode]
+    w = cuda_engine.pad_count(n)
+    planes = planes[:, :w].contiguous()
+    near = near[..., :w].contiguous()
+    taylor = taylor[:, :w].contiguous()
+    if dec:
+        planes = _dec_planes(planes)
+    pm = physics(p).validate()
+    args = dict(step0=p.chunk_steps, key=KEY, lane_offset=3, num_water=n,
+                tcp=p.tcp, cell_r2=cuda_engine.cell_r2_f32(pm.cell_r),
+                dstd=1.0, phys=cuda_engine.chunk_physics(pm, rng_impl))
+    key = _key("chunk_near_kernel", mode)
+    before = chunk_kernel.LAUNCHES[key]
+    got = chunk_kernel.run_chunk_near(planes, near, taylor, decompose=dec,
+                                      **args)
+    again = chunk_kernel.run_chunk_near(planes, near, taylor, decompose=dec,
+                                        **args)
+    assert chunk_kernel.LAUNCHES[key] == before + 2
+    ref = cuda_engine.chunk_near_reference(planes, near, taylor,
+                                           decompose=dec, **args)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, again, ref, dec)
+    lay = chunk_kernel.LAYOUTS[key]
+    assert not lay.split and lay.blocks == w // 128
+
+
+def test_near_entry_wave_layout_is_one_wave(scaleup):
+    """The near entry's default Threefry mode is compiled for one wave:
+    6 blocks per SM (at most 80 registers) hold all 782 blocks of the
+    100096-walker scale-up at once, and the chunk is bitwise its plain
+    version's.  (The fast mode measured faster uncapped, in two waves.)"""
+    p, planes, near, taylor = scaleup
+    phys = cuda_engine.chunk_physics(p, cuda_engine.RNG_THREEFRY)
+    info = chunk_kernel.kernel_info("chunk_near_kernel", phys)
+    assert info.regs <= 80 and info.blocks_per_sm >= 6
+    assert (info.threads, info.smem) == (128, 0)
+    args = dict(step0=p.chunk_steps, key=KEY, lane_offset=3,
+                num_water=p.num_water, tcp=p.tcp,
+                cell_r2=cuda_engine.cell_r2_f32(p.cell_r), dstd=1.0,
+                phys=phys)
+    got = chunk_kernel.run_chunk_near(planes, near, taylor, **args)
+    again = chunk_kernel.run_chunk_near(planes, near, taylor, **args)
+    lay = chunk_kernel.LAYOUTS["chunk_near_kernel"]
+    assert (lay.kind, lay.blocks, lay.waves) == ("flat", 782, 1)
+    ref = cuda_engine.chunk_near_reference(planes, near, taylor, **args)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, again, ref, False)

@@ -328,7 +328,8 @@ def test_chunk_near_state_matches_pallas_kernel(near_chunk):
 
 def test_chunk_near_windows_and_counts_match_pallas_kernel(near_chunk):
     p, ref, (_, esc, cov, wins) = near_chunk
-    assert wins.shape == (W // 128, p.chunk_steps // p.pfreq, 2)
+    assert wins.shape == (W // cuda_engine.GROUP, p.chunk_steps // p.pfreq,
+                          2)
     np.testing.assert_allclose(wins.sum(0).numpy(), ref["wins"], rtol=0,
                                atol=1e-3)
     np.testing.assert_array_equal(esc.numpy()[:p.num_water], ref["esc"])
