@@ -47,7 +47,9 @@ measured, and any failure raises (exit code != 0, no final line):
    kernel against its plain version at full width, with times of both;
 8b. the layout of every mode of both entries at its path's width:
    blocks, threads, generator warps, dynamic shared memory, resident
-   blocks per SM, waves, registers and spills;
+   blocks per SM, waves, registers and spills; and of the candidate-model
+   kernel at the scale-up width (one wave: 6 or more blocks per SM, at
+   most 80 registers, no spill);
 9. (a) the fast and variant modes against their plain versions: the
    rebuild kernel on the headline scene at 50 and 4032 walkers, fast
    with the default physics, Threefry with every variant on (intended
@@ -67,8 +69,9 @@ measured, and any failure raises (exit code != 0, no final line):
    fast one, against oracle row 0 of the committed curves, gated at
    about 2.5x the committed JAX arm's own reading;
 12. (d) the scale-up run on the fast generator, 2e6 steps, 0 escapes, 0
-   coverage violations; then 2e5 steps of it with every variant on,
-   on each generator;
+   coverage violations, the candidate-model kernel against its plain
+   version on the run's final walkers (phase 6's gates); then 2e5 steps
+   of it with every variant on, on each generator;
 13. nothing of jax or of the JAX package has been imported;
 14. the decompose mode of both chunk-kernel entries against its plain
    version in every mode (Threefry, fast, each with every variant on):
@@ -92,8 +95,10 @@ measured, and any failure raises (exit code != 0, no final line):
 16. the scale-up with a streaming (moment x taucp) plane on the fast
    generator, 2e5 steps: 0 escapes, 0 violations, only
    chunk_near_kernel[fast+dec] and cand_model_kernel launched, the s = 1
-   curve within 5e-5 of a direct run; the time split; then 2e4 steps on
-   Threefry and with every variant on, on each generator;
+   curve within 5e-5 of a direct run, the candidate-model kernel against
+   its plain version on the walkers after those 2e5 steps; the time
+   split; then 2e4 steps on Threefry and with every variant on, on each
+   generator;
 17. the kernels line (every entry and mode, with its launches in the
    run of its path, its time beside its plain version's and its bound,
    its layout, registers and spills),
@@ -122,7 +127,7 @@ import torch  # noqa: E402
 
 from mri_nanoparticle_simulation_tpu_torch import golden  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (  # noqa: E402
-    SCALEUP, all_variants)
+    SCALEUP, all_variants, time_on_device)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
     chunk_kernel, cuda_engine, sim)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
@@ -166,14 +171,12 @@ PKG = "mri_nanoparticle_simulation_tpu_torch/csrc/"
 REF = "mri_nanoparticle_simulation_tpu/"
 REPLACES = REF + "engine/pallas_engine.py:171"
 #: the card's peak rates for the bounds (NVIDIA H100 SXM at 700 W, 132
-#: SMs at 1.98 GHz): HBM3 bytes/s; issue slots, 4 schedulers x 32 lanes
-#: per SM and cycle, which every float and integer operation takes one
-#: of (the kernels are built with --fmad=false, so an add and a multiply
-#: are two instructions on the FP32 pipe's 128 lanes, not one fused
-#: multiply-add counted as two operations: the published 67 TFLOP/s
-#: counts FMAs, twice what uncontracted code can reach); and the INT32
-#: lanes, 64 per SM and cycle
+#: SMs at 1.98 GHz): HBM3 bytes/s; the published float32 rate outside
+#: the tensor cores, 67 TFLOP/s (128 FP32 lanes per SM and cycle, a fused
+#: multiply-add counted as two operations); issue slots, 4 schedulers x
+#: 32 lanes per SM and cycle; and the INT32 lanes, 64 per SM and cycle
 PEAK_BYTES = 3.35e12
+PEAK_FP32 = 2 * 128 * 132 * 1.98e9
 PEAK_ISSUE = 128 * 132 * 1.98e9
 PEAK_INT32 = 64 * 132 * 1.98e9
 
@@ -181,35 +184,42 @@ PEAK_INT32 = 64 * 132 * 1.98e9
 def bound(nbytes, flops, iops):
     """(bound_ms, bound_by): the least time the card could take for work
     that moves ``nbytes`` and does ``flops`` float and ``iops`` integer
-    operations: the largest of the bytes over the memory rate, all
-    operations over the issue rate (float and integer share the
-    schedulers' issue slots, so their times add), and the integer ones
-    over the INT32 lanes' rate; ``bound_by`` names it ("bytes", "issue"
-    or "integer").  The published FP32 peak, 67e12/s, is not used: it
-    counts a fused multiply-add as two operations, and the kernels are
-    built with --fmad=false, so each add and each multiply is one
-    instruction on one of 128 FP32 lanes per SM and cycle (3.345e13/s).
-    Nor may the float and integer times be taken apart (their maximum):
-    the two pipes are fed from the same issue slots."""
-    t = {"bytes": nbytes / PEAK_BYTES,
-         "issue": (flops + iops) / PEAK_ISSUE,
-         "integer": iops / PEAK_INT32}
-    by = max(t, key=t.get)
-    return 1e3 * t[by], by
+    operations: the larger of the bytes over the memory rate
+    ("bytes") and the operations' time ("operations").  The operations'
+    time is the larger of two: the issue slots, which float and integer
+    instructions share, with the float operations at the published
+    float32 peak (two to a fused multiply-add, one slot) and each integer
+    one a slot; and the integer operations over the INT32 lanes.  The
+    kernels are built with --fmad=false, so they issue one instruction
+    per float operation and can reach half the float rate counted here
+    (``issue_bound_ms`` gives that figure)."""
+    t_ops = max(flops / PEAK_FP32 + iops / PEAK_ISSUE, iops / PEAK_INT32)
+    t_bytes = nbytes / PEAK_BYTES
+    return ((1e3 * t_bytes, "bytes") if t_bytes > t_ops
+            else (1e3 * t_ops, "operations"))
 
 
-def cand_model_bound(w, p, cache):
-    """(bound_ms, bound_by) of one candidate-model launch on ``w``
-    walkers: bytes of the anchors, the scene cache read once (payload
-    and far table) and the near, taylor and n_reach outputs; per walker
-    and candidate 8 float operations of distance, 4K of insertion and 65
-    of Taylor parts, and 20 per far-table coefficient (its value,
-    gradient and Hessian terms)."""
-    c, k = cache.payload.shape[1], p.near_k
+def issue_bound_ms(nbytes, flops, iops):
+    """``bound``'s time with every float operation in an issue slot of
+    its own, as the kernels' --fmad=false code issues it: what the
+    uncontracted build could reach at best."""
+    return 1e3 * max(nbytes / PEAK_BYTES, (flops + iops) / PEAK_ISSUE,
+                     iops / PEAK_INT32)
+
+
+def cand_model_work(w, p, cache):
+    """(bytes, float operations) of one candidate-model launch on ``w``
+    walkers: the anchors, the scene's candidate table (4 columns) and far
+    table read once, the near, taylor and n_reach outputs written once;
+    per walker 8 float operations of distance and 4K of insertion for
+    each of the C candidates, 65 of Taylor parts for each of the C - K
+    not selected, and 20 per far-table coefficient (its value, gradient
+    and Hessian terms)."""
+    c, k = cache.cand_table.shape[1], p.near_k
     nc = cache.far_coeffs.shape[1]
-    nbytes = (4 * (3 + 4 * k + 10 + 1) * w + 4 * cache.payload.numel()
+    nbytes = (4 * (3 + 4 * k + 10 + 1) * w + 4 * cache.cand_table.numel()
               + 4 * cache.far_coeffs.numel())
-    return bound(nbytes, w * (c * (8 + 4 * k + 65) + 20 * nc), 0)
+    return nbytes, w * (c * (8 + 4 * k) + (c - k) * 65 + 20 * nc)
 
 
 def far_sums_bound(w, n_pad, k):
@@ -383,26 +393,28 @@ def only(**want):
     return {k: want.get(k, 0) for k in chunk_kernel.LAUNCHES}
 
 
-def entry_label(name, fast, variants, decompose):
-    """The LAUNCHES key of a kernel entry (chunk kernels by mode)."""
-    if fast is None:
-        return name
-    return chunk_kernel.chunk_mode(name, SimpleNamespace(
-        fast_rng=fast == "1", variants=variants == "1"), decompose == "1")
+def entry_label(name, flags):
+    """The label of a kernel instantiation from its template flags:
+    chunk kernels (<K, fast generator, variants, decompose>) by mode, as
+    their LAUNCHES keys; the candidate-model kernel (<K, high>) with
+    "[order 8]" for its high-order twin; the others (<K>) by name."""
+    if len(flags) == 3:
+        return chunk_kernel.chunk_mode(name, SimpleNamespace(
+            fast_rng=flags[0] == "1", variants=flags[1] == "1"),
+            flags[2] == "1")
+    return name + ("[order 8]" if flags == ["1"] else "")
 
 
 def ptxas_resources(log):
     """{(label, K): (registers, spill line)} from the -Xptxas -v log:
     "Compiling entry function NAME", "Function properties for NAME", its
-    stack/spill line, then "Used N registers" for the entry.  Chunk
-    kernels are templated on <K, fast generator, variants, decompose>,
-    the others on <K>."""
+    stack/spill line, then "Used N registers" for the entry (labels:
+    ``entry_label``)."""
     out, entry, props, spill = {}, None, None, {}
-    pat = re.compile(
-        r"([a-z_]+_kernel)ILi(\d+)E(?:Lb([01])ELb([01])ELb([01])E)?")
+    pat = re.compile(r"([a-z_]+_kernel)ILi(\d+)E((?:Lb[01]E)*)")
     for ln in log.splitlines():
         m = pat.search(ln)
-        key = ((entry_label(m.group(1), m.group(3), m.group(4), m.group(5)),
+        key = ((entry_label(m.group(1), re.findall(r"Lb([01])E", m.group(3))),
                 int(m.group(2))) if m else None)
         if "Compiling entry function" in ln:
             entry = key
@@ -416,17 +428,24 @@ def ptxas_resources(log):
     return out
 
 
+def compile_seconds(log):
+    """{source: seconds} of each nvcc process of the build (the log's
+    "# N s" line under each command)."""
+    out, src = {}, None
+    for ln in log.splitlines():
+        if ln.startswith("$ ") and " -c " in ln:
+            src = os.path.basename(ln.split()[-1])
+        elif ln.startswith("# ") and ln.endswith(" s") and src:
+            out[src] = float(ln[2:-2])
+    return out
+
+
 def time_chunk(fn, n):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    """ms per call of kernel call ``fn`` on the device: ``n`` calls after
+    a warm-up, behind a sleep of the stream (``time_on_device``)."""
     fn()                                  # warm-up
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    return time_on_device(fn, n)
 
 
 def main():
@@ -448,12 +467,16 @@ def main():
         "chunk_split_kernel", SimpleNamespace(
             fast_rng="fast" in m, variants="variants" in m), "dec" in m)
         for m in chunk_kernel.CHUNK_MODES]
-    for name in [*chunk_kernel.LAUNCHES, *split_names]:
+    for name in [*chunk_kernel.LAUNCHES, *split_names,
+                 "cand_model_kernel[order 8]"]:
         ks = sorted(k for n, k in res if n == name)
         check(ks == list(range(1, 17)), f"{name}: built for K = {ks}")
         print(f"  {name} registers by K: "
               f"{' '.join(f'{k}:{res[name, k][0]}' for k in ks)}")
         print(f"  {name} K=5: {res[name, 5][1]}; K=10: {res[name, 10][1]}")
+    secs = compile_seconds(chunk_kernel.build_log())
+    print("  nvcc seconds by source: " + ", ".join(
+        f"{s} {t:.1f}" for s, t in sorted(secs.items(), key=lambda x: -x[1])))
     done(t0, f"built {chunk_kernel.library_path().name} ({len(res)} "
          f"entries) in {build_s:.2f} s with "
          f"{' '.join(chunk_kernel.NVCC_FLAGS)}")
@@ -468,8 +491,8 @@ def main():
         p, sc, dev, p.num_water)
     kernel_ms = time_chunk(
         lambda: chunk_kernel.run_chunk(planes, tbl, **args), 5)
-    plain_ms = time_chunk(
-        lambda: cuda_engine.chunk_reference(planes, tbl, **args), 1)
+    _, plain_ms = timed(
+        lambda: cuda_engine.chunk_reference(planes, tbl, **args))
     main_bound = chunk_bound(args["num_water"], args["phys"], tbl.shape[1])
     lay = chunk_kernel.LAYOUTS["chunk_kernel"]
     check(lay.split and lay.blocks >= 120 and lay.waves == 1,
@@ -547,9 +570,9 @@ def main():
     ctx, big = large_scene_phases(dev, label)
     layouts = layout_report(dev, p, tbl.shape[1], ctx["p"], res, label)
     big[0].update(layouts["chunk_near_kernel"])
-    for entry in big[1:]:            # the candidate-model and far-sums
-        regs, spill = res[entry["name"], ctx["p"].near_k]   # kernels, K 10
-        entry.update(registers=regs, spill_bytes=spill_bytes(spill))
+    big[1].update(layouts["cand_model_kernel"])
+    regs, spill = res["far_sums_kernel", ctx["p"].near_k]   # K 10
+    big[2].update(registers=regs, spill_bytes=spill_bytes(spill))
     modes = mode_phases(dev, label, p, sc, ctx)
     fast_launches = fast_headline(runner, cos, label)
     arm_launches = golden_arms(label)
@@ -637,9 +660,12 @@ def layout_report(dev, hp, n_pad, sp, res, label):
     table) and the near entry at the scale-up (``sp``): its layout
     (blocks, threads, generator warps, dynamic shared memory; the
     runtime's answer), resident blocks per SM (the occupancy API), waves,
-    and the registers and spills of the kernel it launches.  Returns
-    {LAUNCHES key: kernels-line fields}."""
-    t0 = phase("8 (b) layouts of every chunk-kernel mode")
+    and the registers and spills of the kernel it launches; then the
+    candidate-model kernel's at the scale-up width, and its local memory
+    (spills and stack, by the runtime).  Returns {LAUNCHES key:
+    kernels-line fields}."""
+    t0 = phase("8 (b) layouts of every chunk-kernel mode and of the "
+               "candidate model")
     out = {}
     for entry, q in (("chunk_kernel", hp), ("chunk_near_kernel", sp)):
         w_pad = cuda_engine.pad_count(q.num_water)
@@ -668,6 +694,29 @@ def layout_report(dev, hp, n_pad, sp, res, label):
             if key == "chunk_near_kernel":   # compiled for one wave
                 check(lay.blocks_per_sm >= 6 and lay.waves == 1,
                       f"{key}: scale-up layout {lay}")
+    # the candidate-model kernel at the scale-up width, as the runtime
+    # reports it; its last launch (phase 7, full width) took the same
+    w_pad = cuda_engine.pad_count(sp.num_water)
+    info = chunk_kernel.cand_model_info(sp.near_k, sp.far_table_order, dev)
+    lay = chunk_kernel.cand_model_layout(
+        w_pad, torch.cuda.get_device_properties(dev).multi_processor_count,
+        info)
+    regs, spill = res["cand_model_kernel", sp.near_k]
+    out["cand_model_kernel"] = {
+        "layout": lay._asdict(), "registers": regs,
+        "spill_bytes": spill_bytes(spill), "local_bytes": info.local_bytes}
+    print(f"  cand_model_kernel, {w_pad} walkers, K={sp.near_k}, order "
+          f"{sp.far_table_order}: {lay.blocks} x {lay.threads} threads; "
+          f"{lay.blocks_per_sm} resident per SM, {lay.waves} wave(s); "
+          f"{regs} registers ({info.regs} by the runtime), "
+          f"{spill_bytes(spill)} B spilled, {info.local_bytes} B local "
+          f"memory", flush=True)
+    check(chunk_kernel.LAYOUTS["cand_model_kernel"] == lay,
+          f"cand_model_kernel launched as {chunk_kernel.LAYOUTS}")
+    check(lay.blocks_per_sm >= 6 and lay.waves == 1 and regs <= 80
+          and spill_bytes(spill) == 0 and info.local_bytes == 0,
+          f"cand_model_kernel: scale-up layout {lay}, {regs} registers, "
+          f"{spill}, {info.local_bytes} B local memory")
     done(t0, f"[{label}]")
     return out
 
@@ -688,8 +737,8 @@ def mode_phases(dev, label, p, sc, ctx):
             pm, sc, dev, pm.num_water, rng_impl=rng_impl)
         ms = time_chunk(lambda: chunk_kernel.run_chunk(planes, tbl, **args),
                         5)
-        plain = time_chunk(
-            lambda: cuda_engine.chunk_reference(planes, tbl, **args), 1)
+        _, plain = timed(
+            lambda: cuda_engine.chunk_reference(planes, tbl, **args))
         key = chunk_kernel.chunk_mode("chunk_kernel", args["phys"])
         print(f"  {key}: one chunk (4032 walkers, K=5, 4000 steps) kernel "
               f"{ms:.3f} ms, plain version {plain:.1f} ms [{label}]",
@@ -835,6 +884,8 @@ def fast_scaleup(ctx, label):
           f"{stats['wall_s']:.3f} s, launches "
           f"{got['chunk_near_kernel[fast]']}, final sum cos/W "
           f"{cos[-1] / p.num_water:.6f} [{label}]", flush=True)
+    compare_cand_model(final_anchors(runner.state, p), p, runner.cache,
+                       expansion.coverage_reach2(p))
     out = {"chunk_near_kernel[fast]": got["chunk_near_kernel[fast]"]}
     pv = all_variants(p)
     for rng_impl in ("threefry", "hardware"):
@@ -1148,10 +1199,13 @@ def decompose_scaleup(ctx, label):
     n_win = p.t // p.pfreq
     check(curves.shape == (3, 3, n_win, 2)
           and bool(np.isfinite(curves).all()), f"plane {curves.shape}")
-    _, cos, _, st = cuda_engine.run_simulation(
+    _, cos, _, final = cuda_engine.run_simulation(
         scene, p, seed=7, device="cuda", rng_impl="hardware", cache=cache)
     check_reconstruction(curves[1, 2, :, 0], cos, p.num_water,
                          "plane s=1 vs direct run", early=n_win)
+    # the direct run moves the same walkers as the plane's run
+    compare_cand_model(final_anchors(final, p), p, cache,
+                       expansion.coverage_reach2(p))
     print(f"  {p.num_water} walkers, 2e5 steps, 9 grid points: "
           f"{split_line(res.stats)} [{label}]", flush=True)
     done(t0, f"launches {got} [{label}]")
@@ -1201,6 +1255,13 @@ def scale_err(got, ref):
                for g, r in zip(got, ref))
 
 
+def final_anchors(state, p):
+    """The wrapped anchors f32[3, W_pad] of a run's final ``state``: what
+    the large path's next chunk hands the candidate model."""
+    planes = cuda_engine.to_soa(state, p).planes
+    return cuda_engine._wrap(planes[:3], p.bound).contiguous()
+
+
 def compare_cand_model(pos, p, cache, reach2):
     """Kernel 2 and its plain version on the same anchors ``pos``;
     returns (near, taylor, max taylor error over its scale, slots
@@ -1208,7 +1269,7 @@ def compare_cand_model(pos, p, cache, reach2):
     k1 = expansion.build_planes(pos, p, cache, reach2=reach2)
     k2 = expansion.build_planes(pos, p, cache, reach2=reach2)
     ref, plain_ms = timed(lambda: expansion.cand_model_reference(
-        pos, cache.payload, cache.far_coeffs, near_k=p.near_k,
+        pos, cache.cand_table, cache.far_coeffs, near_k=p.near_k,
         order=p.far_table_order, h=p.cube_hash_dim, bound=float(p.bound),
         reach2=reach2))
     for a, b in zip(k1, k2):
@@ -1328,7 +1389,7 @@ def large_scene_phases(dev, label):
     torch.cuda.synchronize()
     far_s = time.perf_counter() - t1
     check(bool(torch.isfinite(coeffs).all()), "non-finite far table")
-    cache = expansion.SceneCache(cache.payload, coeffs)
+    cache = expansion.SceneCache(cache.payload, coeffs, cache.cand_table)
     print(f"  cube table {cube_s:.3f} s, far table "
           f"({p.cube_hash_dim ** 3} cubes x "
           f"{len(sc.mnps)} dipoles, order {p.far_table_order}) {far_s:.3f} s "
@@ -1403,10 +1464,14 @@ def large_scene_phases(dev, label):
     near_ms = time_chunk(lambda: chunk_kernel.run_chunk_near(
         full, fnear, ftaylor, **fargs), 3)
     near_bound = chunk_bound(fargs["num_water"], fargs["phys"])
-    cand_bound = cand_model_bound(p.num_water, p, runner.cache)
+    cand_work = cand_model_work(p.num_water, p, runner.cache)
+    cand_bound = bound(*cand_work, 0)
+    cand_issue = issue_bound_ms(*cand_work, 0)
     done(t0, f"per chunk at {fpos.shape[1]} walkers: candidate-model "
-         f"{cand_ms:.4f} ms (plain {cand_plain_ms:.2f} ms), near/taylor "
-         f"chunk {near_ms:.3f} ms (plain {near_plain_ms:.1f} ms) [{label}]")
+         f"{cand_ms:.4f} ms (plain {cand_plain_ms:.2f} ms; bound "
+         f"{cand_bound[0]:.4f} ms, {cand_bound[1]}; {cand_issue:.4f} ms "
+         f"with an issue slot per float operation), near/taylor chunk "
+         f"{near_ms:.3f} ms (plain {near_plain_ms:.1f} ms) [{label}]")
 
     t0 = phase("8 scale-up, far_table_order=0 (far-sums kernel)")
     p0 = p.replace(far_table_order=0)
@@ -1474,6 +1539,7 @@ def large_scene_phases(dev, label):
         "plain_ms": cand_plain_ms,
         "bound_ms": cand_bound[0],
         "bound_by": cand_bound[1],
+        "issue_bound_ms": cand_issue,
         "library_ms": None,
     }, {
         "name": "far_sums_kernel",

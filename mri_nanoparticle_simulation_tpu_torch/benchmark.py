@@ -25,17 +25,23 @@ Two further modes print one JSON line each:
 * ``--profile``: the scale-up path's device time per kernel over 20
   chunks (torch.profiler), and its device idle share (one minus the
   traced device time over the wall time of the same chunks untraced);
-* ``--rebuild-ms [DIR]``: the chunk kernel's ms per chunk in every mode of
-  both entries: the rebuild entry at the headline shape (4032 walkers, K 5)
-  and the near entry at the scale-up width (100096 walkers, K 10), 4000
-  steps, 7 rounds of 10 launches between CUDA events, with the layout each
-  launch took; then the rebuild entry on the headline's scene at the
-  widths of ``REBUILD_WIDTHS`` (both sides of the split layout's
-  threshold, up to a 100k-walker small scene) in both its layouts.  With
-  DIR, the port's package of the checkout at DIR (e.g. the parent commit,
-  unpacked with ``git archive``) is loaded beside this one and timed in
-  turns on the same inputs: DIR, this, this, DIR (DIR, flat, split,
-  split, flat, DIR at the widths).
+* ``--rebuild-ms [DIR]``: the ms per launch of the candidate-model
+  kernel (``build_planes``: K 10, C 32, far-table order 5; the walkers
+  in the scene's order and shuffled) and of the far-sums kernel (5256
+  dipoles, K 10) at the scale-up width (100096 walkers, the initial
+  walkers' anchors), 7 rounds of 20 launches; then
+  the chunk kernel's ms per chunk in every mode of both entries: the
+  rebuild entry at the headline shape (4032 walkers, K 5) and the near
+  entry at the scale-up width (100096 walkers, K 10), 4000 steps, 7 rounds
+  of 10 launches, with the layout each launch took; then the rebuild
+  entry on the headline's scene at the widths of ``REBUILD_WIDTHS`` (both
+  sides of the split layout's threshold, up to a 100k-walker small scene)
+  in both its layouts.  Each round runs between two CUDA events behind a
+  sleep of the stream, so it times the device and not the host's calls.
+  With DIR, the port's package of the checkout at DIR (e.g. the parent
+  commit, unpacked with ``git archive``) is loaded beside this one and
+  timed in turns on the same inputs: DIR, this, this, DIR (DIR, flat,
+  split, split, flat, DIR at the widths).
 
     python -m mri_nanoparticle_simulation_tpu_torch.benchmark [--profile |
         --rebuild-ms [DIR]]
@@ -51,6 +57,7 @@ import statistics
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -81,6 +88,11 @@ GRADIENT = (0.0, 0.0, 3e-5)
 N_SCALEUP_SPRINTS = 10
 #: scale-up sprints (5 chunks each) traced by --profile
 N_PROFILE_SPRINTS = 4
+#: GPU cycles the stream sleeps before a timed round (``time_on_device``;
+#: ~5 ms at 1.98 GHz): the host queues the round's launches meanwhile,
+#: so the events time the device alone (a candidate-model launch is
+#: shorter on the card than its call on the host)
+SLEEP_CYCLES = 10_000_000
 #: walkers at which --rebuild-ms times the rebuild entry in both layouts:
 #: on a 132-SM card just above the split layout's all-resident width
 #: (8448 walkers at 2 blocks per SM), then multiples of it, up to a
@@ -256,25 +268,74 @@ def _chunk_cases(dev) -> dict:
     return cases
 
 
+def _model_cases(dev):
+    """(walkers, calls): the large-scene model kernels' calls
+    ``--rebuild-ms`` times, as functions of a tree (its ``ck``:
+    ``engine.chunk_kernel``, ``exp``: ``fields.expansion``), by
+    ``LAUNCHES`` key, on inputs built once by this tree at the scale-up
+    width (100096 walkers, the initial walkers' wrapped anchors): the
+    candidate model through ``build_planes`` (the scene cache as the
+    tree's ``SceneCache`` of the same tables), once with the anchors in
+    the scene's order (Morton order, so a warp's walkers share cubes) and
+    once in a random order from a seed (``[shuffled]``: as after a long
+    run, when the walkers have mixed, each warp reading 32 cubes' rows);
+    the far sums over the 5256-entry table without each walker's K
+    cube-selected ids."""
+    sp = Params(**SCALEUP).validate()
+    sc = BacteriaBox(sp, seed=42).populate()
+    tbl = mnp_table(sc.mnps, torch.float32, dev)
+    cache = expansion.build_cache(tbl.pos, tbl.m, sp)
+    planes = cuda_engine.to_soa(init_state(sc.waters, sp, dev), sp).planes
+    pos = cuda_engine._wrap(planes[:3], sp.bound).contiguous()
+    mixed = pos[:, torch.randperm(pos.shape[1], generator=torch.Generator()
+                                  .manual_seed(7)).to(dev)].contiguous()
+    reach2 = expansion.coverage_reach2(sp)
+    rows, _ = expansion.cube_select(pos.T, cache.payload, sp)
+    idx = rows[..., 4].to(torch.int32).T.contiguous()
+
+    def cand(anchors):
+        def call(tree):
+            tc = tree.exp.SceneCache(*(getattr(cache, f)
+                                       for f in tree.exp.SceneCache._fields))
+            return tree.exp.build_planes(anchors, sp, tc, reach2)
+        return call
+    return pos.shape[1], {
+        "cand_model_kernel": cand(pos),
+        "cand_model_kernel[shuffled]": cand(mixed),
+        "far_sums_kernel": lambda tree: tree.ck.run_far_sums(pos, tbl.tbl,
+                                                             idx)}
+
+
+def time_on_device(fn, n: int) -> float:
+    """ms per call of ``fn`` on the device: ``n`` calls between two CUDA
+    events behind a sleep of the stream, so that the host has queued them
+    all before the first starts and the events time the card alone.
+    Whether it had is read from the start event once they are queued: if
+    the sleep had already ended, the round is timed again behind a sleep
+    8 times as long, and if that ends too soon as well, it raises."""
+    for cycles in (SLEEP_CYCLES, 8 * SLEEP_CYCLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n
+    raise RuntimeError(f"the host took longer to queue {n} calls than the "
+                       f"stream slept ({8 * SLEEP_CYCLES} cycles)")
+
+
 def _chunk_timer(ck, call, rounds: int, launches: int):
     """A function timing ``rounds`` x ``launches`` calls of ``call(ck)``
-    between CUDA events; returns ms per launch for each round."""
+    (``time_on_device``); returns ms per launch for each round."""
     call(ck)                                     # build, load, warm up
     torch.cuda.synchronize()
-
-    def run():
-        out = []
-        for _ in range(rounds):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(launches):
-                call(ck)
-            end.record()
-            torch.cuda.synchronize()
-            out.append(start.elapsed_time(end) / launches)
-        return out
-    return run
+    return lambda: [time_on_device(lambda: call(ck), launches)
+                    for _ in range(rounds)]
 
 
 def _width_cases(dev) -> list:
@@ -324,17 +385,36 @@ def _turns(timers: dict, names: list) -> list:
 
 def rebuild_ms(other: str | None = None, rounds: int = 7,
                launches: int = 10) -> dict:
-    """Chunk-kernel ms per chunk of this tree, or of ``other`` and this
-    tree in turns (other, this, this, other) in one process: every mode
-    of the rebuild entry at the headline shape and of the near entry at
-    the scale-up width, with this tree's layout of each; then the
-    rebuild entry at ``REBUILD_WIDTHS`` in both its layouts, in turns:
-    other, flat, split, split, flat, other."""
+    """Kernel ms per launch of this tree, or of ``other`` and this tree
+    in turns (other, this, this, other) in one process: the candidate
+    model and the far sums at the scale-up width (``_model_cases``, 20
+    launches a round); every mode of the chunk kernel's rebuild entry at
+    the headline shape and of its near entry at the scale-up width, with
+    this tree's layout of each; then the rebuild entry at
+    ``REBUILD_WIDTHS`` in both its layouts, in turns: other, flat,
+    split, split, flat, other."""
     dev = require_cuda()
     that = None
+    here = SimpleNamespace(ck=chunk_kernel, exp=expansion)
     if other is not None:
-        that = importlib.import_module(
-            _load_tree(other, "_other_tree") + ".engine.chunk_kernel")
+        alias = _load_tree(other, "_other_tree")
+        that = importlib.import_module(alias + ".engine.chunk_kernel")
+        there = SimpleNamespace(
+            ck=that, exp=importlib.import_module(alias + ".fields.expansion"))
+    models = []
+    walkers, calls = _model_cases(dev)
+    for name, call in calls.items():
+        timers = {"this": _chunk_timer(here, call, rounds, 2 * launches)}
+        names = ["this"]
+        if that is not None:
+            timers[other] = _chunk_timer(there, call, rounds, 2 * launches)
+            names.insert(0, other)
+        runs = _turns(timers, names)
+        call(here)
+        lay = chunk_kernel.LAYOUTS.get(name.split("[")[0])
+        models.append({"kernel": name, "walkers": walkers,
+                       "layout": lay._asdict() if lay else None,
+                       "runs": runs})
     out = []
     for mode, call in _chunk_cases(dev).items():
         timers = {"this": _chunk_timer(chunk_kernel, call, rounds, launches)}
@@ -361,13 +441,17 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
         widths.append({"kernel": mode, "walkers": n,
                        "layout": chunk_kernel.LAYOUTS[mode]._asdict(),
                        "runs": runs})
-    return {"config": "rebuild entry: 4032 walkers x 716 dipoles, K 5; "
+    return {"config": "models: 100096 walkers, K 10, C 32, far-table "
+                      "order 5, 5256 dipoles, "
+                      f"{rounds} rounds x {2 * launches} launches; "
+                      "rebuild entry: 4032 walkers x 716 dipoles, K 5; "
                       "near entry: 100096 walkers (100000 real), K 10; "
                       "4000 steps; every variant on in the variant modes; "
                       f"{rounds} rounds x {launches} launches; widths: the "
                       "rebuild entry on the headline's scene at "
                       f"{REBUILD_WIDTHS} walkers",
-            "label": card_label(), "cases": out, "widths": widths}
+            "label": card_label(), "models": models, "cases": out,
+            "widths": widths}
 
 
 def _headline_run(rng_impl: str) -> dict:
@@ -429,9 +513,9 @@ def main(argv=None):
                       help="device time per kernel of the scale-up path")
     mode.add_argument("--rebuild-ms", nargs="?", const="", default=None,
                       metavar="DIR",
-                      help="chunk-kernel ms per chunk (every mode of both "
-                           "entries); with DIR, also that checkout's, in "
-                           "turns")
+                      help="kernel ms per launch (the candidate model and "
+                           "far sums, every mode of both chunk entries); "
+                           "with DIR, also that checkout's, in turns")
     args = ap.parse_args(argv)
     if args.profile:
         out = scaleup_profile()

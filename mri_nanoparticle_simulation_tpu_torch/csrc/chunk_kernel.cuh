@@ -447,32 +447,6 @@ chunk_near_kernel(const float* __restrict__ state_in,
       state_in, state_out, esc, cov, wins, near, taylor, w_pad, a);
 }
 
-// Registers, resident blocks per SM, dynamic shared-memory bytes and
-// threads per block of kernel `fn` launched with `threads` threads and
-// `smem` dynamic bytes, into out[0..3]; returns a cudaError_t.
-// A dynamic size above 48 KB is allowed for `fn` first; a size the card
-// refuses is the error returned.
-inline int kernel_info(const void* fn, int threads, int smem, int* out) {
-  cudaError_t err = cudaSuccess;
-  if (smem > 0) {
-    err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
-                                                      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = blocks;
-  out[2] = smem;
-  out[3] = threads;
-  return 0;
-}
-
 // The rebuild entry's kernel for `near_k`, the variants flag and the
 // layout, with its launch shape: (function, threads per block, walkers
 // per block, dynamic shared-memory bytes).  Returns false for a K the
@@ -622,9 +596,10 @@ int info_chunk_near(int near_k, int variants, int layout, int n_pad,
 // model1 = taylor in near/taylor mode, and the layout kLayoutFlat (0) or
 // kLayoutSplit (1, rebuild entry only).  In decompose mode state_in and
 // state_out are f32[8, w_pad] and wins is f32[n_win, 2, w_pad].
-//   name_info(near_k, variants, layout, n_pad, out[4])
+//   name_info(near_k, variants, layout, n_pad, out[5])
 // fills out with the registers, resident blocks per SM, dynamic
-// shared-memory bytes and threads per block of that launch.
+// shared-memory bytes, threads per block and local-memory bytes per
+// thread of that launch (field_math.cuh:kernel_info).
 #define CHUNK_ENTRY(name, launcher, info, fast, dec, ...)                   \
   extern "C" int name##_launch(int device, void* stream,                    \
                                const float* state_in, float* state_out,     \

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..fields.expansion import SceneCache, pack_table
+from ..fields.expansion import SceneCache, pack_candidates, pack_table
 from ..params import Params
 from .cuda_engine import MnpTable
 from .reference_engine import WalkerState
@@ -101,11 +101,13 @@ def mnp_table(mnps: np.ndarray, dtype, device) -> MnpTable:
 def scene_cache_from_numpy(payload, far_coeffs, device) -> SceneCache:
     """The port's ``SceneCache`` from the reference's (``payload``
     [H^3, C, 5] and ``far_coeffs`` [H^3, n_coeffs] or None, as NumPy
-    arrays, e.g. ``np.asarray`` of a JAX ``build_cache`` result)."""
+    arrays, e.g. ``np.asarray`` of a JAX ``build_cache`` result), with
+    the candidates also in the kernel's layout (``pack_candidates``)."""
     def t(a):
         return torch.tensor(np.asarray(a), device=device)
-    return SceneCache(t(payload),
-                      None if far_coeffs is None else t(far_coeffs))
+    pay = t(payload)
+    return SceneCache(pay, None if far_coeffs is None else t(far_coeffs),
+                      pack_candidates(pay))
 
 
 def key_words(seed: int):

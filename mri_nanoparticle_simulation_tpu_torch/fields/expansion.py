@@ -3,14 +3,17 @@ large-scene cube cache and the candidate-model rebuild.
 
 Counterpart of the reference's ``fields/expansion.py``:
 
-* ``sorted_insert`` / ``excluded_weight``: the K-nearest selection and
-  far-pass exclusion, on stacked ``[K, ...]`` slot tensors.  The CUDA
-  kernels unroll the same branchless insertion over register slots.
+* ``sorted_insert`` / ``sorted_insert_ids`` / ``fetch_slots`` /
+  ``excluded_weight``: the K-nearest selection (with the payload, or by
+  slot id and fetched after) and far-pass exclusion, on stacked
+  ``[K, ...]`` slot tensors.  The CUDA kernels unroll the same
+  branchless insertion over register slots.
 * ``far_sums_reference``: the far value, gradient and Hessian at each
   anchor over the whole dipole table without the K near ids, the plain
   version of ``csrc/far_sums_kernel.cu`` (``chunk_kernel.run_far_sums``).
-* ``SceneCache`` / ``build_cache``: per spatial cube, its C nearest
-  dipoles and the cube's far-field Taylor table (``fields.fartable``).
+* ``SceneCache`` / ``build_cache`` / ``pack_candidates``: per spatial
+  cube, its C nearest dipoles (also in the candidate-model kernel's
+  layout) and the cube's far-field Taylor table (``fields.fartable``).
 * ``build``: the per-walker model (``NearField``) by cube-pruned or
   whole-table selection and the far sums; ``coverage_reach2``, the
   large path's coverage reach.
@@ -44,11 +47,14 @@ from .dipole import FIELD_SCALE, bz_taylor_parts
 
 class SceneCache(NamedTuple):
     """Scene-constant tables of the large path: ``payload`` f32[H^3, C,
-    5] per cube (x, y, z, M, global index) and ``far_coeffs`` f32[H^3,
+    5] per cube (x, y, z, M, global index); ``far_coeffs`` f32[H^3,
     n_coeffs] (the cube's Taylor table of the beyond-candidates field),
-    or None without a table (``far_table_order == 0``)."""
+    or None without a table (``far_table_order == 0``); ``cand_table``
+    f32[H^3, C, 4] the candidates in the candidate-model kernel's layout
+    (``pack_candidates``), which ``build_planes`` needs."""
     payload: torch.Tensor
     far_coeffs: torch.Tensor | None
+    cand_table: torch.Tensor | None = None
 
 
 class NearField(NamedTuple):
@@ -65,6 +71,23 @@ class NearField(NamedTuple):
     n_reach: torch.Tensor | None = None
 
 
+def _inserter(d2s, d2):
+    """The slot update of one sorted-insertion step: ``put(new, old,
+    k_dim)`` gives slots ``old`` (K along ``k_dim``) with ``new`` where
+    the candidate of distance ``d2`` goes and the displaced slots shifted
+    down by one."""
+    lt = d2 < d2s
+    take_prev = torch.cat([torch.zeros_like(lt[:1]), lt[:-1]])
+    take_new = lt & ~take_prev
+
+    def put(new, old, k_dim=0):
+        prev = torch.cat([old.narrow(k_dim, 0, 1),
+                          old.narrow(k_dim, 0, old.shape[k_dim] - 1)],
+                         k_dim)
+        return torch.where(take_prev, prev, torch.where(take_new, new, old))
+    return put
+
+
 def sorted_insert(d2s, fields, ids, d2, new_fields, j):
     """One branchless sorted-insertion step into K ascending slots.
 
@@ -75,19 +98,30 @@ def sorted_insert(d2s, fields, ids, d2, new_fields, j):
     slot s-1; the slots it displaces shift down by one.  Ties keep the
     earlier candidate first, as in the reference.  Returns the updated
     (d2s, fields, ids)."""
-    lt = d2 < d2s
-    take_prev = torch.cat([torch.zeros_like(lt[:1]), lt[:-1]])
-    take_new = lt & ~take_prev
-
-    def put(new, old, k_dim):
-        prev = torch.cat([old.narrow(k_dim, 0, 1),
-                          old.narrow(k_dim, 0, old.shape[k_dim] - 1)],
-                         k_dim)
-        return torch.where(take_prev, prev, torch.where(take_new, new, old))
-
+    put = _inserter(d2s, d2)
     ids_new = torch.as_tensor(j, dtype=ids.dtype, device=ids.device)
-    return (put(d2, d2s, 0), put(new_fields.unsqueeze(1), fields, 1),
-            put(ids_new, ids, 0))
+    return (put(d2, d2s), put(new_fields.unsqueeze(1), fields, 1),
+            put(ids_new, ids))
+
+
+def sorted_insert_ids(d2s, ids, d2, j):
+    """``sorted_insert`` of the distances and ids alone (the kernels'
+    field_math.cuh:sorted_insert_ids): the same slots, the same ties; the
+    payload is fetched by id afterwards (``fetch_slots``).  Returns the
+    updated (d2s, ids)."""
+    put = _inserter(d2s, d2)
+    return put(d2, d2s), put(torch.as_tensor(j, dtype=ids.dtype,
+                                             device=ids.device), ids)
+
+
+def fetch_slots(rows, ids):
+    """The payload of the K selected ids: ``rows`` ``[F, C, ...]`` the
+    candidates' fields, ``ids`` ``[K, ...]`` their slots (-1: none, zeros
+    fetched).  Returns ``[F, K, ...]``."""
+    at = ids.clamp(min=0).unsqueeze(0).expand(rows.shape[0], *ids.shape)
+    got = torch.gather(rows, 1, at)
+    return torch.where(ids >= 0, got, torch.zeros((), dtype=rows.dtype,
+                                                  device=rows.device))
 
 
 def merge_sorted(d2s, ids):
@@ -113,6 +147,16 @@ def excluded_weight(ids, j, dtype):
     (``[K, ...]``), else 0.0.  ``j`` may be a tensor of ids that
     broadcasts against ``ids[0]``, giving one weight per (j, walker)."""
     return (ids != j).all(0).to(dtype)
+
+
+def pack_candidates(payload: torch.Tensor) -> torch.Tensor:
+    """The candidate-model kernel's table f32[H^3, C, 4] of ``payload``
+    [H^3, C, 5]: (x, y, z, M * FIELD_SCALE), the scaling an f32 product,
+    one 16-byte row per candidate."""
+    scale = torch.tensor(FIELD_SCALE, dtype=payload.dtype,
+                         device=payload.device)
+    return torch.cat([payload[..., :3], payload[..., 3:4] * scale],
+                     -1).contiguous()
 
 
 def pack_table(mnp_pos: torch.Tensor, mnp_M: torch.Tensor) -> torch.Tensor:
@@ -188,7 +232,8 @@ def build_cache(mnp_pos, mnp_M, params: Params,
     """The scene cache: for each of the H^3 cubes its C nearest dipoles
     (by the bf16 argmin passes over one [H^3, N] distance matrix to the
     cube centres), and, when ``params.far_table_order > 0`` and
-    ``far_table``, the cube's far table (``fartable.build_far_table``).
+    ``far_table``, the cube's far table (``fartable.build_far_table``);
+    the candidates also in the kernel's layout (``pack_candidates``).
     ``mnp_pos`` [N, 3] and ``mnp_M`` [N] include the periodic images."""
     h = params.cube_hash_dim
     c = min(params.cube_candidates, mnp_pos.shape[0])
@@ -202,7 +247,8 @@ def build_cache(mnp_pos, mnp_M, params: Params,
         coeffs = fartable.build_far_table(mnp_pos, mnp_M, table, h,
                                           float(params.bound),
                                           params.far_table_order)
-    return SceneCache(payload=payload, far_coeffs=coeffs)
+    return SceneCache(payload=payload, far_coeffs=coeffs,
+                      cand_table=pack_candidates(payload))
 
 
 def _cube_index(pos, h: int, bound: float):
@@ -288,30 +334,31 @@ def build(anchor, mnp_pos, mnp_M, params: Params, cache=None, reach2=None,
                      n_reach)
 
 
-def cand_model_reference(pos, payload, coeffs, *, near_k, order, h, bound,
+def cand_model_reference(pos, cand, coeffs, *, near_k, order, h, bound,
                          reach2):
     """Plain version of ``csrc/cand_model_kernel.cu`` (the reference's
     ``_make_cand_model_kernel`` with the gathers of ``build_planes``).
 
-    ``pos`` [3, W] wrapped anchors; ``payload`` [H^3, C, 5]; ``coeffs``
-    [H^3, n_coeffs]; ``reach2`` a float.  Per walker over its cube's C
-    candidates, in candidate order: exact K-nearest by sorted insertion
-    with slot ids and the count within ``reach2``; the mid sums of the
-    candidates not selected, excluded by slot id; then the cube's far
-    table at ``e = p - (ci + 0.5) * cube``.  Returns (near [4, K, W] with
+    ``pos`` [3, W] wrapped anchors; ``cand`` [H^3, C, 4] (x, y, z,
+    M * FIELD_SCALE; ``pack_candidates``); ``coeffs`` [H^3, n_coeffs];
+    ``reach2`` a float.  Per walker over its cube's C candidates, in
+    candidate order: exact K-nearest by sorted insertion of distances and
+    slot ids, and the count within ``reach2``; the selected slots' rows;
+    the mid sums of the candidates not selected, excluded by slot id;
+    then the cube's far table at ``e = p - (ci + 0.5) * cube``, its terms
+    grouped as the kernel groups them
+    (``fartable.eval_far_table_grouped``).  Returns (near [4, K, W] with
     M * FIELD_SCALE, taylor [10, W], n_reach [W] as floats)."""
     dev, dt = pos.device, pos.dtype
     w = pos.shape[1]
-    c = payload.shape[1]
+    c = cand.shape[1]
     ci, cube = _cube_index(pos, h, bound)
     flat = (ci[0] * h + ci[1]) * h + ci[2]
-    pc = payload[flat].permute(2, 1, 0)                     # [5, C, W]
-    cx, cy, cz = pc[0], pc[1], pc[2]
-    cm = pc[3] * torch.tensor(FIELD_SCALE, dtype=dt, device=dev)
+    pc = cand[flat].permute(2, 1, 0)                        # [4, C, W]
+    cx, cy, cz, cm = pc
     ax, ay, az = pos[0], pos[1], pos[2]
 
     d2s = torch.full((near_k, w), 1e30, dtype=dt, device=dev)
-    slots = torch.zeros((4, near_k, w), dtype=dt, device=dev)
     ids = torch.full((near_k, w), -1, dtype=torch.int64, device=dev)
     cnt = torch.zeros(w, dtype=dt, device=dev)
     for j in range(c):
@@ -320,9 +367,7 @@ def cand_model_reference(pos, payload, coeffs, *, near_k, order, h, bound,
         dz = az - cz[j]
         d2 = dx * dx + dy * dy + dz * dz
         cnt = cnt + (d2 < reach2).to(dt)
-        d2s, slots, ids = sorted_insert(
-            d2s, slots, ids, d2, torch.stack([cx[j], cy[j], cz[j], cm[j]]),
-            j)
+        d2s, ids = sorted_insert_ids(d2s, ids, d2, j)
 
     parts = torch.stack(bz_taylor_parts(ax - cx, ay - cy, az - cz, cm))
     parts = parts * excluded_weight(
@@ -333,23 +378,29 @@ def cand_model_reference(pos, payload, coeffs, *, near_k, order, h, bound,
 
     e = pos - (ci.to(dt) + 0.5) * cube
     co = coeffs[flat].T                                     # [nc, W]
-    taylor = fartable.eval_far_table_parts(lambda t: co[t], e[0], e[1], e[2],
-                                           order, accs=tuple(accs))
-    return slots, torch.stack(taylor), cnt
+    taylor = fartable.eval_far_table_grouped(
+        lambda t: co[t], e[0], e[1], e[2], order, accs=tuple(accs))
+    return fetch_slots(pc, ids), torch.stack(taylor), cnt
 
 
 def build_planes(pos, params: Params, cache: SceneCache, reach2=None):
     """The large-scene chunk rebuild into the chunk kernel's inputs
     (the reference's ``build_planes``): ``pos`` f32[3, W] wrapped
-    anchors, ``cache`` built with a far table.  Returns (near [4, K, W]
-    with M * FIELD_SCALE, taylor [10, W], n_reach [W], all zero when
-    ``reach2`` is None) from the CUDA kernel for CUDA tensors and from
-    ``cand_model_reference`` for CPU tensors."""
+    anchors, ``cache`` built with a far table and the candidate table
+    (``build_cache`` and ``convert.scene_cache_from_numpy`` make both).
+    Returns (near [4, K, W] with M * FIELD_SCALE, taylor [10, W], n_reach
+    [W], all zero when ``reach2`` is None) from the CUDA kernel for CUDA
+    tensors and from ``cand_model_reference`` for CPU tensors."""
     k = params.near_k
     if cache.far_coeffs is None:
         raise ValueError(
             "build_planes requires a cache built with the far table "
             "(params.far_table_order > 0 and build_cache(far_table=True))")
+    if cache.cand_table is None:
+        raise ValueError(
+            "build_planes requires the cache's candidate table "
+            "(SceneCache.cand_table: pack_candidates of the payload, which "
+            "build_cache makes)")
     c = cache.payload.shape[1]
     if k > c:
         raise ValueError(
@@ -362,7 +413,7 @@ def build_planes(pos, params: Params, cache: SceneCache, reach2=None):
             f"params.far_table_order={order} ({cache.far_coeffs.shape[-1]} "
             f"!= {fartable.n_coeffs(order)} coefficients)")
     return chunk_kernel.run_cand_model(
-        pos, cache.payload, cache.far_coeffs, near_k=k, order=order,
+        pos, cache.cand_table, cache.far_coeffs, near_k=k, order=order,
         h=params.cube_hash_dim, bound=float(params.bound),
         reach2=0.0 if reach2 is None else float(reach2))
 

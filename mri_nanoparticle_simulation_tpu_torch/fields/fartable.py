@@ -160,43 +160,51 @@ def build_far_table(mnp_pos, mnp_M, cand_idx, h: int, bound: float,
     return torch.cat(out)
 
 
-def eval_far_table_parts(get_coeff, ex, ey, ez, order: int, accs=None):
-    """Value, gradient and Hessian of the tabulated series at offsets
-    (ex, ey, ez), added onto ``accs`` (10 tensors, zeros when None).
-    ``get_coeff(t)`` returns coefficient ``t`` broadcastable against the
-    offsets.  Every term is formed left to right as in the reference, as
-    the candidate-model kernel forms it (field_math.cuh:add_far_table)."""
-    def pows(x):
-        ps = [torch.ones_like(x)]
-        for _ in range(order):
-            ps.append(ps[-1] * x)
-        return ps
+def _pows(x, order: int):
+    """[1, x, x^2, ..., x^order], each power the previous one times x."""
+    ps = [torch.ones_like(x)]
+    for _ in range(order):
+        ps.append(ps[-1] * x)
+    return ps
 
-    px, py, pz = pows(ex), pows(ey), pows(ez)
+
+#: the orders (along x, y, z) of the derivative that each of the 10 sums
+#: takes: value, gradient x y z, Hessian xx yy zz xy xz yz
+DERIVS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (2, 0, 0), (0, 2, 0),
+          (0, 0, 2), (1, 1, 0), (1, 0, 1), (0, 1, 1))
+
+
+def _falling(n: int, d: int) -> int:
+    """n (n - 1) ... (n - d + 1), for d = 0, 1, 2."""
+    return 1 if d == 0 else n if d == 1 else n * (n - 1)
+
+
+def eval_far_table_grouped(get_coeff, ex, ey, ez, order: int, accs=None):
+    """Value, gradient and Hessian of the tabulated series at offsets
+    (ex, ey, ez), added onto ``accs`` (10 tensors, zeros when None), as
+    the candidate-model kernel evaluates them
+    (field_math.cuh:add_far_table).  ``get_coeff(t)`` returns coefficient
+    ``t`` broadcastable against the offsets.  Monomial by monomial, each
+    of the 10 sums takes its term (c * f) * (x^a * (y^b * z^c)), with f
+    the derivative's integer factor and (a, b, c) the monomial left after
+    it; a monomial is the same product in every term that reaches it, so
+    it is formed once.  The reference forms c f x^a y^b z^c left to right
+    per term: the two differ by f32 rounding only."""
+    px, py, pz = (_pows(x, order) for x in (ex, ey, ez))
+    mono = {}
+
+    def monomial(a, b, c):
+        if (a, b, c) not in mono:
+            mono[a, b, c] = px[a] * (py[b] * pz[c])
+        return mono[a, b, c]
+
     if accs is None:
-        z = torch.zeros_like(ex)
-        accs = (z,) * 10
-    b0, gx, gy, gz, hxx, hyy, hzz, hxy, hxz, hyz = accs
+        accs = (torch.zeros_like(ex),) * 10
+    out = list(accs)
     for t, (i, j, k) in enumerate(monomials(order)):
         c = get_coeff(t)
-        b0 = b0 + c * px[i] * py[j] * pz[k]
-        if i:
-            gx = gx + c * i * px[i - 1] * py[j] * pz[k]
-        if j:
-            gy = gy + c * j * px[i] * py[j - 1] * pz[k]
-        if k:
-            gz = gz + c * k * px[i] * py[j] * pz[k - 1]
-        if i > 1:
-            hxx = hxx + c * (i * (i - 1)) * px[i - 2] * py[j] * pz[k]
-        if j > 1:
-            hyy = hyy + c * (j * (j - 1)) * px[i] * py[j - 2] * pz[k]
-        if k > 1:
-            hzz = hzz + c * (k * (k - 1)) * px[i] * py[j] * pz[k - 2]
-        if i and j:
-            hxy = hxy + c * (i * j) * px[i - 1] * py[j - 1] * pz[k]
-        if i and k:
-            hxz = hxz + c * (i * k) * px[i - 1] * py[j] * pz[k - 1]
-        if j and k:
-            hyz = hyz + c * (j * k) * px[i] * py[j - 1] * pz[k - 1]
-    return (b0, gx, gy, gz, hxx, hyy, hzz, hxy, hxz, hyz)
-
+        for q, (di, dj, dk) in enumerate(DERIVS):
+            if i >= di and j >= dj and k >= dk:
+                f = _falling(i, di) * _falling(j, dj) * _falling(k, dk)
+                out[q] = out[q] + c * f * monomial(i - di, j - dj, k - dk)
+    return tuple(out)

@@ -1,14 +1,14 @@
 """The bounds chip_smoke.py prints beside each kernel's time (no card
 needed: the script imports without one).
 
-The kernels are built with --fmad=false, so every float add and multiply
-is its own instruction on one of the FP32 pipe's 128 lanes per SM: the
-float rate is 128 x 132 SMs x 1.98 GHz, half the published 67 TFLOP/s,
-which counts a fused multiply-add as two operations.  Float and integer
-operations share the schedulers' issue slots (the same 128 a cycle per
-SM), and integer ones have 64 lanes per SM besides.  The four chunk
-bounds are pinned at the headline (4032 walkers, 720-entry table, K 5)
-and the scale-up (100000 walkers, K 10) shapes within 1%.
+Float operations count at the published float32 peak, 67 TFLOP/s (128
+FP32 lanes per SM at 132 SMs x 1.98 GHz, a fused multiply-add two
+operations in one issue slot); integer ones share the schedulers' issue
+slots (128 a cycle per SM) and have 64 INT32 lanes per SM besides.  The
+kernels, built with --fmad=false, issue a slot per float operation:
+``issue_bound_ms`` is that figure.  The four chunk bounds are pinned at
+the headline (4032 walkers, 720-entry table, K 5) and the scale-up
+(100000 walkers, K 10) shapes within 1%.
 """
 
 import os
@@ -29,10 +29,10 @@ SCALE = Params(**SCALEUP).validate()
 
 #: (entry, generator) -> (bound ms, bound_by)
 CHUNK_BOUNDS = {
-    ("rebuild", "threefry"): (0.1957, "integer"),
-    ("rebuild", "hardware"): (0.121, "issue"),
-    ("near", "threefry"): (5.75, "issue"),
-    ("near", "hardware"): (3.93, "issue"),
+    ("rebuild", "threefry"): (0.1957, "operations"),
+    ("rebuild", "hardware"): (0.0733, "operations"),
+    ("near", "threefry"): (4.854, "operations"),
+    ("near", "hardware"): (2.279, "operations"),
 }
 
 
@@ -51,35 +51,46 @@ def test_chunk_bound_is_pinned(entry, rng_impl):
 
 
 def test_peak_rates():
+    assert cs.PEAK_FP32 == pytest.approx(6.69e13, rel=1e-3)
     assert cs.PEAK_ISSUE == pytest.approx(3.345e13, rel=1e-3)
     assert cs.PEAK_INT32 == pytest.approx(1.6727e13, rel=1e-4)
-    assert cs.PEAK_ISSUE == 2 * cs.PEAK_INT32
+    assert cs.PEAK_FP32 == 2 * cs.PEAK_ISSUE == 4 * cs.PEAK_INT32
 
 
-@pytest.mark.parametrize("nbytes, flops, iops, by", [
-    (3.35e12, 0, 0, "bytes"),
-    (0, 3.345e13, 0, "issue"),
-    (0, 1e13, 1e13, "issue"),            # the two kinds share issue slots
-    (0, 0, 1e13, "integer"),              # integer lanes: half the rate
-    (0, 1e12, 1.6e13, "integer"),
+@pytest.mark.parametrize("nbytes, flops, iops, by, ms", [
+    (3.35e12, 0, 0, "bytes", 1e3),
+    (0, 6.69e13, 0, "operations", 1e3),   # the published float32 peak
+    (0, 3.345e13, 1e13, "operations", 1e3 * (0.5 + 1e13 / 3.3454e13)),
+    (0, 0, 1e13, "operations", 1e3 * 1e13 / 1.6727e13),  # INT32 lanes
+    (1e9, 1e12, 1.6e13, "operations", 1e3 * 1.6e13 / 1.6727e13),
 ])
-def test_bound_takes_the_slowest_limit(nbytes, flops, iops, by):
-    ms, got = cs.bound(nbytes, flops, iops)
+def test_bound_takes_the_slowest_limit(nbytes, flops, iops, by, ms):
+    got_ms, got = cs.bound(nbytes, flops, iops)
     assert got == by
-    assert ms == pytest.approx(1e3 * max(nbytes / cs.PEAK_BYTES,
-                                         (flops + iops) / cs.PEAK_ISSUE,
-                                         iops / cs.PEAK_INT32))
+    assert got_ms == pytest.approx(ms, rel=1e-3)
+    assert cs.issue_bound_ms(nbytes, flops, iops) == pytest.approx(
+        1e3 * max(nbytes / cs.PEAK_BYTES, (flops + iops) / cs.PEAK_ISSUE,
+                  iops / cs.PEAK_INT32))
 
 
 def test_other_kernels_bounds_name_their_limit():
     cache = type("Cache", (), {})()
-    cache.payload = type("T", (), {"shape": (4096, 32, 5),
-                                   "numel": lambda self: 4096 * 32 * 5})()
+    cache.cand_table = type("T", (), {"shape": (4096, 32, 4),
+                                      "numel": lambda self: 4096 * 32 * 4})()
     cache.far_coeffs = type("T", (), {"shape": (4096, 56),
                                       "numel": lambda self: 4096 * 56})()
-    ms, by = cs.cand_model_bound(100096, SCALE, cache)
-    assert by in ("bytes", "issue", "integer") and ms > 0
+    # the scale-up's candidate model: per walker distance and insertion
+    # over 32 candidates, Taylor parts over the 22 not selected, 56
+    # coefficients; the 4-column table, the anchors and the outputs
+    nbytes, flops = cs.cand_model_work(100096, SCALE, cache)
+    assert flops == 100096 * (32 * 48 + 22 * 65 + 20 * 56) == 100096 * 4086
+    assert nbytes == 4 * (54 * 100096 + 4096 * 32 * 4 + 4096 * 56)
+    ms, by = cs.bound(nbytes, flops, 0)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * nbytes / cs.PEAK_BYTES)
+    assert cs.issue_bound_ms(nbytes, flops, 0) == pytest.approx(
+        1e3 * flops / cs.PEAK_ISSUE)
     ms, by = cs.far_sums_bound(100096, 5256, 10)
-    assert by == "issue"
-    assert ms == pytest.approx(1e3 * 100096 * 5256 * 75 / cs.PEAK_ISSUE,
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 100096 * 5256 * 75 / cs.PEAK_FP32,
                                rel=1e-3)

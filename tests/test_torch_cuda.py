@@ -17,8 +17,9 @@ and in its flat layout above the threshold, the near entry at 4096 and
 100096 walkers (its Threefry kernel in one wave).  That holds in every
 mode: the Threefry and the fast generator, each with the default
 physics and with every variant on.  The candidate-model
-kernel: near slots equal (ties excepted), taylor within 1e-5 of the
-largest |component|, n_reach equal.  The far-sums kernel: 1e-5 relative
+kernel, K 1-16 and far-table orders 1, 5 and 8: near slots equal (ties
+excepted), taylor within 1e-5 of the largest |component|, n_reach equal;
+one wave at the scale-up width with no spill.  The far-sums kernel: 1e-5 relative
 (tests/test_fields.py:375).  The decompose mode of both chunk-kernel
 entries, in every generator and physics mode: positions within 1e-4, the
 state's A and B and the per-walker record within 1e-5 (both expected
@@ -272,15 +273,32 @@ def large(dev):
     return p, tbl, cache, planes, expansion.coverage_reach2(p)
 
 
-def test_cand_model_kernel_matches_plain_version(large):
-    p, _, cache, planes, reach2 = large
-    pos = planes[:3].contiguous()
+@pytest.fixture(scope="module")
+def order_caches(large):
+    """The large scene's cache at far-table orders 1, 5 and 8."""
+    p, tbl, _, _, _ = large
+    return {o: expansion.build_cache(tbl.pos, tbl.m,
+                                     p.replace(far_table_order=o))
+            for o in (1, 5, 8)}
+
+
+@pytest.mark.parametrize("order", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+def test_cand_model_kernel_matches_plain_version(large, order_caches, k,
+                                                 order):
+    """K 1 to 16 over the 16 candidates, orders 1 (the one-wave kernel's
+    smallest), 5 (the scale-up's) and 8 (the high-order kernel), at 250
+    walkers (the last block partly empty)."""
+    p, _, _, planes, reach2 = large
+    p = p.replace(near_k=k, far_table_order=order)
+    cache = order_caches[order]
+    pos = planes[:3, :250].contiguous()
     before = chunk_kernel.LAUNCHES["cand_model_kernel"]
     near, taylor, cnt = expansion.build_planes(pos, p, cache, reach2=reach2)
     again = expansion.build_planes(pos, p, cache, reach2=reach2)
     assert chunk_kernel.LAUNCHES["cand_model_kernel"] == before + 2
     r_near, r_taylor, r_cnt = expansion.cand_model_reference(
-        pos, cache.payload, cache.far_coeffs, near_k=p.near_k,
+        pos, cache.cand_table, cache.far_coeffs, near_k=p.near_k,
         order=p.far_table_order, h=p.cube_hash_dim, bound=p.bound,
         reach2=reach2)
     torch.cuda.synchronize()
@@ -295,6 +313,24 @@ def test_cand_model_kernel_matches_plain_version(large):
         torch.testing.assert_close(taylor[i], r_taylor[i], rtol=0,
                                    atol=1e-5 * scale)
     assert torch.equal(cnt, r_cnt)
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+def test_cand_model_is_one_wave_at_the_scale_up_width(dev, k):
+    """Up to order 7 the kernel runs 6 blocks of 128 per SM in at most 80
+    registers, so 100096 walkers are one wave on an H100; up to the
+    scale-up's K 10 with no local memory (no spill), and so order 8's
+    kernel.  (At K 16 the 80 registers leave 8 bytes of local memory.)"""
+    info = chunk_kernel.cand_model_info(k, 5, dev)
+    assert info.blocks_per_sm >= 6 and info.regs <= 80
+    assert info.threads == chunk_kernel.BLOCK
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms >= 132:
+        assert chunk_kernel.cand_model_layout(100096, sms, info).waves == 1
+    assert chunk_kernel.cand_model_info(k, 1, dev) == info
+    if k <= 10:
+        assert info.local_bytes == 0
+        assert chunk_kernel.cand_model_info(k, 8, dev).local_bytes == 0
 
 
 def test_far_sums_kernel_matches_plain_version(large):

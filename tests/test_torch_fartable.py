@@ -158,7 +158,7 @@ def test_eval_far_table_matches_jax(order):
     coeffs = r.normal(size=(64, nc)).astype(np.float32)
     e = r.uniform(-1.0, 1.0, size=(64, 3)).astype(np.float32)
     ref = jfar.eval_far_table(jnp.asarray(coeffs), jnp.asarray(e), order)
-    got = fartable.eval_far_table_parts(
+    got = fartable.eval_far_table_grouped(
         lambda t: torch.from_numpy(coeffs[:, t]), *torch.from_numpy(e).T,
         order)
     got = (got[0], torch.stack(got[1:4], -1), torch.stack(got[4:10], -1))
@@ -169,7 +169,7 @@ def test_eval_far_table_matches_jax(order):
                                    atol=1e-5 * np.abs(r_).max())
     # the parts add onto given accumulators
     acc = tuple(torch.full((64,), 1.0) for _ in range(10))
-    parts = fartable.eval_far_table_parts(
+    parts = fartable.eval_far_table_grouped(
         lambda t: torch.from_numpy(coeffs[:, t]), *torch.from_numpy(e).T,
         order, accs=acc)
     torch.testing.assert_close(parts[0] - 1.0, got[0])
