@@ -22,14 +22,19 @@ the fast generator (the runner's default).  Without a card it raises.
 
 Two further modes print one JSON line each:
 
-* ``--profile``: the scale-up path's device time per kernel over 20
-  chunks (torch.profiler), and its device idle share (one minus the
-  traced device time over the wall time of the same chunks untraced);
+* ``--profile [--far-table-order N]``: the scale-up path's device time
+  per kernel over 20 chunks (torch.profiler), and its device idle share
+  (one minus the traced device time over the wall time of the same
+  chunks untraced); at order 0 the path of the exact far sums;
 * ``--rebuild-ms [DIR]``: the ms per launch of the candidate-model
   kernel (``build_planes``: K 10, C 32, far-table order 5; the walkers
   in the scene's order and shuffled) and of the far-sums kernel (5256
   dipoles, K 10) at the scale-up width (100096 walkers, the initial
-  walkers' anchors), 7 rounds of 20 launches; then
+  walkers' anchors), 7 rounds of 20 launches, with the far sums' SASS
+  pair loop (``sass_loop``: its instructions for its pairs); the ms of
+  a chunk of the scale-up's order-0 sprints (the near entry, the cube
+  selection and the far sums; 7 rounds of 10 chunks, wall between CUDA
+  events), in turns three times over; then
   the chunk kernel's ms per chunk in every mode of both entries: the
   rebuild entry at the headline shape (4032 walkers, K 5) and the near
   entry at the scale-up width (100096 walkers, K 10), 4000 steps, 7 rounds
@@ -43,8 +48,8 @@ Two further modes print one JSON line each:
   timed in turns on the same inputs: DIR, this, this, DIR (DIR, flat,
   split, split, flat, DIR at the widths).
 
-    python -m mri_nanoparticle_simulation_tpu_torch.benchmark [--profile |
-        --rebuild-ms [DIR]]
+    python -m mri_nanoparticle_simulation_tpu_torch.benchmark [--profile
+        [--far-table-order N] | --rebuild-ms [DIR]]
 """
 
 from __future__ import annotations
@@ -53,7 +58,9 @@ import argparse
 import importlib
 import importlib.util
 import json
+import re
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -61,7 +68,7 @@ from types import SimpleNamespace
 
 import torch
 
-from .engine import chunk_kernel, cuda_engine
+from .engine import chunk_kernel, convert, cuda_engine, reference_engine
 from .engine.convert import key_words, mnp_table
 from .engine.reference_engine import init_state
 from .fields import expansion
@@ -88,6 +95,11 @@ GRADIENT = (0.0, 0.0, 3e-5)
 N_SCALEUP_SPRINTS = 10
 #: scale-up sprints (5 chunks each) traced by --profile
 N_PROFILE_SPRINTS = 4
+#: order-0 scale-up sprints (5 chunks each) a round of --rebuild-ms
+N_ORDER0_SPRINTS = 2
+#: times --rebuild-ms runs the order-0 sprints in turns (DIR, this,
+#: this, DIR each time)
+ORDER0_TURNS = 3
 #: GPU cycles the stream sleeps before a timed round (``time_on_device``;
 #: ~5 ms at 1.98 GHz): the host queues the round's launches meanwhile,
 #: so the events time the device alone (a candidate-model launch is
@@ -98,6 +110,9 @@ SLEEP_CYCLES = 10_000_000
 #: (8448 walkers at 2 blocks per SM), then multiples of it, up to a
 #: 100k-walker small scene
 REBUILD_WIDTHS = (8576, 16896, 33792, 50688, 67584, 100000)
+#: the mangled name of the far-sums kernel at the scale-up's K, whose
+#: SASS pair loop ``sass_loop`` reads
+FAR_SUMS_K10 = "far_sums_kernelILi10E"
 _GENERATOR = {cuda_engine.RNG_THREEFRY: "Threefry-20",
               cuda_engine.RNG_HARDWARE: "fast generator (Philox4x32-10)"}
 
@@ -122,11 +137,13 @@ def _timed_sprints(sprint, n, ss, *args, **kw):
     return start.elapsed_time(end) / 1e3, ss, wins
 
 
-def _scaleup_setup(rng_impl: str = cuda_engine.RNG_THREEFRY):
-    """The scale-up scene, its table and cache on the card, its sprint
-    and the state after one warm-up sprint."""
+def _scaleup_setup(rng_impl: str = cuda_engine.RNG_THREEFRY,
+                   order: int = 5):
+    """The scale-up scene, its table and cache (far table of ``order``;
+    none at 0) on the card, its sprint and the state after one warm-up
+    sprint."""
     dev = require_cuda()
-    p = Params(**SCALEUP).validate()
+    p = Params(**SCALEUP, far_table_order=order).validate()
     sc = BacteriaBox(p, seed=42).populate()
     tbl = mnp_table(sc.mnps, torch.float32, dev)
     chunk_kernel.load_library()
@@ -164,13 +181,15 @@ def scaleup_rate(rng_impl: str = cuda_engine.RNG_THREEFRY) -> dict:
     }
 
 
-def scaleup_profile(top: int = 12) -> dict:
-    """Device time per kernel of the scale-up path (torch.profiler over
-    ``N_PROFILE_SPRINTS`` sprints), and the device idle share against
-    the wall time of as many untraced sprints."""
+def scaleup_profile(top: int = 12, order: int = 5) -> dict:
+    """Device time per kernel of the scale-up path at far-table order
+    ``order`` (torch.profiler over ``N_PROFILE_SPRINTS`` sprints), and
+    the device idle share against the wall time of as many untraced
+    sprints.  At order 0 every chunk runs the cube selection of the near
+    ids in torch, the far-sums kernel and the near entry."""
     from torch.profiler import ProfilerActivity, profile
 
-    p, _, tbl, cache, _, key, sprint, ss = _scaleup_setup()
+    p, _, tbl, cache, _, key, sprint, ss = _scaleup_setup(order=order)
     t0 = time.perf_counter()
     for _ in range(N_PROFILE_SPRINTS):
         ss, _ = sprint(tbl, key, ss, cache=cache)
@@ -191,7 +210,8 @@ def scaleup_profile(top: int = 12) -> dict:
         raise RuntimeError("the profiler recorded no device time")
     rows.sort(key=lambda e: -e.self_device_time_total)
     return {
-        "config": "scale-up path, 100000 waters, K 10, far-table order 5",
+        "config": "scale-up path, 100000 waters, K 10, far-table order "
+                  f"{order}, Threefry",
         "label": card_label(),
         "chunks": N_PROFILE_SPRINTS * p.sprint_steps // p.chunk_steps,
         "untraced_wall_s": wall,
@@ -306,6 +326,36 @@ def _model_cases(dev):
                                                              idx)}
 
 
+def sass_loop(ck, kernel: str) -> dict:
+    """The innermost loop that holds a reciprocal square root (MUFU.RSQ)
+    in the SASS (``cuobjdump -sass`` beside nvcc) of the entry whose
+    mangled name holds ``kernel``, in the library of ``ck`` (a tree's
+    ``engine.chunk_kernel``, built here if it is not): its instructions
+    and its MUFU.RSQ.  In the far-sums kernel that loop is the pair loop,
+    one MUFU.RSQ a (walker, dipole) pair; in a chunk kernel the step
+    loop."""
+    ck.build()
+    name = re.search(r"Compiling entry function '(\w*" + kernel + r"\w*)'",
+                     ck.build_log()).group(1)
+    tool = Path(ck._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", "-fun", name,
+                           str(ck.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    ins = [(int(a, 16), op) for a, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+    best = None
+    for addr, op in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < addr:
+            body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
+            rsq = sum("MUFU.RSQ" in o for o in body)
+            if rsq and (best is None or len(body) < best[0]):
+                best = (len(body), rsq)
+    if best is None:
+        raise RuntimeError(f"no loop with a MUFU.RSQ in the SASS of {name}")
+    return {"instructions": best[0], "rsqrt": best[1]}
+
+
 def time_on_device(fn, n: int) -> float:
     """ms per call of ``fn`` on the device: ``n`` calls between two CUDA
     events behind a sleep of the stream, so that the host has queued them
@@ -336,6 +386,37 @@ def _chunk_timer(ck, call, rounds: int, launches: int):
     torch.cuda.synchronize()
     return lambda: [time_on_device(lambda: call(ck), launches)
                     for _ in range(rounds)]
+
+
+def _order0_timer(tree, dev, rounds: int):
+    """A function timing ``rounds`` rounds of ``N_ORDER0_SPRINTS``
+    scale-up sprints (2e4 steps, 5 chunks each; Threefry) at far-table
+    order 0 through a tree's sprint (``tree.ce``: its
+    ``engine.cuda_engine``, ``cv``: ``engine.convert``, ``ri``:
+    ``engine.reference_engine``, ``exp``: ``fields.expansion``), from
+    the scene's initial walkers after one warm-up sprint; returns the ms
+    of a chunk for each round.  A round runs between two CUDA events with
+    no sleep of the stream, so the host's share of the path (the cube
+    selection's torch calls) counts as it does in a run."""
+    p = Params(**SCALEUP, far_table_order=0).validate()
+    sc = BacteriaBox(p, seed=42).populate()
+    tbl = tree.cv.mnp_table(sc.mnps, torch.float32, dev)
+    cache = tree.exp.build_cache(tbl.pos, tbl.m, p)
+    key = tree.cv.key_words(7)
+    sprint = tree.ce.make_sprint_fn(p, p.num_water, dev)
+    box = [tree.ce.to_soa(tree.ri.init_state(sc.waters, p, dev), p)]
+    box[0], _ = sprint(tbl, key, box[0], cache=cache)     # warm-up
+    torch.cuda.synchronize()
+    chunks = N_ORDER0_SPRINTS * p.sprint_steps // p.chunk_steps
+
+    def timer():
+        ms = []
+        for _ in range(rounds):
+            seconds, box[0], _ = _timed_sprints(
+                sprint, N_ORDER0_SPRINTS, box[0], tbl, key, cache=cache)
+            ms.append(1e3 * seconds / chunks)
+        return ms
+    return timer
 
 
 def _width_cases(dev) -> list:
@@ -388,19 +469,24 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
     """Kernel ms per launch of this tree, or of ``other`` and this tree
     in turns (other, this, this, other) in one process: the candidate
     model and the far sums at the scale-up width (``_model_cases``, 20
-    launches a round); every mode of the chunk kernel's rebuild entry at
+    launches a round); a chunk of the scale-up's order-0 sprints
+    (``_order0_timer``), in turns ``ORDER0_TURNS`` times; every mode of the chunk kernel's rebuild entry at
     the headline shape and of its near entry at the scale-up width, with
     this tree's layout of each; then the rebuild entry at
     ``REBUILD_WIDTHS`` in both its layouts, in turns: other, flat,
     split, split, flat, other."""
     dev = require_cuda()
     that = None
-    here = SimpleNamespace(ck=chunk_kernel, exp=expansion)
+    here = SimpleNamespace(ck=chunk_kernel, exp=expansion, ce=cuda_engine,
+                           cv=convert, ri=reference_engine)
     if other is not None:
         alias = _load_tree(other, "_other_tree")
         that = importlib.import_module(alias + ".engine.chunk_kernel")
-        there = SimpleNamespace(
-            ck=that, exp=importlib.import_module(alias + ".fields.expansion"))
+        there = SimpleNamespace(**{
+            f: importlib.import_module(f"{alias}.{mod}") for f, mod in (
+                ("ck", "engine.chunk_kernel"), ("exp", "fields.expansion"),
+                ("ce", "engine.cuda_engine"), ("cv", "engine.convert"),
+                ("ri", "engine.reference_engine"))})
     models = []
     walkers, calls = _model_cases(dev)
     for name, call in calls.items():
@@ -415,6 +501,18 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
         models.append({"kernel": name, "walkers": walkers,
                        "layout": lay._asdict() if lay else None,
                        "runs": runs})
+        if name == "far_sums_kernel":
+            models[-1]["sass_pair_loop"] = {
+                tree: sass_loop(ck, FAR_SUMS_K10) for tree, ck in
+                (("this", chunk_kernel), (other, that)) if ck is not None}
+    timers = {"this": _order0_timer(here, dev, rounds)}
+    names = ["this"]
+    if that is not None:
+        timers[other] = _order0_timer(there, dev, rounds)
+        names.insert(0, other)
+    order0 = {"sprints_a_round": N_ORDER0_SPRINTS,
+              "runs": [run for _ in range(ORDER0_TURNS)
+                       for run in _turns(timers, names)]}
     out = []
     for mode, call in _chunk_cases(dev).items():
         timers = {"this": _chunk_timer(chunk_kernel, call, rounds, launches)}
@@ -450,8 +548,8 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
                       f"{rounds} rounds x {launches} launches; widths: the "
                       "rebuild entry on the headline's scene at "
                       f"{REBUILD_WIDTHS} walkers",
-            "label": card_label(), "models": models, "cases": out,
-            "widths": widths}
+            "label": card_label(), "models": models, "order0": order0,
+            "cases": out, "widths": widths}
 
 
 def _headline_run(rng_impl: str) -> dict:
@@ -511,14 +609,19 @@ def main(argv=None):
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--profile", action="store_true",
                       help="device time per kernel of the scale-up path")
+    ap.add_argument("--far-table-order", type=int, default=5,
+                    help="with --profile: the scale-up path's far-table "
+                         "order (0: the exact far sums every chunk)")
     mode.add_argument("--rebuild-ms", nargs="?", const="", default=None,
                       metavar="DIR",
                       help="kernel ms per launch (the candidate model and "
                            "far sums, every mode of both chunk entries); "
                            "with DIR, also that checkout's, in turns")
     args = ap.parse_args(argv)
+    if args.far_table_order != 5 and not args.profile:
+        ap.error("--far-table-order goes with --profile")
     if args.profile:
-        out = scaleup_profile()
+        out = scaleup_profile(order=args.far_table_order)
     elif args.rebuild_ms is not None:
         out = rebuild_ms(args.rebuild_ms or None)
     else:

@@ -92,5 +92,22 @@ def test_other_kernels_bounds_name_their_limit():
         1e3 * flops / cs.PEAK_ISSUE)
     ms, by = cs.far_sums_bound(100096, 5256, 10)
     assert by == "operations"
-    assert ms == pytest.approx(1e3 * 100096 * 5256 * 75 / cs.PEAK_FP32,
+    assert ms == pytest.approx(1e3 * 100096 * 5256 * 65 / cs.PEAK_FP32,
                                rel=1e-3)
+
+
+def test_far_sums_work_and_issue_bound():
+    """The far sums at the scale-up: 65 float operations a (walker, table
+    entry) pair and K integer ones a walker for the ids it leaves out,
+    1.0222 ms with an issue slot per operation, about half that (the
+    bound) at the published rate."""
+    nbytes, flops, iops = cs.far_sums_work(100096, 5256, 10)
+    assert flops == 100096 * 5256 * 65
+    assert iops == 100096 * 10
+    assert nbytes == 16 * 5256 + 4 * 23 * 100096
+    assert cs.issue_bound_ms(nbytes, flops, iops) == pytest.approx(1.0222,
+                                                                   abs=1e-4)
+    assert cs.far_sums_bound(100096, 5256, 10) == (pytest.approx(
+        1e3 * (flops / cs.PEAK_FP32 + iops / cs.PEAK_ISSUE)), "operations")
+    assert cs.far_sums_bound(100096, 5256, 10)[0] == pytest.approx(0.5111,
+                                                                   abs=1e-4)

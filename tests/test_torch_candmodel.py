@@ -226,7 +226,7 @@ def test_scale_up_selection_taylor_and_counts_match_jax(planes_pair):
 @pytest.mark.parametrize("bps, waves", [(6, 1), (5, 2), (4, 2)])
 def test_scale_up_width_is_one_wave_at_six_per_sm(bps, waves):
     info = chunk_kernel.KernelInfo(80, bps, 0, chunk_kernel.BLOCK)
-    lay = chunk_kernel.cand_model_layout(100096, 132, info)
+    lay = chunk_kernel.walker_layout(100096, 132, info)
     assert (lay.blocks, lay.threads, lay.waves) == (782, 128, waves)
     assert lay.kind == "flat" and lay.gen_warps == 0 and lay.smem == 0
 

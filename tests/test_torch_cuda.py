@@ -19,12 +19,15 @@ mode: the Threefry and the fast generator, each with the default
 physics and with every variant on.  The candidate-model
 kernel, K 1-16 and far-table orders 1, 5 and 8: near slots equal (ties
 excepted), taylor within 1e-5 of the largest |component|, n_reach equal;
-one wave at the scale-up width with no spill.  The far-sums kernel: 1e-5 relative
-(tests/test_fields.py:375).  The decompose mode of both chunk-kernel
-entries, in every generator and physics mode: positions within 1e-4, the
-state's A and B and the per-walker record within 1e-5 (both expected
-bitwise), escapes and coverage equal; a decomposition run on the card
-reconstructs the run on the CPU.
+one wave at the scale-up width with no spill.  The far-sums kernel: 1e-5
+of each row's scale (tests/test_fields.py:375), K 1-16, on the large
+scene and on a ragged table and walker count, the near ids on the edges
+of the kernel's sub-tiles and tile; two runs bitwise equal; one wave at
+the scale-up width with no local memory.  The decompose mode of both
+chunk-kernel entries, in every generator and physics mode: positions
+within 1e-4, the state's A and B and the per-walker record within 1e-5
+(both expected bitwise), escapes and coverage equal; a decomposition run
+on the card reconstructs the run on the CPU.
 """
 
 import numpy as np
@@ -40,6 +43,7 @@ from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import \
     init_state
 from mri_nanoparticle_simulation_tpu_torch.fields import expansion
 from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox
+from test_torch_far_ids import FAR_RAGGED, far_sums_ids
 
 pytestmark = pytest.mark.cuda
 
@@ -326,27 +330,69 @@ def test_cand_model_is_one_wave_at_the_scale_up_width(dev, k):
     assert info.threads == chunk_kernel.BLOCK
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if sms >= 132:
-        assert chunk_kernel.cand_model_layout(100096, sms, info).waves == 1
+        assert chunk_kernel.walker_layout(100096, sms, info).waves == 1
     assert chunk_kernel.cand_model_info(k, 1, dev) == info
     if k <= 10:
         assert info.local_bytes == 0
         assert chunk_kernel.cand_model_info(k, 8, dev).local_bytes == 0
 
 
-def test_far_sums_kernel_matches_plain_version(large):
+#: far-sums cases (as tests/test_torch_large.py's, against JAX there):
+#: the large scene's table (152 dipoles) and walkers, or the ragged case
+#: (tests/test_torch_far_ids.py)
+FAR_SHAPES = {"scene": None, "ragged": FAR_RAGGED}
+
+
+def _far_case(large, k, shape):
+    """(anchors f32[3, w], packed table, ids int32[K, w]) on the card of
+    the far-sums case ``shape`` at ``k``, from a seed."""
     p, tbl, _, planes, _ = large
-    pos = planes[:3].contiguous()
-    w = pos.shape[1]
-    g = torch.Generator().manual_seed(0)
-    idx = torch.stack([torch.randperm(tbl.n_mnp, generator=g)[:p.near_k]
-                       for _ in range(w)], 1).to(torch.int32).to(pos.device)
+    g = torch.Generator().manual_seed(k)
+    if FAR_SHAPES[shape] is None:
+        pos = planes[:3].contiguous()
+        table, n = tbl.tbl, tbl.n_mnp
+    else:
+        w, n = FAR_SHAPES[shape]
+        pos = (torch.rand((3, w), generator=g) * p.bound).to(planes.device)
+        mp = torch.rand((n, 3), generator=g) * p.bound
+        mm = tbl.m[0].cpu() * (0.5 + torch.rand(n, generator=g))
+        table = expansion.pack_table(mp, mm).to(planes.device)
+    idx = far_sums_ids(np.random.default_rng(k), n, k, pos.shape[1])
+    return pos, table, torch.from_numpy(idx).to(pos.device)
+
+
+@pytest.mark.parametrize("shape", list(FAR_SHAPES))
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+def test_far_sums_kernel_matches_plain_version(large, k, shape):
+    pos, table, idx = _far_case(large, k, shape)
     before = chunk_kernel.LAUNCHES["far_sums_kernel"]
-    got = chunk_kernel.run_far_sums(pos, tbl.tbl, idx.contiguous())
-    assert chunk_kernel.LAUNCHES["far_sums_kernel"] == before + 1
-    ref = expansion.far_sums_reference(pos, tbl.tbl, idx)
+    got = chunk_kernel.run_far_sums(pos, table, idx)
+    again = chunk_kernel.run_far_sums(pos, table, idx)
+    assert chunk_kernel.LAUNCHES["far_sums_kernel"] == before + 2
+    assert torch.equal(got, again) and bool(torch.isfinite(got).all())
+    ref = expansion.far_sums_reference(pos, table, idx)
     for i in range(10):
         err = float((got[i] - ref[i]).abs().max())
         assert err <= 1e-5 * float(ref[i].abs().max()), i
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+def test_far_sums_kernel_is_one_wave_without_spill(dev, k):
+    """One walker a thread, 128 a block, no local memory; at the
+    scale-up's 100096 walkers one wave on an H100."""
+    info = chunk_kernel.far_sums_info(k, dev)
+    assert info.threads == chunk_kernel.BLOCK and info.local_bytes == 0
+    assert info.smem == 0 and info.blocks_per_sm >= 6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms >= 132:
+        lay = chunk_kernel.walker_layout(100096, sms, info)
+        assert lay.blocks == 782 and lay.waves == 1
+    chunk_kernel.run_far_sums(torch.zeros((3, 300), device=dev),
+                              torch.zeros((4, 40), device=dev),
+                              torch.zeros((k, 300), dtype=torch.int32,
+                                          device=dev))
+    assert chunk_kernel.LAYOUTS["far_sums_kernel"] == \
+        chunk_kernel.walker_layout(300, sms, info)
 
 
 def test_chunk_near_kernel_matches_plain_version(large):

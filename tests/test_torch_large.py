@@ -42,9 +42,11 @@ from mri_nanoparticle_simulation_tpu_torch.engine import (chunk_kernel,
 from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import \
     init_state
 from mri_nanoparticle_simulation_tpu_torch.fields import expansion, fartable
-from mri_nanoparticle_simulation_tpu_torch.fields.dipole import FIELD_SCALE
+from mri_nanoparticle_simulation_tpu_torch.fields.dipole import (
+    FIELD_SCALE, bz_taylor_parts)
 from mri_nanoparticle_simulation_tpu_torch.io import writer
 from mri_nanoparticle_simulation_tpu_torch.scene import BacteriaBox as TBox
+from test_torch_far_ids import FAR_RAGGED, far_sums_ids
 
 torch.set_num_threads(1)
 
@@ -189,25 +191,79 @@ def test_build_planes_rejects_cache_without_table():
 
 # -- far sums (kernel 3's plain version) ---------------------------------------
 
-def test_far_sums_match_jax(scene):
-    p, sc, _, _, anchors = scene
-    n = len(sc.mnps)
-    r = np.random.default_rng(1)
-    idx = np.stack([r.choice(n, p.near_k, replace=False) for _ in range(W)]) \
-        .astype(np.int32)
-    mp = sc.mnps[:, :3].astype(np.float32)
-    mM = sc.mnps[:, 4].astype(np.float32)
+#: far-sums cases: (walkers, dipoles or None for the scene's own 152).
+#: 152 is no multiple of the kernel's sub-tile either; JAX runs the 301
+#: walkers of the ragged case padded to 384
+FAR_SHAPES = {"scene": (256, None), "ragged": FAR_RAGGED}
+
+
+def far_sums_inputs(sc, k, shape, bound):
+    """(anchors f32 [w, 3], dipole positions f32 [n, 3], moments f32 [n],
+    ids int32 [K, w]) of a far-sums case, from a seed: the scene's
+    dipoles, or ``n`` placed at random in the box with moments drawn
+    around the scene's."""
+    w, n = FAR_SHAPES[shape]
+    r = np.random.default_rng(k)
+    if n is None:
+        mp = sc.mnps[:, :3].astype(np.float32)
+        mM = sc.mnps[:, 4].astype(np.float32)
+    else:
+        mp = r.random((n, 3)).astype(np.float32) * np.float32(bound)
+        mM = (sc.mnps[0, 4] * r.uniform(0.5, 1.5, n)).astype(np.float32)
+    anchors = r.random((w, 3)).astype(np.float32) * np.float32(bound)
+    return anchors, mp, mM, far_sums_ids(r, len(mp), k, w)
+
+
+@pytest.mark.parametrize("shape", list(FAR_SHAPES))
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+def test_far_sums_match_jax(scene, k, shape):
+    p, sc, _, _, _ = scene
+    anchors, mp, mM, idx = far_sums_inputs(sc, k, shape, p.bound)
+    w = len(anchors)
+    w_jax = -(-w // 128) * 128     # the Pallas kernel takes rows of 128
+    a_pad = np.zeros((w_jax, 3), np.float32)
+    a_pad[:w] = anchors
+    i_pad = np.zeros((w_jax, k), np.int32)
+    i_pad[:w] = idx.T
     b0, g, h = jax.jit(lambda a, i: jexp._far_sums_pallas(
         a, jnp.asarray(mp), jnp.asarray(mM), i, interpret=True))(
-        jnp.asarray(anchors), jnp.asarray(idx))
+        jnp.asarray(a_pad), jnp.asarray(i_pad))
     ref = np.concatenate([np.asarray(b0)[None], np.asarray(g).T,
-                          np.asarray(h).T])
+                          np.asarray(h).T])[:, :w]
     tbl = expansion.pack_table(torch.from_numpy(mp), torch.from_numpy(mM))
     got = chunk_kernel.run_far_sums(torch.from_numpy(anchors.T.copy()), tbl,
-                                    torch.from_numpy(idx.T.copy()))
+                                    torch.from_numpy(idx))
+    assert got.shape == (10, w)
     for i in range(10):
         a, b = got[i].numpy(), ref[i]
         assert np.abs(a - b).max() / np.abs(b).max() < 1e-5, i
+
+
+def zeroed_moment_far_sums(anchor, tbl, idx):
+    """The far sums as the far-sums kernel leaves the near ids out: the
+    moment of an excluded entry zeroed by a select, not its parts
+    multiplied by a 0/1 weight; one entry at a time in table order."""
+    t = torch.zeros((10, anchor.shape[1]), dtype=anchor.dtype,
+                    device=anchor.device)
+    for j in range(tbl.shape[1]):
+        m = torch.where((idx == j).any(0), torch.zeros_like(tbl[3, j]),
+                        tbl[3, j])
+        parts = bz_taylor_parts(anchor[0] - tbl[0, j], anchor[1] - tbl[1, j],
+                                anchor[2] - tbl[2, j], m)
+        t = t + torch.stack(parts)
+    return t
+
+
+@pytest.mark.parametrize("shape", list(FAR_SHAPES))
+def test_zeroed_moment_keeps_the_far_sums(scene, shape):
+    """For finite parts p * 1 is p and p * 0 is +-0, so zeroing an
+    excluded entry's moment gives the plain version's sums bitwise."""
+    p, sc, _, _, _ = scene
+    anchors, mp, mM, idx = far_sums_inputs(sc, 10, shape, p.bound)
+    tbl = expansion.pack_table(torch.from_numpy(mp), torch.from_numpy(mM))
+    a, i = torch.from_numpy(anchors.T.copy()), torch.from_numpy(idx)
+    ref = expansion.far_sums_reference(a, tbl, i)
+    assert torch.equal(zeroed_moment_far_sums(a, tbl, i), ref)
 
 
 @pytest.mark.parametrize("with_table", [True, False])
