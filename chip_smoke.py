@@ -98,14 +98,21 @@ measured, and any failure raises (exit code != 0, no final line):
    scene 6000 at the base moment reconstructed at s = 60, within phase
    5's gates of the oracle and within 1e-3 of phase 5's direct curve;
    then 2e5 headline steps with every variant on, on each generator,
-   against direct runs;
+   against direct runs; (d) the same CLI run with --plane-device
+   --dump-echoes in place of --dump-record: the same 500 launches, 16
+   CSVs within 1e-4 in Σcos/W of the record run's, the same dispersion
+   table's shape, then the port's mri-t2-fit (analysis.main --echoes
+   --bootstrap 32) on the captures: one row per grid point, a finite T2
+   inside its CI wherever a resample fitted; the two CLI walls;
 16. the scale-up with a streaming (moment x taucp) plane on the fast
    generator, 2e5 steps: 0 escapes, 0 violations, only
    chunk_near_kernel[fast+dec] and cand_model_kernel launched, the s = 1
    curve within 5e-5 of a direct run, the candidate-model kernel against
    its plain version on the walkers after those 2e5 steps; the time
    split; then 2e4 steps on Threefry and with every variant on, on each
-   generator;
+   generator; (c) the same 3 x 3 plane by run_plane_on_device: the same
+   launches, curves within 1e-4 of the host plane's, its split beside
+   the host plane's;
 17. the kernels line (every entry and mode, with its launches in the
    run of its path, its time beside its plain version's and its bound,
    its layout, registers and spills),
@@ -131,7 +138,8 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from mri_nanoparticle_simulation_tpu_torch import golden  # noqa: E402
+from mri_nanoparticle_simulation_tpu_torch import (  # noqa: E402
+    analysis, golden)
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (  # noqa: E402
     FAR_SUMS_K10, SCALEUP, all_variants, sass_loop, time_on_device)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
@@ -165,6 +173,8 @@ DEC_TOL = 1e-5     # A and B per walker, decompose kernel vs plain version
 REC_TOL = 5e-5     # Σcos/W, reconstruction vs a direct run (early windows;
 #                    tests/test_decompose.py:57)
 REC_RUN_TOL = 1e-3  # the same over the whole run
+PLANE_TOL = 1e-4   # cos/W, on-device plane vs float64 host plane
+#                    (tests/test_decompose.py:390)
 HEADLINE = dict(chunk_steps=4000, near_k=5)
 #: golden arm -> (committed curves and config, RMS gate, |final diff|
 #: gate): about 2.5x the committed JAX arm's own reading against oracle
@@ -1044,10 +1054,10 @@ def decompose_modes(dev, label, p, sc, ctx):
     return out
 
 
-def split_line(st):
+def split_line(st, copied="record"):
     return (f"run {st['wall_s']:.4f} s ({st['walker_steps_per_s']:.4e} "
             f"walker-steps/s), {st['sprints']} sprints: device "
-            f"{st['device_s']:.4f} s, record copy {st['copy_s']:.4f} s, "
+            f"{st['device_s']:.4f} s, {copied} copy {st['copy_s']:.4f} s, "
             f"host {st['host_s']:.4f} s")
 
 
@@ -1085,30 +1095,11 @@ def decompose_headline(sc, direct_golden, oracle, label):
         ap = sim.build_parser()
         p = sim.params_from_args(ap, ap.parse_args(argv))
         check(p.t == 2_000_000 and p.num_water == 4032, "CLI params")
-        err = io.StringIO()
-        reset_launches()
-        with contextlib.redirect_stderr(err):
-            rc = sim.main(argv)
-        got = launches()
-        text = err.getvalue()
-        print("  " + "\n  ".join(ln for ln in text.splitlines()
-                                  if "wrote" not in ln), flush=True)
-        check(rc == 0, f"CLI exit {rc}")
+        got, text, cli_wall = run_cli(argv)
         check(got == only(**{"chunk_kernel[fast+dec]": 500}),
               f"kernel launches {got}, expected 500 chunk_kernel[fast+dec]")
         out["chunk_kernel[fast+dec]"] = got["chunk_kernel[fast+dec]"]
-        m = re.search(r"(\d+) chunk escapes, (\d+) coverage violations",
-                      text)
-        check(m is not None and m.groups() == ("0", "0"),
-              "escapes or coverage violations")
-        paths = sorted(glob.glob(os.path.join(tmp, "t2_mscale=*.csv")))
-        check(len(paths) == 16, f"{len(paths)} CSVs, expected 16")
-        curves = {}
-        for path in paths:
-            rows = read_t2_csv(path)
-            check(len(rows[0]) == 2000, f"{path}: {len(rows[0])} rows")
-            check(bool(np.isfinite(rows[1]).all()), f"{path}: non-finite")
-            curves[os.path.basename(path)] = rows[1]
+        curves = grid_csvs(tmp)
         with np.load(os.path.join(tmp, "rec.npz")) as z:
             keys = sorted(z.files)
             rec_shape = z["A"].shape
@@ -1120,7 +1111,8 @@ def decompose_headline(sc, direct_golden, oracle, label):
             r2 = fh.read().splitlines()
         check(len(r2) == 17, f"dispersion table of {len(r2)} lines")
         print(f"  16 CSVs x 2000 rows, record A/B {rec_shape}, dispersion "
-              f"table of {len(r2) - 1} rows; launches {got}", flush=True)
+              f"table of {len(r2) - 1} rows; launches {got}; CLI wall "
+              f"{cli_wall:.4f} s", flush=True)
     base = BacteriaBox(p, seed=42).populate()
     for s, t_cp in ((1.0, 0.25), (2.0, 0.25), (1.0, 0.1)):
         pv = p.replace(mmoment=p.mmoment * s, taucp=t_cp).validate()
@@ -1181,7 +1173,63 @@ def decompose_headline(sc, direct_golden, oracle, label):
         check_reconstruction(dec.curves_at_scales(res.A, res.B, [1.0])[0],
                              cos, hp.num_water, f"{key}, 2e5 steps, s=1")
     done(t0, f"[{label}]")
+
+    out.update(plane_cli(argv, curves, r2, cli_wall, p.num_water, label))
     return out
+
+
+def plane_cli(argv, curves, r2, cli_wall, num_water, label):
+    """Phase 15 (d): the 5c CLI run ``argv`` of phase 15 with
+    --plane-device --dump-echoes in place of --dump-record, held to that
+    run's CSVs ``curves`` and dispersion table ``r2``; then the port's
+    mri-t2-fit on the echo captures.  Returns the run's launches."""
+    t0 = phase("15 (d) the same CLI run with --plane-device --dump-echoes")
+    with tempfile.TemporaryDirectory() as tmp:
+        echoes = os.path.join(tmp, "e.npz")
+        i = argv.index("--dump-record")
+        pargv = argv[:i] + ["--plane-device", "--dump-echoes", echoes] \
+            + argv[i + 2:]
+        pargv[pargv.index("--fit-r2") + 1] = os.path.join(tmp, "r2.csv")
+        pargv[pargv.index("--out") + 1] = os.path.join(tmp, "t2.csv")
+        got, text, plane_wall = run_cli(pargv)
+        check(got == only(**{"chunk_kernel[fast+dec]": 500}),
+              f"kernel launches {got}, expected 500 chunk_kernel[fast+dec]")
+        plane_curves = grid_csvs(tmp)
+        check(sorted(plane_curves) == sorted(curves), "grid points differ")
+        d_plane = max(float(np.abs(plane_curves[k] - curves[k]).max())
+                      for k in curves) / num_water
+        print(f"  16 CSVs: max |d(sum cos/W)| {d_plane:.3e} against phase "
+              f"15's (tol {PLANE_TOL})", flush=True)
+        check(d_plane < PLANE_TOL, f"plane CSVs differ by {d_plane}")
+        with open(os.path.join(tmp, "r2.csv")) as fh:
+            r2_plane = fh.read().splitlines()
+        check(len(r2_plane) == len(r2) and r2_plane[0] == r2[0]
+              and [ln.split(",")[:2] for ln in r2_plane]
+              == [ln.split(",")[:2] for ln in r2],
+              "dispersion table differs in shape")
+        table = os.path.join(tmp, "boot.csv")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = analysis.main(["--echoes", echoes, "--bootstrap", "32",
+                                "--out-table", table])
+        check(rc == 0, f"analysis exit {rc}")
+        with open(table) as fh:
+            boot = [ln.split(",") for ln in fh.read().splitlines()[1:]]
+        check(len(boot) == 16, f"{len(boot)} bootstrap rows")
+        n_fit = 0
+        for row in boot:
+            t2, lo, hi, n_ok = (float(row[3]), float(row[4]),
+                                float(row[5]), int(row[7]))
+            if n_ok > 0:
+                n_fit += 1
+                check(np.isfinite(t2) and lo <= t2 <= hi,
+                      f"bootstrap row {row}")
+        check(n_fit > 0, "no grid point could be bootstrapped")
+    print(f"  echo bootstrap: {n_fit}/16 grid points fitted, T2 inside "
+          f"its 95% CI; CLI wall {plane_wall:.4f} s (--plane-device) "
+          f"against {cli_wall:.4f} s (phase 15, record and float64 host "
+          f"reconstruction)", flush=True)
+    done(t0, f"[{label}]")
+    return {"chunk_kernel[fast+dec]": got["chunk_kernel[fast+dec]"]}
 
 
 def decompose_scaleup(ctx, label):
@@ -1219,6 +1267,7 @@ def decompose_scaleup(ctx, label):
     print(f"  {p.num_water} walkers, 2e5 steps, 9 grid points: "
           f"{split_line(res.stats)} [{label}]", flush=True)
     done(t0, f"launches {got} [{label}]")
+    host_plane, host_stats = curves, res.stats
 
     t0 = phase("16 (b) scale-up decompose on Threefry and every variant")
     p = p.replace(totaltime=0.01).validate()           # 2e4 steps
@@ -1244,7 +1293,64 @@ def decompose_scaleup(ctx, label):
         check_reconstruction(dec.curves_at_scales(res.A, res.B, [1.0])[0],
                              cos, pv.num_water, f"{key}, 2e4 steps, s=1")
     done(t0, f"[{label}]")
+
+    t0 = phase("16 (c) the same plane on the device")
+    p = ctx["p"].replace(totaltime=0.1).validate()     # 2e5 steps
+    reset_launches()
+    _, dev_plane, st, _ = dec.run_plane_on_device(
+        scene, p, scales, taucps, seed=7, device="cuda",
+        rng_impl="hardware", cache=cache)
+    got = launches()
+    check(got == only(**{"chunk_near_kernel[fast+dec]": 50,
+                         "cand_model_kernel": 50}),
+          f"kernel launches {got}")
+    check(st["escapes"] == 0 and st["coverage_violations"] == 0,
+          "on-device plane: escapes or violations")
+    check(dev_plane.shape == host_plane.shape
+          and bool(np.isfinite(dev_plane).all()), f"plane {dev_plane.shape}")
+    d_plane = float(np.abs(dev_plane - host_plane).max())
+    print(f"  curves: max |d| {d_plane:.3e} against phase 16's host plane "
+          f"(tol {PLANE_TOL}); on the device: {split_line(st, 'curve')}, "
+          f"beside "
+          f"phase 16's {split_line(host_stats)}", flush=True)
+    check(d_plane < PLANE_TOL, f"on-device plane differs by {d_plane}")
+    done(t0, f"launches {got} [{label}]")
     return out
+
+
+def run_cli(argv):
+    """(launches, stderr text, wall s) of one port CLI run that must exit
+    0 with no escape and no coverage violation; prints its stderr but
+    the lines naming each CSV."""
+    err = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = sim.main(argv)
+    wall = time.perf_counter() - t0
+    got = launches()
+    text = err.getvalue()
+    print("  " + "\n  ".join(ln for ln in text.splitlines()
+                              if "wrote" not in ln), flush=True)
+    check(rc == 0, f"CLI exit {rc}")
+    m = re.search(r"(\d+) chunk escapes, (\d+) coverage violations", text)
+    check(m is not None and m.groups() == ("0", "0"),
+          "escapes or coverage violations")
+    return got, text, wall
+
+
+def grid_csvs(tmp):
+    """{file name: Σcos} of the 16 grid-point CSVs of 2000 rows each
+    that a 5c CLI run wrote into ``tmp``."""
+    paths = sorted(glob.glob(os.path.join(tmp, "t2_mscale=*.csv")))
+    check(len(paths) == 16, f"{len(paths)} CSVs, expected 16")
+    curves = {}
+    for path in paths:
+        rows = read_t2_csv(path)
+        check(len(rows[0]) == 2000, f"{path}: {len(rows[0])} rows")
+        check(bool(np.isfinite(rows[1]).all()), f"{path}: non-finite")
+        curves[os.path.basename(path)] = rows[1]
+    return curves
 
 
 def timed(fn):

@@ -21,11 +21,16 @@ to the output interval is one cumulative sum away
 (``reconstruct_curves``, ``curves_at_plane``, ``StreamingPlane``).
 
 Counterpart of the reference's ``engine/decompose.py`` on its record
-path: ``run_decomposition`` drives the chunk kernels in decompose mode
-(``cuda_engine.make_sprint_fn(..., decompose=True)``) and drains the
-per-walker record to the host; the reconstruction functions are its
-float64 NumPy code carried over as it is, and ``curves_at_scales`` runs
-in torch float32 on the record's device.
+and on-device plane paths: ``run_decomposition`` drives the chunk
+kernels in decompose mode (``cuda_engine.make_sprint_fn(...,
+decompose=True)``) and drains the per-walker record to the host;
+``run_plane_on_device`` runs the same sprints and folds each record into
+the plane on the device (``make_plane_step``, plain torch), so only the
+curves and the spin-echo captures (``EchoCapture``) come back.  The
+reconstruction functions, the record readers (``open_record``,
+``record_params``, ``reconstruct_record``) and the walker bootstrap are
+the reference's float64 NumPy code carried over as it is, and
+``curves_at_scales`` runs in torch float32 on the record's device.
 """
 
 from __future__ import annotations
@@ -58,6 +63,23 @@ def _unpack_wins(wins: np.ndarray, num_water: int):
     return wins[:, 0, :num_water], wins[:, 1, :num_water]
 
 
+def _decompose_sprints(scene, p: Params, seed: int, device, rng_impl: str):
+    """The sprint plumbing of a decomposition run on ``device``: (device,
+    sprint function, dipole table, key words, the decompose state as
+    planes).  On a card the library is built and loaded first, so the
+    build is set-up and not part of the run; a CUDA device without a
+    card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        require_cuda()
+        chunk_kernel.load_library()
+    sprint = make_sprint_fn(p, scene.waters.shape[0], dev,
+                            rng_impl=rng_impl, decompose=True)
+    tbl = mnp_table(scene.mnps, torch.float32, dev)
+    ss = to_soa(init_state(scene.waters, p, dev, decompose=True), p)
+    return dev, sprint, tbl, key_words(seed), ss
+
+
 def run_decomposition(scene, params: Params, seed: int = 0, *,
                       device="cuda", rng_impl: str = "threefry",
                       max_steps: Optional[int] = None, consumer=None,
@@ -88,17 +110,10 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
     blocks).
     """
     p = params.validate()
-    dev = torch.device(device)
-    on_card = dev.type == "cuda"
-    if on_card:
-        require_cuda()
-        chunk_kernel.load_library()
     num_water = scene.waters.shape[0]
-    sprint = make_sprint_fn(p, num_water, dev, rng_impl=rng_impl,
-                            decompose=True)
-    tbl = mnp_table(scene.mnps, torch.float32, dev)
-    key = key_words(seed)
-    ss = to_soa(init_state(scene.waters, p, dev, decompose=True), p)
+    dev, sprint, tbl, key, ss = _decompose_sprints(scene, p, seed, device,
+                                                   rng_impl)
+    on_card = dev.type == "cuda"
 
     total = p.t if max_steps is None else min(p.t, max_steps)
     n_sprints = total // p.sprint_steps
@@ -177,6 +192,295 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
         **split,
     }
     return DecompositionResult(times_ms=times, A=A, B=B, stats=stats)
+
+
+def make_plane_step(params: Params, num_water: int, scales, n_taucps: int,
+                    echo_specs=(), *, device="cuda"):
+    """The on-device plane update of :func:`run_plane_on_device`: plain
+    torch on the record's device (``device``, where the scales live).
+
+    ``step(wins, carry, u_prev, g_blk, echo_rows)`` consumes one sprint's
+    RAW record ``wins [n_win, 2, W_pad]`` (the sprint's output, never
+    leaving the device), carries per-taucp signed Kahan sums, and returns
+    ``(carry', block)`` with ``block [n_scales, n_taucps, wps, 2]`` the
+    walker means (``mean cos``, ``g * mean sin``), and with
+    ``echo_specs`` also ``[n_specs, E_max, W]`` per-walker cos rows.
+
+    Math (the device form of :class:`StreamingPlane`): with the raw
+    per-window increments ``d_r`` recovered by undoing the base run's
+    flips, window j's phase at echo spacing t and moment scale s is
+    ``g_{j-1}(s * SA_j + SB_j)`` where ``SA_j = sum_{k<=j} g_{k-1} dA_k``
+    — a cumsum per sprint plus a carried (SA, SB).  The carry is f32 +
+    Kahan compensation, the engine's own phase-accumulation discipline;
+    the float64 :class:`StreamingPlane` is the oracle it is tested
+    against.
+
+    ``u_prev`` [wps]: the sign undoing the base flip before each row (row
+    0's entry pairs with the carried previous row).  ``g_blk`` [n_taucps,
+    wps]: the reconstruction parities g_{j-1}.  ``carry`` = (SA, cA, SB,
+    cB [T, W], prev_A, prev_B [W]).  ``echo_specs``: ((scale, taucp
+    index), ...); ``echo_rows`` [n_specs, E_max] the local spin-echo rows
+    of each spec (padded; the caller keeps only the real ones).
+
+    A step issues a fixed number of torch operations, few of them per
+    lane: the host that queues them also queues the sprints, and at the
+    headline width it is no faster than the card.  The prefix sums of all
+    lanes are one tensor ``[2, T, wps, W]``; the scales of one lane are
+    one batch ``[n_scales, wps, W]``, so that temporary is never formed
+    for every lane at once."""
+    dev = torch.device(device)
+    s_col = torch.as_tensor(np.asarray(scales, np.float32).reshape(-1),
+                            device=dev)[:, None, None]
+    e_scale = torch.as_tensor(np.asarray([sv for sv, _ in echo_specs],
+                                         np.float32), device=dev)
+    e_lane = torch.as_tensor(np.asarray([ti for _, ti in echo_specs],
+                                        np.int64), device=dev)
+
+    def step(wins, carry, u_prev, g_blk, echo_rows=None):
+        SA, cA, SB, cB, prev_A, prev_B = carry
+        x = wins[:, :, :num_water].transpose(0, 1)          # [2, wps, W]
+        wps = x.shape[1]
+        prev = torch.cat([torch.stack([prev_A, prev_B])[:, None],
+                          x[:, :-1]], dim=1)
+        d = x - u_prev[:, None] * prev                      # raw increments
+        c = torch.cumsum(g_blk[:, :, None] * d[:, None], dim=2)
+        s_sum = torch.stack([SA, SB])                       # [2, T, W]
+        s = s_sum[:, :, None] + c                           # [2, T, wps, W]
+        blks = []
+        for t in range(n_taucps):
+            inner = s_col * s[0, t] + s[1, t]               # [S, wps, W]
+            blks.append(torch.stack(
+                [torch.cos(inner).mean(dim=2),
+                 g_blk[t] * torch.sin(inner).mean(dim=2)], dim=-1))
+        # Kahan fold of the sprint's increments, every lane at once:
+        # y = inc - comp; t = s + y; comp = (t - s) - y
+        y = c[:, :, -1] - torch.stack([cA, cB])
+        t_new = s_sum + y
+        comp = (t_new - s_sum) - y
+        carry = (t_new[0], comp[0], t_new[1], comp[1], x[0, -1].clone(),
+                 x[1, -1].clone())
+        block = torch.stack(blks, dim=1)                    # [S, T, wps, 2]
+        if not echo_specs:
+            return carry, block
+        # every spec's rows in one gather from its lane of s
+        flat = (echo_rows + e_lane[:, None] * wps).reshape(-1)
+        sel = s.reshape(2, -1, s.shape[-1]).index_select(1, flat)
+        sel = sel.view(2, *echo_rows.shape, -1)
+        return carry, block, torch.cos(e_scale[:, None, None] * sel[0]
+                                       + sel[1])
+
+    return step
+
+
+class EchoCapture(NamedTuple):
+    scale: float            #: moment scale of this capture
+    taucp_ms: float         #: echo spacing
+    times_ms: np.ndarray    #: [n_echoes] spin-echo times
+    cos: np.ndarray         #: [n_echoes, W] per-walker cos at the echoes
+
+
+def save_echoes(path: str, echoes, seed=None) -> None:
+    """Save a list of :class:`EchoCapture` as one .npz (the CLI's
+    ``--plane-device --dump-echoes`` product), in the reference
+    package's schema, so either package reads the other's file.  The cos
+    matrices are stored float32 — losslessly, since the on-device plane
+    computes them in f32."""
+    d = {"n_pairs": np.int64(len(echoes))}
+    if seed is not None:
+        d["seed"] = np.int64(seed)
+    for i, e in enumerate(echoes):
+        d[f"pair{i}_scale"] = np.float64(e.scale)
+        d[f"pair{i}_taucp"] = np.float64(e.taucp_ms)
+        d[f"pair{i}_times_ms"] = np.asarray(e.times_ms, np.float64)
+        d[f"pair{i}_cos"] = np.asarray(e.cos, np.float32)
+    np.savez_compressed(path, **d)
+
+
+def load_echoes(path: str):
+    """Load :func:`save_echoes` output back into :class:`EchoCapture`
+    entries (``analysis`` ``--echoes``)."""
+    with np.load(path) as z:
+        if "n_pairs" not in z.files:
+            raise ValueError(
+                f"{path} is not an echo-capture file; expected the "
+                f"mri-t2-sim --plane-device --dump-echoes .npz schema")
+        return [EchoCapture(scale=float(z[f"pair{i}_scale"]),
+                            taucp_ms=float(z[f"pair{i}_taucp"]),
+                            times_ms=np.asarray(z[f"pair{i}_times_ms"],
+                                                np.float64),
+                            cos=np.asarray(z[f"pair{i}_cos"], np.float64))
+                for i in range(int(z["n_pairs"]))]
+
+
+def run_plane_on_device(scene, params: Params, scales, taucps=None,
+                        seed: int = 0, *, device="cuda",
+                        rng_impl: str = "threefry",
+                        max_steps: Optional[int] = None, echo_pairs=(),
+                        cache=None):
+    """The (moment x taucp) plane computed on the device as the
+    simulation runs.
+
+    :func:`run_decomposition` + :class:`StreamingPlane` copy the
+    per-walker record to the host every sprint (8 bytes x walkers x
+    windows) and rebuild the plane there in float64.  Here the record
+    never leaves the device: :func:`make_plane_step` folds each sprint's
+    record into carried per-taucp signed Kahan sums on the device, and
+    the ``[S, T, wps, 2]`` curve blocks (and the echo matrices) stay
+    there until one copy to the host after the last sprint.  The loop
+    never reads the device.
+
+    Arguments as :func:`run_decomposition`'s (``device`` "cuda" unless
+    the caller asks for "cpu"; ``cache`` for scenes above
+    ``REBUILD_MAX_MNPS`` dipoles).  Precision: carries are f32 + Kahan,
+    so curves match the float64 host plane to f32 rounding.
+
+    ``echo_pairs``: optional ``[(scale, taucp_ms), ...]`` whose
+    per-walker spin-echo cos matrices are gathered on the device in the
+    same pass ([n_echoes, W] each) and returned as :class:`EchoCapture`
+    entries, ready for :func:`bootstrap_from_echoes`.  An echo taucp
+    that is not among ``taucps`` runs in a lane of its own, whose curve
+    rows are left out of the result.
+
+    Returns ``(times_ms, curves [S, T, n, 2], stats, echoes)`` with the
+    curves walker means stacking (cos, sin) (float32), and ``stats``
+    holding the counters, ``wall_s``, ``walker_steps_per_s``,
+    ``sprints`` and the split: ``device_s`` (each sprint and its plane
+    step, CUDA events; on the CPU the calls), ``copy_s`` (the one copy of
+    curves and echoes to the host, after the last sprint has finished)
+    and ``host_s`` (assembling the result on the host).
+    """
+    from ..analysis import echo_indices
+
+    p = params.validate()
+    num_water = scene.waters.shape[0]
+    wps = p.sprint_steps // p.pfreq
+    total = p.t if max_steps is None else min(p.t, max_steps)
+    n_sprints = total // p.sprint_steps
+    n = n_sprints * wps
+    if n == 0:
+        raise ValueError("run_plane_on_device needs at least one full "
+                         "sprint of windows")
+    taucps_l = [p.taucp] if taucps is None else \
+        [float(t) for t in np.asarray(taucps, np.float64).reshape(-1)]
+    T_req = len(taucps_l)
+    s_arr = np.asarray(scales, np.float64).reshape(-1)
+    times = np.arange(1, n + 1, dtype=np.float64) * p.pfreq * p.tau
+
+    # echo specs: (scale, index into the taucp table); an echo taucp not
+    # among the requested ones appends a lane sliced off the curves
+    echo_specs, echo_meta = [], []
+    for es, et in echo_pairs:
+        et = float(et)
+        if et not in taucps_l:
+            p.replace(taucp=et).validate()
+            taucps_l.append(et)
+        eidx = echo_indices(times, et)
+        if eidx.size == 0:
+            raise ValueError(
+                f"no spin echo (t = 2k*taucp = {2 * et:g} ms) falls "
+                f"inside the {times[-1]:g} ms run")
+        echo_specs.append((float(es), taucps_l.index(et)))
+        echo_meta.append({"scale": float(es), "taucp": et, "eidx": eidx})
+    tcps = [p.replace(taucp=t).validate().tcp for t in taucps_l]
+    T = len(taucps_l)
+
+    # sign tables on the host once: u_prev[r] undoes the base flip before
+    # record row r; g[t, r] is the reconstruction parity g_{j-1} of row r
+    j = np.arange(1, n + 1, dtype=np.int64)
+    undo = np.where((j * p.pfreq) % p.tcp == 0, -1.0, 1.0)
+    u_prev = np.concatenate([[1.0], undo[:-1]]).astype(np.float32)
+    g_full = np.stack([_flip_parity(n, tcp, p.pfreq)
+                       for tcp in tcps]).astype(np.float32)
+    # per sprint: each spec's local echo rows, padded with row 0 to one
+    # width E, and where the real ones go, from the step's [n_specs * E]
+    # rows into the captures' rows laid end to end
+    n_specs = len(echo_specs)
+    rows = np.zeros((n_sprints, 1, 1), np.int64)
+    places = [None] * n_sprints
+    if n_specs:
+        sel = [[np.nonzero((m["eidx"] >= i * wps)
+                           & (m["eidx"] < (i + 1) * wps))[0]
+                for m in echo_meta] for i in range(n_sprints)]
+        e_max = max(1, max(k.size for per in sel for k in per))
+        rows = np.zeros((n_sprints, n_specs, e_max), np.int64)
+        first = np.cumsum([0] + [m["eidx"].size for m in echo_meta])
+        for i, per in enumerate(sel):
+            src, dst = [], []
+            for si, k in enumerate(per):
+                rows[i, si, :k.size] = echo_meta[si]["eidx"][k] - i * wps
+                src += [si * e_max + r for r in range(k.size)]
+                dst += list(first[si] + k)
+            if src:
+                places[i] = (np.asarray(src, np.int64),
+                             np.asarray(dst, np.int64))
+
+    dev, sprint, tbl, key, ss = _decompose_sprints(scene, p, seed, device,
+                                                   rng_impl)
+    on_card = dev.type == "cuda"
+    step = make_plane_step(p, num_water, s_arr, T, tuple(echo_specs),
+                           device=dev)
+    # every table on the device once, sliced per sprint: the loop makes
+    # no host -> device copy
+    u_dev = torch.as_tensor(u_prev, device=dev)
+    g_dev = torch.as_tensor(g_full, device=dev)
+    rows_dev = torch.as_tensor(rows, device=dev)
+    places = [pl and tuple(torch.as_tensor(a, device=dev) for a in pl)
+              for pl in places]
+    carry = (torch.zeros((T, num_water), device=dev),) * 4 \
+        + (torch.zeros(num_water, device=dev),) * 2
+    captured = torch.zeros((sum(m["eidx"].size for m in echo_meta),
+                            num_water), device=dev)
+    blocks, events = [], []
+    split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
+
+    t_start = time.perf_counter()
+    for i in range(n_sprints):
+        if on_card:
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+        else:
+            t0 = time.perf_counter()
+        ss, wins = sprint(tbl, key, ss, cache=cache)
+        lo = i * wps
+        carry, blk, *emat = step(wins, carry, u_dev[lo:lo + wps],
+                                 g_dev[:, lo:lo + wps], rows_dev[i])
+        blocks.append(blk)
+        if places[i]:
+            src, dst = places[i]
+            captured.index_copy_(0, dst, emat[0].reshape(-1, num_water)
+                                 .index_select(0, src))
+        if on_card:
+            events[-1][1].record()
+        else:
+            split["device_s"] += time.perf_counter() - t0
+    if on_card:
+        torch.cuda.synchronize(dev)
+        split["device_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    t0 = time.perf_counter()
+    # echo-only taucp lanes are not part of the requested plane
+    curves = torch.cat(blocks, dim=2)[:, :T_req].cpu().numpy()
+    captured = captured.cpu().numpy()
+    final = from_soa(ss, num_water)
+    t1 = time.perf_counter()
+    mats = np.split(captured.astype(np.float64),
+                    np.cumsum([m["eidx"].size for m in echo_meta])[:-1])
+    echoes = [EchoCapture(scale=m["scale"], taucp_ms=m["taucp"],
+                          times_ms=times[m["eidx"]], cos=mat)
+              for m, mat in zip(echo_meta, mats)]
+    wall = time.perf_counter() - t_start
+    split["copy_s"], split["host_s"] = t1 - t0, wall - (t1 - t_start)
+    stats = {
+        "steps": int(final.step),
+        "escapes": int(final.escapes),
+        "coverage_violations": int(final.coverage),
+        "wall_s": wall,
+        "walker_steps_per_s": n_sprints * p.sprint_steps * num_water / wall
+        if wall > 0 else 0.0,
+        "sprints": n_sprints,
+        **split,
+    }
+    return times, curves, stats, echoes
 
 
 def window_increments(A, B, params: Params):
@@ -541,6 +845,286 @@ def curves_at_plane(A, B, scales, taucps, params: Params,
     dA, dB = window_increments(A, B, params)
     return reconstruct_curves(dA, dB, scales, taucps, params,
                               quadrature=quadrature)
+
+
+def open_record(path: str):
+    """Load a saved decomposition record from EITHER format: a
+    ``--dump-record`` .npz file (arrays in RAM) or an ``io.record``
+    store directory (A/B stay read-only disk memmaps, so fits over
+    records larger than RAM stream from disk).
+
+    Returns ``(A, B, meta)`` with ``meta`` a dict holding whichever of
+    ``times_ms / mmoment / seed / taucp / tau / pfreq`` the record
+    carries (value ``None`` when absent)."""
+    from ..io import record as record_mod
+
+    keys = ("times_ms", "mmoment", "seed", "taucp", "tau", "pfreq")
+    if record_mod.is_record_dir(path):
+        store = record_mod.RecordStore.open(path)
+        if not store.complete:
+            raise ValueError(
+                f"record store at {path} is incomplete "
+                f"({store.rows}/{store.n_windows} windows committed); "
+                f"finish or resume the run first")
+        a, b = store.arrays()
+        meta = {k: store.meta.get(k) for k in keys}
+        meta["times_ms"] = store.times_ms()
+        return a, b, meta
+    with np.load(path) as z:
+        a, b = z["A"], z["B"]
+        meta = {k: (z[k] if k in z.files else None) for k in keys}
+    for k in ("mmoment", "seed", "taucp", "tau"):
+        if meta[k] is not None:
+            meta[k] = float(meta[k])
+    if meta["pfreq"] is not None:
+        meta["pfreq"] = int(meta["pfreq"])
+    return a, b, meta
+
+
+def record_params(path: str, n_windows: int = None,
+                  meta: dict = None) -> Params:
+    """A minimal Params consistent with a saved record (the CLI's
+    ``--dump-record`` .npz or an ``io.record`` store): the time axis and
+    echo knobs the reconstruction math needs; every other field is an
+    unused default.  Raises if the record lacks the knob fields.
+    ``meta``: pass :func:`open_record`'s meta to skip re-opening the
+    record (for .npz, reading the shape decompresses the whole
+    potentially GB-scale A entry — pass ``n_windows`` to avoid it)."""
+    from ..io import record as record_mod
+
+    if meta is None:
+        if record_mod.is_record_dir(path):
+            store = record_mod.RecordStore.open(path)
+            meta = {k: store.meta.get(k) for k in ("taucp", "tau", "pfreq")}
+            if n_windows is None:
+                n_windows = store.rows
+        else:
+            with np.load(path) as z:
+                meta = {k: (float(z[k]) if k != "pfreq" else int(z[k]))
+                        for k in ("taucp", "tau", "pfreq")
+                        if k in z.files}
+                if n_windows is None:
+                    n_windows = z["A"].shape[0]
+    for k in ("taucp", "tau", "pfreq"):
+        if meta.get(k) is None:
+            raise ValueError(
+                f"{path} lacks {k!r}; re-dump the record with a "
+                f"current build to reconstruct offline")
+    if n_windows is None:
+        times = meta.get("times_ms")
+        if times is None:
+            raise ValueError(f"{path} lacks a time axis; pass n_windows")
+        n_windows = len(times)
+    taucp, tau, pfreq = meta["taucp"], meta["tau"], meta["pfreq"]
+    if n_windows == 0:
+        raise ValueError(f"{path} holds an empty record (0 windows); "
+                         f"nothing to reconstruct")
+    pi = pfreq * tau
+    return Params(totaltime=n_windows * pi, print_interval=pi, tau=tau,
+                  taucp=taucp, sprint_steps=n_windows * pfreq,
+                  chunk_steps=pfreq).validate()
+
+
+def reconstruct_record(path: str, scales, taucps=None,
+                       quadrature: bool = False, schedules=None):
+    """Offline reconstruction from a saved record file alone: curves
+    at each moment scale (``taucps=None``), over the full
+    (moment x taucp) plane, or at arbitrary pulse ``schedules``
+    (:func:`reconstruct_at_schedule`) — no simulator, no original
+    Params object.  Returns what :func:`curves_at_scales` /
+    :func:`curves_at_plane` / :func:`reconstruct_at_schedule` return
+    (normalized per-walker means)."""
+    if taucps is not None and schedules is not None:
+        raise ValueError("pass taucps OR schedules, not both")
+    A, B, meta = open_record(path)
+    if taucps is None and schedules is None:
+        return curves_at_scales(A, B, scales, quadrature=quadrature)
+    # pass the window count: record_params would otherwise decompress
+    # the (potentially GB-scale) A array a second time just for shape
+    p = record_params(path, n_windows=A.shape[0], meta=meta)
+    if schedules is not None:
+        dA, dB = window_increments(A, B, p)
+        return reconstruct_at_schedule(dA, dB, scales, schedules,
+                                       quadrature=quadrature)
+    return curves_at_plane(A, B, scales, taucps, p, quadrature=quadrature)
+
+
+class BootstrapT2(NamedTuple):
+    fit: "object"           #: analysis.T2Fit on the full-walker echo envelope
+    t2_lo_ms: float         #: lower percentile bound of the T2 resamples
+    t2_hi_ms: float         #: upper percentile bound
+    t2_stderr_ms: float     #: sample std-dev of the T2 resamples
+    n_ok: int               #: resamples that produced a valid fit
+    t2_samples: np.ndarray  #: the resampled T2 values themselves
+
+
+def echo_cos_matrix(A, B, params: Params, scale: float = 1.0,
+                    taucp: Optional[float] = None,
+                    walker_block: int = 1024, increments=None):
+    """Per-walker ``cos(phi)`` at the spin-echo rows (t = 2k·taucp) for a
+    given moment scale and echo spacing, from a decomposition record.
+
+    Returns ``(echo_times_ms, cos_echo)`` with ``cos_echo`` shaped
+    ``[n_echoes, num_water]`` — the sufficient statistic for any
+    walker-resampling analysis of the echo envelope.  Streamed over
+    walker blocks like :func:`reconstruct_curves`.  ``increments``:
+    optionally pass precomputed ``window_increments(A, B, params)`` so
+    multi-taucp callers pay the flip-undo once (A/B are then ignored).
+    """
+    from ..analysis import echo_indices
+
+    p = params.validate()
+    taucp_v = p.taucp if taucp is None else float(taucp)
+    tcp = p.tcp if taucp is None else p.replace(taucp=taucp_v).validate().tcp
+    dA, dB = increments if increments is not None \
+        else window_increments(A, B, p)
+    n, w = dA.shape
+    times = np.arange(1, n + 1, dtype=np.float64) * p.pfreq * p.tau
+    eidx = echo_indices(times, taucp_v)
+    if eidx.size == 0:
+        raise ValueError(
+            f"no spin echo (t = 2k*taucp = {2 * taucp_v:g} ms) falls inside "
+            f"the {times[-1]:g} ms record; nothing to sample")
+    g = _flip_parity(n, tcp, p.pfreq)[:, None]
+    cos_echo = np.empty((eidx.size, w), np.float64)
+    for lo in range(0, w, walker_block):
+        hi = min(lo + walker_block, w)
+        dphi = scale * dA[:, lo:hi] + dB[:, lo:hi]
+        phi = g * np.cumsum(g * dphi, axis=0)
+        cos_echo[:, lo:hi] = np.cos(phi[eidx])
+    return times[eidx], cos_echo
+
+
+def bootstrap_t2(A, B, params: Params, scale: float = 1.0,
+                 taucp: Optional[float] = None, n_boot: int = 200,
+                 seed: int = 0, ci: float = 0.95, floor: float = 0.02,
+                 walker_block: int = 1024,
+                 increments=None) -> BootstrapT2:
+    """Walker-bootstrap confidence interval on T2 from ONE simulation.
+
+    The decay curve is a mean over walkers, so the record's per-walker
+    (A, B) basis carries the full sampling distribution: resample the
+    walker columns with replacement, reconstruct each resample's echo
+    envelope (a single BLAS product against the multinomial weights), and
+    fit T2 per resample.  This measures the real Monte-Carlo uncertainty
+    of the simulation — which the per-row fit stderr understates, since
+    decay rows share walkers and are strongly time-correlated.
+
+    ``ci`` is the two-sided percentile level (0.95 -> [2.5%, 97.5%]).
+    Resamples whose fit fails (e.g. a pathological draw that does not
+    decay) are skipped and counted via ``n_ok``.
+    """
+    if not 0 < ci < 1:        # fail before the (possibly GB-scale)
+        raise ValueError(f"ci must be in (0, 1), got {ci!r}")
+    if n_boot < 2:            # echo-matrix pass, not after it
+        raise ValueError(f"n_boot must be >= 2, got {n_boot!r}")
+    te, cos_echo = echo_cos_matrix(A, B, params, scale=scale, taucp=taucp,
+                                   walker_block=walker_block,
+                                   increments=increments)
+    return bootstrap_from_echoes(te, cos_echo, n_boot=n_boot, seed=seed,
+                                 ci=ci, floor=floor)
+
+
+def bootstrap_from_echoes(te, cos_echo, n_boot: int = 200, seed: int = 0,
+                          ci: float = 0.95,
+                          floor: float = 0.02) -> BootstrapT2:
+    """The walker-bootstrap core of :func:`bootstrap_t2`, on an already
+    materialized per-walker echo matrix ``[n_echoes, W]`` — e.g. one
+    captured in-stream by :class:`StreamingPlane` (``echo_pairs``) or on
+    the device by :func:`run_plane_on_device`, where no record ever
+    exists to pass to :func:`bootstrap_t2`."""
+    from ..analysis import fit_t2
+
+    if not 0 < ci < 1:
+        raise ValueError(f"ci must be in (0, 1), got {ci!r}")
+    if n_boot < 2:
+        raise ValueError(f"n_boot must be >= 2, got {n_boot!r}")
+    te = np.asarray(te, np.float64)
+    cos_echo = np.asarray(cos_echo, np.float64)
+    w = cos_echo.shape[1]
+    point = fit_t2(te, cos_echo.mean(axis=1), floor=floor)
+
+    rng = np.random.default_rng(seed)
+    counts = rng.multinomial(w, np.full(w, 1.0 / w), size=n_boot)
+    curves = cos_echo @ (counts.T / w)          # [n_echoes, n_boot]
+    samples = []
+    for b in range(n_boot):
+        try:
+            samples.append(fit_t2(te, curves[:, b], floor=floor).t2_ms)
+        except ValueError:
+            continue
+    if len(samples) < max(2, n_boot // 2):
+        raise ValueError(
+            f"only {len(samples)}/{n_boot} bootstrap resamples produced a "
+            f"valid T2 fit; the curve is too noisy to bootstrap")
+    s = np.asarray(samples, np.float64)
+    alpha = 100.0 * (1.0 - ci) / 2.0
+    lo, hi = np.percentile(s, [alpha, 100.0 - alpha])
+    return BootstrapT2(fit=point, t2_lo_ms=float(lo), t2_hi_ms=float(hi),
+                       t2_stderr_ms=float(s.std(ddof=1)),
+                       n_ok=len(samples), t2_samples=s)
+
+
+def bootstrap_dispersion(A, B, params: Params, taucps, scale: float = 1.0,
+                         n_boot: int = 200, seed: int = 0,
+                         ci: float = 0.95, floor: float = 0.02) -> list:
+    """The CPMG dispersion table R2(taucp) WITH Monte-Carlo confidence
+    intervals, from ONE decomposition record: per echo spacing, the
+    walker bootstrap of :func:`bootstrap_t2` (the flip-undo pass over
+    the record is paid once and shared).
+
+    Returns one dict per taucp:
+    ``{taucp_ms, r2_per_ms, t2_ms, t2_lo_ms, t2_hi_ms, t2_stderr_ms,
+    n_ok}`` — nan row (n_ok=0) for grid points with too few echoes or
+    an unfittable envelope, mirroring the ``--fit-r2`` sentinel.
+    """
+    p = params.validate()
+    inc = window_increments(A, B, p)
+    rows = []
+    nan = float("nan")
+    for t_cp in np.asarray(taucps, np.float64).reshape(-1):
+        try:
+            b = bootstrap_t2(A, B, p, scale=scale, taucp=float(t_cp),
+                             n_boot=n_boot, seed=seed, ci=ci,
+                             floor=floor, increments=inc)
+            rows.append({"taucp_ms": float(t_cp),
+                         "r2_per_ms": 1.0 / b.fit.t2_ms,
+                         "t2_ms": b.fit.t2_ms,
+                         "t2_lo_ms": b.t2_lo_ms,
+                         "t2_hi_ms": b.t2_hi_ms,
+                         "t2_stderr_ms": b.t2_stderr_ms,
+                         "n_ok": b.n_ok})
+        except ValueError:
+            rows.append({"taucp_ms": float(t_cp), "r2_per_ms": nan,
+                         "t2_ms": nan, "t2_lo_ms": nan, "t2_hi_ms": nan,
+                         "t2_stderr_ms": nan, "n_ok": 0})
+    return rows
+
+
+def bootstrap_t2_record(path: str, scale: float = 1.0,
+                        taucp: Optional[float] = None, n_boot: int = 200,
+                        seed: int = 0, ci: float = 0.95,
+                        floor: float = 0.02) -> BootstrapT2:
+    """:func:`bootstrap_t2` from a saved record (``--dump-record`` npz
+    or an ``io.record`` store) alone — error bars on T2 with no
+    simulator and no original Params object."""
+    A, B, meta = open_record(path)
+    p = record_params(path, n_windows=A.shape[0], meta=meta)
+    return bootstrap_t2(A, B, p, scale=scale, taucp=taucp, n_boot=n_boot,
+                        seed=seed, ci=ci, floor=floor)
+
+
+def bootstrap_dispersion_record(path: str, taucps, scale: float = 1.0,
+                                n_boot: int = 200, seed: int = 0,
+                                ci: float = 0.95,
+                                floor: float = 0.02) -> list:
+    """:func:`bootstrap_dispersion` from a saved record (npz or store
+    directory)."""
+    A, B, meta = open_record(path)
+    p = record_params(path, n_windows=A.shape[0], meta=meta)
+    return bootstrap_dispersion(A, B, p, taucps, scale=scale,
+                                n_boot=n_boot, seed=seed, ci=ci,
+                                floor=floor)
 
 
 def curves_at_scales(A, B, scales, quadrature: bool = False):

@@ -9,7 +9,9 @@ every ``drain_depth`` sprints, and stream the T2 curve to CSV.
 With ``--moment-scales`` and/or ``--echo-taucps`` the CLI runs one
 phase-decomposition simulation (``engine/decompose.py``) and writes one
 CSV per (moment scale, echo spacing) grid point, the reference's
-sim.py:1198-1395.
+sim.py:1198-1395: from the record on the host, from a plane streamed on
+the host (``--stream-plane``), or from a plane folded on the device
+(``--plane-device``, with ``--dump-echoes`` for the spin-echo captures).
 
 Run as a CLI:
     python -m mri_nanoparticle_simulation_tpu_torch.engine.sim \
@@ -280,6 +282,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "fingerprint) as .npz — a complete basis for "
                          "offline reconstruction at ANY moment scale / "
                          "aligned echo spacing (engine/decompose.py)")
+    ap.add_argument("--plane-device", action="store_true",
+                    help="with --moment-scales/--echo-taucps: compute "
+                         "the (moment x taucp) plane ON THE DEVICE "
+                         "(decompose.run_plane_on_device): the raw "
+                         "per-walker record never crosses to the host, "
+                         "only the curves come back after the run.  "
+                         "Carries are f32 + Kahan (the engine's own "
+                         "phase discipline): curves match the float64 "
+                         "host reconstruction to f32 rounding")
+    ap.add_argument("--dump-echoes", default=None, metavar="NPZ",
+                    help="with --plane-device: also gather the "
+                         "PER-WALKER spin-echo cos matrices of every "
+                         "(moment-scale x echo-taucp) grid point on the "
+                         "device and save them as .npz; "
+                         "python -m mri_nanoparticle_simulation_tpu_torch"
+                         ".analysis --echoes NPZ --bootstrap N then gives "
+                         "walker-bootstrap T2 confidence intervals for "
+                         "the whole grid with no record ever existing")
     ap.add_argument("--stream-plane", action="store_true",
                     help="with --moment-scales/--echo-taucps: reconstruct "
                          "the plane INCREMENTALLY per sprint "
@@ -368,6 +388,22 @@ def _check_decomposition_flags(ap, args) -> None:
     if args.fit_r2 and not args.echo_taucps:
         ap.error("--fit-r2 is the dispersion over the --echo-taucps "
                  "grid; pass the echo spacings to fit")
+    if args.plane_device:
+        if not decomp_mode:
+            ap.error("--plane-device computes a phase-decomposition "
+                     "plane; run with --moment-scales and/or "
+                     "--echo-taucps")
+        for bad, flag in ((args.stream_plane, "--stream-plane"),
+                          (args.dump_record, "--dump-record")):
+            if bad:
+                ap.error(f"--plane-device keeps the record on the "
+                         f"device; {flag} needs the host/disk record "
+                         f"paths — drop one of the two")
+    if args.dump_echoes and not args.plane_device:
+        ap.error("--dump-echoes captures spin-echo matrices during an "
+                 "on-device plane run; add --plane-device (record-based "
+                 "paths bootstrap from the record itself, mri-t2-fit "
+                 "--record)")
     if args.stream_plane:
         if not decomp_mode:
             ap.error("--stream-plane streams a phase-decomposition "
@@ -393,8 +429,10 @@ def _check_decomposition_flags(ap, args) -> None:
 def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
     """``--moment-scales`` / ``--echo-taucps``: one decomposition run, one
     CSV per (scale, taucp) grid point, and optionally the record
-    (``--dump-record``) and the CPMG dispersion table (``--fit-r2``); the
-    reference CLI's sim.py:1198-1395 on its record and streaming paths."""
+    (``--dump-record``), the spin-echo captures (``--dump-echoes``) and
+    the CPMG dispersion table (``--fit-r2``); the reference CLI's
+    sim.py:1198-1395 on its record, streaming and on-device plane
+    paths."""
     try:
         scales = ([float(v) for v in args.moment_scales.split(",")]
                   if args.moment_scales else [1.0])
@@ -409,6 +447,22 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
     for t_cp in taucps or ():
         # fail fast on sub-window / misaligned echo spacings
         params.replace(taucp=t_cp).validate()
+    taucps_eff = taucps if taucps is not None else [params.taucp]
+    echo_pairs = []
+    if args.dump_echoes:
+        # every grid point whose first spin echo (t = 2 taucp) fits
+        # inside the run; the others cannot be bootstrapped
+        for s in scales:
+            for t_cp in taucps_eff:
+                if 2.0 * t_cp <= params.totaltime:
+                    echo_pairs.append((s, t_cp))
+                else:
+                    print(f"  --dump-echoes: skipping mscale={s:g} "
+                          f"taucp={t_cp:g} (no spin echo inside "
+                          f"{params.totaltime:g} ms)", file=sys.stderr)
+        if not echo_pairs:
+            ap.error("--dump-echoes: no (scale, taucp) grid point hosts a "
+                     "spin echo inside the run")
     device = torch.device(args.device)
     if device.type == "cuda":
         require_cuda()
@@ -417,10 +471,16 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
     if cuda_engine.needs_cache(params.num_water, len(sc.mnps)):
         tbl = mnp_table(sc.mnps, torch.float32, device)
         cache = expansion.build_cache(tbl.pos, tbl.m, params)
-    taucps_eff = taucps if taucps is not None else [params.taucp]
     t0 = time.perf_counter()
     t_rec = None
-    if args.stream_plane:
+    if args.plane_device:
+        times, curves, stats, echoes = dec.run_plane_on_device(
+            sc, params, scales, taucps, seed=args.seed, device=device,
+            rng_impl=args.rng, echo_pairs=echo_pairs, cache=cache)
+        res = dec.DecompositionResult(
+            times_ms=times, A=np.zeros((0, params.num_water)),
+            B=np.zeros((0, params.num_water)), stats=stats)
+    elif args.stream_plane:
         plane = dec.StreamingPlane(params, params.t // params.pfreq,
                                    scales, taucps, quadrature=True)
         res = dec.run_decomposition(sc, params, seed=args.seed,
@@ -469,6 +529,12 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
             pfreq=params.pfreq)
         print(f"Decomposition record written: {args.dump_record} "
               f"(A/B {res.A.shape})", file=sys.stderr)
+    if args.dump_echoes:
+        # after the CSVs, like --dump-record
+        dec.save_echoes(args.dump_echoes, echoes, seed=args.seed)
+        print(f"Spin-echo capture written: {args.dump_echoes} "
+              f"({len(echoes)} grid point(s); bootstrap with "
+              f"mri-t2-fit --echoes)", file=sys.stderr)
     if args.fit_r2:
         _write_dispersion(args.fit_r2, res.times_ms, curves, scales,
                           taucps_eff, params.num_water)
@@ -477,13 +543,18 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
     st = res.stats
     n_pts = len(scales) * len(taucps_eff)
     rate = params.t * params.num_water / wall if wall > 0 else 0.0
-    # the run's own rate and the split (the device's sprints, the record's
-    # copies to the host, the host's work on each sprint's record while
-    # the next sprint runs), then the reconstruction after the run
-    print(f"  decomposition run: {st['wall_s']:.4f} s "
+    # the run's own rate and the split: the device's sprints (with the
+    # plane steps on --plane-device), the copies to the host (each
+    # sprint's record, or the curves once after the run), the host's
+    # work (on each sprint's record while the next sprint runs, or on
+    # the curves), then the reconstruction after the run
+    what = ("on-device plane run", "curve copy", "host after the run") \
+        if args.plane_device else ("decomposition run", "record copy",
+                                   "host per sprint")
+    print(f"  {what[0]}: {st['wall_s']:.4f} s "
           f"({st['walker_steps_per_s']:.4e} walker-steps/s) over "
           f"{st['sprints']} sprints: device {st['device_s']:.4f} s, "
-          f"record copy {st['copy_s']:.4f} s, host per sprint "
+          f"{what[1]} {st['copy_s']:.4f} s, {what[2]} "
           f"{st['host_s']:.4f} s; reconstruction after the run "
           f"{recon_s:.4f} s", file=sys.stderr)
     print(f"(moment x taucp)-plane reconstruction complete: {n_pts} "

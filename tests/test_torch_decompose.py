@@ -533,6 +533,17 @@ ERRORS = {
     "dump_record_without_decomposition": ["--dump-record", "rec.npz"],
     "dump_record_missing_directory": ["--moment-scales", "1",
                                       "--dump-record", "no/such/rec.npz"],
+    "plane_device_without_decomposition": ["--plane-device"],
+    "plane_device_and_stream_plane": ["--moment-scales", "1",
+                                      "--plane-device", "--stream-plane"],
+    "plane_device_and_dump_record": ["--moment-scales", "1",
+                                     "--plane-device", "--dump-record",
+                                     "rec.npz"],
+    "dump_echoes_without_plane_device": ["--moment-scales", "1",
+                                         "--dump-echoes", "e.npz"],
+    "dump_echoes_without_a_spin_echo": ["--echo-taucps", "0.002",
+                                        "--plane-device", "--dump-echoes",
+                                        "e.npz"],
     "scales_not_numbers": ["--moment-scales", "1,x"],
     "echo_spacing_misaligned": ["--echo-taucps", "0.0015"],
     "echo_spacing_below_window": ["--echo-taucps", "0.0005"],
