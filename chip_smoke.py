@@ -113,6 +113,27 @@ measured, and any failure raises (exit code != 0, no final line):
    generator; (c) the same 3 x 3 plane by run_plane_on_device: the same
    launches, curves within 1e-4 of the host plane's, its split beside
    the host plane's;
+18. durability at full width (before the kernels line; phase 13's check
+   again after it): (a) the headline through run_resilient with faults
+   at sprints 5 and 13, a checkpoint every 2 sprints, drain depth 1, on
+   Threefry (the CSV bytewise phase 4's, the curve phase 4's) and on the
+   fast generator (bytewise an uninterrupted fast run's), then a drain
+   hung past a 2 s watchdog, recovered bytewise; (b) the headline CLI
+   with --checkpoint --checkpoint-every 4 --max-retries 2 as a process,
+   SIGKILLed at a checkpoint step of 8e5 or more, the same command again:
+   its CSV bytewise the uninterrupted CLI run's; (c) phase 15's 5c run
+   with --record-dir --checkpoint --checkpoint-every 4, killed and run
+   again: the store's A/B bitwise phase 15's record, the 16 CSVs bytewise
+   phase 15's, a third run on the complete store launching nothing; (d)
+   phase 16's 3 x 3 plane through run_streaming_durable (10 sprints, a
+   snapshot after each, a fault at the third), then the same call: curves
+   bitwise equal to an uninterrupted call, within 1e-6 of phase 16's,
+   only chunk_near_kernel[fast+dec] and cand_model_kernel launched; (e)
+   --save-scene then --scene-file of the archive, and --scene-file of
+   the 270 centres as a CSV (CustomBox), each CSV bytewise the seed-42
+   CLI run's; --scene-family clustered and fcc for 2e5 steps, 0 escapes
+   and violations, and the chunk entry each dipole count chose; (f) the
+   seconds of a checkpoint save and a resume at 4032 and 100000 walkers;
 17. the kernels line (every entry and mode, with its launches in the
    run of its path, its time beside its plain version's and its bound,
    its layout, registers and spills),
@@ -127,6 +148,8 @@ import io
 import json
 import os
 import re
+import signal
+import subprocess
 import sys
 import tempfile
 import time
@@ -143,7 +166,7 @@ from mri_nanoparticle_simulation_tpu_torch import (  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (  # noqa: E402
     FAR_SUMS_K10, SCALEUP, all_variants, sass_loop, time_on_device)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
-    chunk_kernel, cuda_engine, sim)
+    chunk_kernel, cuda_engine, resilience, sim)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
     decompose as dec)
 from mri_nanoparticle_simulation_tpu_torch.engine.convert import (  # noqa
@@ -154,11 +177,15 @@ from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import (  # n
     init_state)
 from mri_nanoparticle_simulation_tpu_torch.engine.sim import (  # noqa: E402
     SimulationRunner)
+from mri_nanoparticle_simulation_tpu_torch.io import (  # noqa: E402
+    record as record_mod)
 from mri_nanoparticle_simulation_tpu_torch.io.writer import (  # noqa: E402
     read_t2_csv)
 from mri_nanoparticle_simulation_tpu_torch.params import Params  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch.scene import (  # noqa: E402
-    BacteriaBox)
+    BacteriaBox, ClusteredBacteriaBox, FCCLatticeBox)
+from mri_nanoparticle_simulation_tpu_torch.scene import (  # noqa: E402
+    io as scene_io)
 from mri_nanoparticle_simulation_tpu_torch.utils.device import (  # noqa: E402
     card_label, require_cuda)
 
@@ -539,6 +566,8 @@ def main():
                                             max_steps=2_000_000)
         main_launches = launches()
         rows = read_t2_csv(csv)
+        with open(csv) as fh:
+            keep = {"t4_csv": fh.read(), "t4_cos": cos, "scene": runner.scene}
     check(len(rows[0]) == 2000, f"{len(rows[0])} CSV rows, expected 2000")
     check(stats["escapes"] == 0, f"{stats['escapes']} escapes")
     check(stats["coverage_violations"] == 0,
@@ -594,7 +623,7 @@ def main():
     regs, spill = res["far_sums_kernel", ctx["p"].near_k]   # K 10
     big[2].update(registers=regs, spill_bytes=spill_bytes(spill))
     modes = mode_phases(dev, label, p, sc, ctx)
-    fast_launches = fast_headline(runner, cos, label)
+    fast_launches, keep["fast_cos"] = fast_headline(runner, cos, label)
     arm_launches = golden_arms(label)
     near_launches = fast_scaleup(ctx, label)
 
@@ -602,8 +631,9 @@ def main():
     no_reference_imported()
     done(t0, "nothing of jax or of the JAX package imported")
     dec_modes = decompose_modes(dev, label, p, sc, ctx)
-    dec_launches = decompose_headline(sc, ours, oracle, label)
-    dec_launches.update(decompose_scaleup(ctx, label))
+    dec_launches = decompose_headline(sc, ours, oracle, label, keep)
+    dec_launches.update(decompose_scaleup(ctx, label, keep))
+    durability(ctx, keep, label)
 
     t0 = phase("17 kernels")
     no_reference_imported()
@@ -818,7 +848,7 @@ def fast_headline(tf_runner, tf_cos, label):
          f"{gate:.4f}), {float(np.abs(d).max()):.3e} over 2e6; final sum "
          f"cos/W {cos[-1] / w:.6f} fast, {tf_cos[-1] / w:.6f} Threefry "
          f"[{label}]")
-    return {"chunk_kernel[fast]": got["chunk_kernel[fast]"]}
+    return {"chunk_kernel[fast]": got["chunk_kernel[fast]"]}, cos
 
 
 def golden_arms(label):
@@ -1076,11 +1106,11 @@ def check_reconstruction(rec, cos, w, what, early=40):
     return d_early, d_all
 
 
-def decompose_headline(sc, direct_golden, oracle, label):
+def decompose_headline(sc, direct_golden, oracle, label, keep):
     """Phase 15: README configuration 5c through the port CLI at full
     width, the golden check of the Threefry decompose kernel, and the
     variants on the headline; returns the decompose launches of each
-    path."""
+    path and keeps the 5c run's argv, CSVs and record in ``keep``."""
     t0 = phase("15 decomposition through the CLI, headline, fast generator")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1107,6 +1137,9 @@ def decompose_headline(sc, direct_golden, oracle, label):
                               "seed", "taucp", "tau", "pfreq"]),
               f"record keys {keys}")
         check(rec_shape == (2000, 4032), f"record A {rec_shape}")
+        keep["5c"] = dict(argv=argv, csvs=csv_texts(tmp))
+        with np.load(os.path.join(tmp, "rec.npz")) as z:
+            keep["5c"].update(A=z["A"], B=z["B"])
         with open(os.path.join(tmp, "r2.csv")) as fh:
             r2 = fh.read().splitlines()
         check(len(r2) == 17, f"dispersion table of {len(r2)} lines")
@@ -1232,10 +1265,11 @@ def plane_cli(argv, curves, r2, cli_wall, num_water, label):
     return {"chunk_kernel[fast+dec]": got["chunk_kernel[fast+dec]"]}
 
 
-def decompose_scaleup(ctx, label):
+def decompose_scaleup(ctx, label, keep):
     """Phase 16: the scale-up with a streaming plane on the fast
     generator, then Threefry and every variant, each against a direct
-    run; returns the decompose launches of each path."""
+    run; returns the decompose launches of each path and keeps the host
+    plane in ``keep``."""
     t0 = phase("16 decomposition, scale-up, streaming plane, fast generator")
     p = ctx["p"].replace(totaltime=0.1).validate()     # 2e5 steps
     scene, cache = ctx["runner"].scene, ctx["runner"].cache
@@ -1268,6 +1302,7 @@ def decompose_scaleup(ctx, label):
           f"{split_line(res.stats)} [{label}]", flush=True)
     done(t0, f"launches {got} [{label}]")
     host_plane, host_stats = curves, res.stats
+    keep["plane16"] = host_plane
 
     t0 = phase("16 (b) scale-up decompose on Threefry and every variant")
     p = p.replace(totaltime=0.01).validate()           # 2e4 steps
@@ -1318,6 +1353,382 @@ def decompose_scaleup(ctx, label):
     return out
 
 
+def csv_texts(tmp):
+    """{file name: text} of the grid-point CSVs a 5c CLI run wrote into
+    ``tmp``."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(tmp, "t2_mscale=*.csv"))):
+        with open(path) as fh:
+            out[os.path.basename(path)] = fh.read()
+    return out
+
+
+def checkpoint_step(path):
+    """The step of the checkpoint at ``path`` (None while there is none
+    or it cannot be read)."""
+    try:
+        with np.load(path) as z:
+            return int(z["step"])
+    except (OSError, ValueError, KeyError, EOFError):
+        return None
+
+
+def kill_at_step(argv, ckpt, at_least, total, log):
+    """Run the port CLI with ``argv`` as a process of its own, SIGKILL it
+    as soon as its checkpoint ``ckpt`` holds a step of at least
+    ``at_least`` (below ``total``, the run's end), and return that
+    step.  The process is stopped whatever happens."""
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "mri_nanoparticle_simulation_tpu_torch.engine.sim", *argv],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            seen, step = None, None
+            deadline = time.perf_counter() + 300
+            while proc.poll() is None and time.perf_counter() < deadline:
+                try:
+                    mtime = os.stat(ckpt).st_mtime_ns
+                except FileNotFoundError:
+                    mtime = None
+                if mtime is not None and mtime != seen:
+                    seen = mtime
+                    step = checkpoint_step(ckpt)
+                    if step is not None and step >= at_least:
+                        proc.send_signal(signal.SIGKILL)
+                        break
+                time.sleep(0.001)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    with open(log) as fh:
+        tail = fh.read()[-2000:]
+    check(proc.returncode == -signal.SIGKILL,
+          f"the run was not killed (exit {proc.returncode}):\n{tail}")
+    check(step is not None and at_least <= step < total,
+          f"killed at checkpoint step {step}, not mid-run")
+    return step
+
+
+def run_process(argv, log):
+    """Run the port CLI with ``argv`` as a process of its own; it must
+    exit 0.  Returns its wall seconds."""
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        rc = subprocess.run(
+            [sys.executable, "-m",
+             "mri_nanoparticle_simulation_tpu_torch.engine.sim", *argv],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
+            timeout=600).returncode
+    with open(log) as fh:
+        text = fh.read()
+    check(rc == 0, f"CLI process exit {rc}:\n{text[-2000:]}")
+    m = re.search(r"(\d+) chunk escapes, (\d+) coverage violations", text)
+    check(m is not None and m.groups() == ("0", "0"),
+          "escapes or coverage violations")
+    return time.perf_counter() - t0
+
+
+def durability(ctx, keep, label):
+    """Phase 18: durability at full width.  (a) the headline through
+    run_resilient with injected faults, then a hung drain, on both
+    generators; (b) the CLI killed mid-run and run again; (c) phase 15's
+    5c run with a record store, killed and run again; (d) phase 16's
+    plane through run_streaming_durable with a fault; (e) scene files
+    and families through the CLI; (f) the cost of a checkpoint's save
+    and resume."""
+    t0 = phase("18 (a) durability: in-process recovery, headline")
+    hp = Params(**HEADLINE)
+    scene = keep["scene"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for rng_impl in ("threefry", "hardware"):
+            def make_runner():
+                return SimulationRunner(hp, scene=scene, seed=7,
+                                        device="cuda", rng_impl=rng_impl)
+            if rng_impl == "threefry":
+                ref = keep["t4_csv"]
+            else:
+                path = os.path.join(tmp, "fast.csv")
+                make_runner().run(csv_path=path, progress=False,
+                                  max_steps=2_000_000)
+                with open(path) as fh:
+                    ref = fh.read()
+                check(np.array_equal(read_t2_csv(path)[1],
+                                     keep["fast_cos"]),
+                      "the fast run differs from phase 10's")
+            csv = os.path.join(tmp, f"{rng_impl}.csv")
+            ckpt = os.path.join(tmp, f"{rng_impl}.npz")
+            inj = resilience.FaultInjector({5: 1, 13: 1})
+            reset_launches()
+            t1 = time.perf_counter()
+            _, cos, _, stats = resilience.run_resilient(
+                make_runner, csv_path=csv, checkpoint_path=ckpt,
+                checkpoint_every_sprints=2, drain_depth=1, max_retries=2,
+                fault_hook=inj, progress=False, max_steps=2_000_000)
+            wall = time.perf_counter() - t1
+            got = launches()
+            with open(csv) as fh:
+                text = fh.read()
+            check(inj.faults_fired == 2 and stats["recovery_attempts"] == 2,
+                  f"{rng_impl}: faults {inj.faults_fired}, recoveries "
+                  f"{stats['recovery_attempts']}")
+            check(text == ref, f"{rng_impl}: the recovered CSV differs "
+                  f"from the uninterrupted run's")
+            if rng_impl == "threefry":
+                check(np.array_equal(cos, keep["t4_cos"]),
+                      "the recovered curve differs from phase 4's")
+            check(stats["escapes"] == 0
+                  and stats["coverage_violations"] == 0,
+                  f"{rng_impl}: escapes or violations")
+            print(f"  {rng_impl}: faults at sprints 5 and 13 recovered "
+                  f"(2 rebuilds, checkpoints every 2 sprints, drain depth "
+                  f"1): CSV bytewise equal to the uninterrupted run's "
+                  f"({len(text.splitlines())} rows); {wall:.3f} s, "
+                  f"launches {launched(got)}", flush=True)
+        # a drain that hangs past the watchdog's deadline
+        built = []
+
+        def hung_first():
+            r = SimulationRunner(hp, scene=scene, seed=7, device="cuda",
+                                 rng_impl="threefry")
+            if not built:
+                orig = r._fetch_pending
+                r._fetch_pending = \
+                    lambda pending: (time.sleep(4.0), orig(pending))[1]
+            built.append(r)
+            return r
+
+        csv = os.path.join(tmp, "hung.csv")
+        err = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            _, _, _, stats = resilience.run_resilient(
+                hung_first, csv_path=csv,
+                checkpoint_path=os.path.join(tmp, "hung.npz"),
+                checkpoint_every_sprints=2, drain_depth=1, max_retries=1,
+                drain_timeout_s=2.0, progress=False, max_steps=2_000_000)
+        wall = time.perf_counter() - t1
+        with open(csv) as fh:
+            text = fh.read()
+        check("WatchdogTimeout" in err.getvalue(), "no watchdog timeout")
+        check(stats["recovery_attempts"] == 1 and len(built) == 2,
+              f"hung drain: {stats['recovery_attempts']} recoveries")
+        check(text == keep["t4_csv"], "hung drain: the CSV differs")
+        print(f"  a drain hung 4 s past a 2 s deadline: WatchdogTimeout, "
+              f"rebuilt, CSV bytewise equal; {wall:.3f} s", flush=True)
+    done(t0, f"[{label}]")
+
+    t0 = phase("18 (b) the CLI killed mid-run and run again")
+    cli = ["--num-water", "4032", "--num-cells", "270", "--totaltime", "2",
+           "--chunk-steps", "4000", "--near-k", "5", "--scene-seed", "42",
+           "--seed", "7", "--rng", "threefry", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_csv = os.path.join(tmp, "ref.csv")
+        got, _, ref_wall = run_cli(cli + ["--out", ref_csv])
+        check(got == only(chunk_kernel=500), f"kernel launches {got}")
+        with open(ref_csv) as fh:
+            ref = fh.read()
+        print(f"  the uninterrupted CLI run: {ref_wall:.3f} s; its CSV "
+              f"{'equals' if ref == keep['t4_csv'] else 'differs from'} "
+              f"phase 4's", flush=True)
+        out, ckpt = os.path.join(tmp, "x.csv"), os.path.join(tmp, "c.npz")
+        argv = cli + ["--checkpoint", ckpt, "--checkpoint-every", "4",
+                      "--max-retries", "2", "--out", out]
+        t1 = time.perf_counter()
+        step = kill_at_step(argv, ckpt, 800_000, 2_000_000,
+                            os.path.join(tmp, "kill.log"))
+        kill_s = time.perf_counter() - t1
+        rows = len(open(out).read().splitlines())
+        again_s = run_process(argv, os.path.join(tmp, "again.log"))
+        with open(out) as fh:
+            check(fh.read() == ref, "the re-run's CSV differs from the "
+                  "uninterrupted run's")
+        print(f"  SIGKILL at checkpoint step {step} ({rows} rows on disk; "
+              f"process {kill_s:.3f} s), the same command again "
+              f"{again_s:.3f} s: CSV bytewise equal", flush=True)
+        keep["headline_cli"] = (cli, ref)
+    done(t0, f"[{label}]")
+
+    t0 = phase("18 (c) a durable 5c record, killed and run again")
+    c5 = keep["5c"]
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = list(c5["argv"])
+        i = argv.index("--dump-record")
+        store, ckpt = os.path.join(tmp, "rec"), os.path.join(tmp, "c.npz")
+        argv[i:i + 2] = ["--record-dir", store, "--checkpoint", ckpt,
+                         "--checkpoint-every", "4"]
+        argv[argv.index("--fit-r2") + 1] = os.path.join(tmp, "r2.csv")
+        argv[argv.index("--out") + 1] = os.path.join(tmp, "t2.csv")
+        t1 = time.perf_counter()
+        step = kill_at_step(argv, ckpt, 800_000, 2_000_000,
+                            os.path.join(tmp, "kill.log"))
+        kill_s = time.perf_counter() - t1
+        rows = record_mod.RecordStore.open(store).rows
+        step = checkpoint_step(ckpt)          # where the re-run resumes
+        got, _, again_s = run_cli(argv)
+        want = (2_000_000 - step) // 100_000 * 25
+        check(got == only(**{"chunk_kernel[fast+dec]": want}),
+              f"kernel launches {got}, expected {want} "
+              f"chunk_kernel[fast+dec]")
+        st = record_mod.RecordStore.open(store)
+        check(st.complete, "the store is not complete")
+        a, b = st.arrays()
+        check(np.array_equal(a, c5["A"]) and np.array_equal(b, c5["B"]),
+              "the store's A/B differ from phase 15's record")
+        check(csv_texts(tmp) == c5["csvs"], "the 16 CSVs differ from "
+              "phase 15's")
+        got3, _, third_s = run_cli(argv)
+        check(got3 == only(), f"the run on the complete store launched "
+              f"{got3}")
+        check(csv_texts(tmp) == c5["csvs"], "the third run's CSVs differ")
+        print(f"  SIGKILL at checkpoint step {step} ({rows} record rows "
+              f"committed; process {kill_s:.3f} s), the same command "
+              f"again {again_s:.3f} s ({want} launches): A/B bitwise "
+              f"equal to phase 15's record, 16 CSVs bytewise equal; a "
+              f"third run on the complete store {third_s:.3f} s, no "
+              f"launch", flush=True)
+    done(t0, f"[{label}]")
+
+    t0 = phase("18 (d) a durable stream plane, scale-up, fast generator")
+    p = ctx["p"].replace(totaltime=0.1).validate()     # 2e5 steps
+    big, cache = ctx["runner"].scene, ctx["runner"].cache
+    scales, taucps = [0.5, 1.0, 2.0], [0.01, 0.02, p.taucp]
+    n_sprints = p.t // p.sprint_steps
+    check(n_sprints >= 5, f"{n_sprints} sprints")
+
+    def plane():
+        return dec.StreamingPlane(p, p.t // p.pfreq, scales, taucps,
+                                  quadrature=True)
+
+    def durable(pl, snap, **kw):
+        return dec.run_streaming_durable(
+            big, p, pl, snap, seed=7, device="cuda", rng_impl="hardware",
+            snapshot_every_sprints=1, cache=cache, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "snap.npz")
+        reset_launches()
+        t1 = time.perf_counter()
+        try:
+            durable(plane(), snap, fault_hook=resilience.FaultInjector(
+                {2: 1}))
+            raise AssertionError("the injected fault did not fire")
+        except RuntimeError as e:
+            check("injected fault at sprint 2" in str(e), str(e))
+        killed_s = time.perf_counter() - t1
+        resumed = plane()
+        t1 = time.perf_counter()
+        st = durable(resumed, snap)
+        resume_s = time.perf_counter() - t1
+        got = launches()
+        check(0 < st["sprints"] < n_sprints, f"resumed {st['sprints']} of "
+              f"{n_sprints} sprints")
+        check(set(launched(got)) == {"chunk_near_kernel[fast+dec]",
+                                     "cand_model_kernel"},
+              f"kernel launches {got}")
+        check(st["escapes"] == 0 and st["coverage_violations"] == 0,
+              "durable plane: escapes or violations")
+        whole = plane()
+        reset_launches()
+        st_whole = durable(whole, os.path.join(tmp, "whole.npz"))
+        got_whole = launches()
+        check(got_whole == only(**{"chunk_near_kernel[fast+dec]": 50,
+                                   "cand_model_kernel": 50}),
+              f"kernel launches {got_whole}")
+        check(np.array_equal(resumed.result(), whole.result()),
+              "the resumed plane differs from the uninterrupted one")
+        d16 = float(np.abs(whole.result() - keep["plane16"]).max())
+        check(d16 < 1e-6, f"the durable plane is {d16} from phase 16's")
+        print(f"  {n_sprints} sprints, a snapshot after each, a fault at the "
+              f"third: {killed_s:.3f} s, then resumed at sprint "
+              f"{n_sprints - st['sprints']} in {resume_s:.3f} s "
+              f"(launches {launched(got)}); curves bitwise equal to an "
+              f"uninterrupted call ({st_whole['wall_s']:.3f} s), max |d| "
+              f"{d16:.3e} from phase 16's plane (tol 1e-6)", flush=True)
+    done(t0, f"[{label}]")
+
+    t0 = phase("18 (e) scene files and scene families through the CLI")
+    cli, ref = keep["headline_cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "scene.npz")
+        runs = {}
+        for name, extra in (("--save-scene", ["--save-scene", npz]),
+                            ("--scene-file archive", ["--scene-file", npz])):
+            out = os.path.join(tmp, "s.csv")
+            got, _, wall = run_cli(cli + extra + ["--out", out])
+            with open(out) as fh:
+                check(fh.read() == ref, f"{name}: the CSV differs from the "
+                      f"seed-42 CLI run's")
+            runs[name] = (wall, launched(got))
+        cells = os.path.join(tmp, "cells.csv")
+        np.savetxt(cells, scene.cells, delimiter=",")
+        custom = scene_io.CustomBox(
+            hp, scene_io.load_cells_csv(cells), seed=42).populate()
+        for f in ("cells", "mnps", "waters", "lookup_table"):
+            check(np.array_equal(getattr(custom, f), getattr(scene, f)),
+                  f"CustomBox of the 270 centres: {f} differs")
+        out = os.path.join(tmp, "c.csv")
+        got, _, wall = run_cli(cli + ["--scene-file", cells, "--out", out])
+        with open(out) as fh:
+            check(fh.read() == ref, "--scene-file cells.csv: the CSV "
+                  "differs from the seed-42 CLI run's")
+        runs["--scene-file cells.csv (CustomBox)"] = (wall, launched(got))
+        for name, (wall, got) in runs.items():
+            print(f"  {name}: CSV bytewise equal to the seed-42 run's; "
+                  f"{wall:.3f} s, launches {got}", flush=True)
+        fam = ["--num-water", "4032", "--num-cells", "270", "--totaltime",
+               "0.2", "--scene-seed", "42", "--seed", "7", "--device",
+               "cuda", "--chunk-steps", "1000"]
+        for family, extra, box in (
+                ("clustered", ["--near-k", "10", "--max-neighbors", "48"],
+                 lambda q: ClusteredBacteriaBox(q, seed=42)),
+                ("fcc", ["--near-k", "5"],
+                 lambda q: FCCLatticeBox(q, seed=42))):
+            argv = fam + extra + ["--scene-family", family,
+                                  "--out", os.path.join(tmp, "f.csv")]
+            got, _, wall = run_cli(argv)
+            ap = sim.build_parser()
+            q = sim.params_from_args(ap, ap.parse_args(argv))
+            n_mnp = len(box(q).populate().mnps)
+            entry = "rebuild entry (chunk_kernel)" \
+                if n_mnp <= cuda_engine.REBUILD_MAX_MNPS \
+                else "near entry (chunk_near_kernel)"
+            check(sum(got.values()) == 200, f"{family}: launches {got}")
+            rows = read_t2_csv(os.path.join(tmp, "f.csv"))
+            check(len(rows[0]) == 200 and bool(np.isfinite(rows[1]).all()),
+                  f"{family}: CSV")
+            print(f"  --scene-family {family}: {n_mnp} dipoles -> the "
+                  f"{entry}; 2e5 steps x 4032 walkers, 0 escapes, 0 "
+                  f"violations, {wall:.3f} s, launches {launched(got)}",
+                  flush=True)
+    done(t0, f"[{label}]")
+
+    t0 = phase("18 (f) the cost of a checkpoint")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, runner in (
+                ("4032 walkers", SimulationRunner(hp, scene=scene, seed=7,
+                                                  device="cuda")),
+                (f"{ctx['p'].num_water} walkers", ctx["runner"])):
+            path = os.path.join(tmp, "c.npz")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            runner._save_checkpoint(path)
+            save_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            runner.resume(path)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t1
+            print(f"  {name}: save {save_s:.4f} s, resume {resume_s:.4f} s "
+                  f"({os.path.getsize(path)} bytes) [{label}]", flush=True)
+    done(t0, f"[{label}]")
+
+
+def launched(got):
+    """The kernels and modes of a LAUNCHES dict that were launched."""
+    return {k: v for k, v in got.items() if v}
+
+
 def run_cli(argv):
     """(launches, stderr text, wall s) of one port CLI run that must exit
     0 with no escape and no coverage violation; prints its stderr but
@@ -1331,7 +1742,9 @@ def run_cli(argv):
     got = launches()
     text = err.getvalue()
     print("  " + "\n  ".join(ln for ln in text.splitlines()
-                              if "wrote" not in ln), flush=True)
+                              if "wrote" not in ln
+                              and not ln.startswith("  sprint ")),
+          flush=True)
     check(rc == 0, f"CLI exit {rc}")
     m = re.search(r"(\d+) chunk escapes, (\d+) coverage violations", text)
     check(m is not None and m.groups() == ("0", "0"),

@@ -148,7 +148,7 @@ def chunk_physics(params: Params,
         raise NotImplementedError(
             "chunk_steps that are not a multiple of pfreq run only in the "
             "reference's scan engine (its window-major mode), which is not "
-            "ported yet: ROADMAP Queue 1 item 1")
+            "ported yet: ROADMAP Queue 1 item 8")
     travel2 = float(expansion.default_travel_bound(params) ** 2)
     intended = params.kick_mode == KICK_INTENDED
     return ChunkPhysics(

@@ -26,7 +26,10 @@ kernels in decompose mode (``cuda_engine.make_sprint_fn(...,
 decompose=True)``) and drains the per-walker record to the host;
 ``run_plane_on_device`` runs the same sprints and folds each record into
 the plane on the device (``make_plane_step``, plain torch), so only the
-curves and the spin-echo captures (``EchoCapture``) come back.  The
+curves and the spin-echo captures (``EchoCapture``) come back.
+``run_decomposition_durable`` (a record store on disk) and
+``run_streaming_durable`` (a streaming plane) checkpoint as they go and,
+run again after a crash, resume to the same bits.  The
 reconstruction functions, the record readers (``open_record``,
 ``record_params``, ``reconstruct_record``) and the walker bootstrap are
 the reference's float64 NumPy code carried over as it is, and
@@ -35,6 +38,8 @@ the reference's float64 NumPy code carried over as it is, and
 
 from __future__ import annotations
 
+import os
+import sys
 import time
 from typing import NamedTuple, Optional
 
@@ -63,12 +68,14 @@ def _unpack_wins(wins: np.ndarray, num_water: int):
     return wins[:, 0, :num_water], wins[:, 1, :num_water]
 
 
-def _decompose_sprints(scene, p: Params, seed: int, device, rng_impl: str):
+def _decompose_sprints(scene, p: Params, seed: int, device, rng_impl: str,
+                       cache=None):
     """The sprint plumbing of a decomposition run on ``device``: (device,
-    sprint function, dipole table, key words, the decompose state as
-    planes).  On a card the library is built and loaded first, so the
-    build is set-up and not part of the run; a CUDA device without a
-    card raises."""
+    ``step(ss) -> (ss', wins)``, the initial decompose state as planes).
+    ``step`` runs one sprint and hands ``cache`` (the scene cache of a
+    scene above ``REBUILD_MAX_MNPS`` dipoles) to it.  On a card the
+    library is built and loaded first, so the build is set-up and not
+    part of the run; a CUDA device without a card raises."""
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()
@@ -76,8 +83,98 @@ def _decompose_sprints(scene, p: Params, seed: int, device, rng_impl: str):
     sprint = make_sprint_fn(p, scene.waters.shape[0], dev,
                             rng_impl=rng_impl, decompose=True)
     tbl = mnp_table(scene.mnps, torch.float32, dev)
+    key = key_words(seed)
     ss = to_soa(init_state(scene.waters, p, dev, decompose=True), p)
-    return dev, sprint, tbl, key_words(seed), ss
+
+    def step(ss):
+        return sprint(tbl, key, ss, cache=cache)
+
+    return dev, step, ss
+
+
+def _one_deep(dev, step, ss, sprints, num_water: int, commit, split,
+              fault_hook=None):
+    """Run the sprints of the absolute indices ``sprints`` from state
+    ``ss`` with a drain one sprint deep: sprint i+1 is queued before
+    sprint i's record is read.  On a card the record is copied to pinned
+    host memory on a second stream, so the copy and the host's work on
+    sprint i overlap the device's work on sprint i+1.  ``commit(a_blk,
+    b_blk, ss_i, i)`` gets, in sprint order, sprint i's record blocks
+    ``[n_win, W]`` and the state after it.  ``fault_hook(i)`` is called
+    before sprint i is queued.  ``split`` accumulates ``device_s`` (CUDA
+    events; on the CPU the sprint calls), ``copy_s`` and ``host_s`` (the
+    unpacking and ``commit``).  Returns the final state."""
+    on_card = dev.type == "cuda"
+    copy_stream = torch.cuda.Stream(dev) if on_card else None
+
+    def launch(ss):
+        """Queue one sprint and the copy of its record; returns the new
+        state and the pending (host record, copy event, timing)."""
+        if not on_card:
+            t0 = time.perf_counter()
+            ss, wins = step(ss)
+            split["device_s"] += time.perf_counter() - t0
+            return ss, (wins, None, None)
+        dev0 = torch.cuda.Event(enable_timing=True)
+        dev1 = torch.cuda.Event(enable_timing=True)
+        dev0.record()
+        ss, wins = step(ss)
+        dev1.record()
+        host = torch.empty(wins.shape, dtype=wins.dtype, pin_memory=True)
+        cp0 = torch.cuda.Event(enable_timing=True)
+        cp1 = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(copy_stream):
+            copy_stream.wait_event(dev1)
+            wins.record_stream(copy_stream)
+            cp0.record(copy_stream)
+            host.copy_(wins, non_blocking=True)
+            cp1.record(copy_stream)
+        return ss, (host, cp1, (dev0, dev1, cp0))
+
+    def emit(item, ss_i, i):
+        host, copy_done, timing = item
+        if on_card:
+            copy_done.synchronize()
+            dev0, dev1, cp0 = timing
+            split["device_s"] += dev0.elapsed_time(dev1) / 1e3
+            split["copy_s"] += cp0.elapsed_time(copy_done) / 1e3
+        t0 = time.perf_counter()
+        commit(*_unpack_wins(host.numpy(), num_water), ss_i, i)
+        split["host_s"] += time.perf_counter() - t0
+
+    pending = None
+    for i in sprints:
+        if fault_hook is not None:
+            fault_hook(i)
+        ss, item = launch(ss)
+        if pending is not None:
+            emit(*pending)
+        pending = (item, ss, i)
+    if pending is not None:
+        emit(*pending)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    return ss
+
+
+#: the stats a record store keeps (the reference's)
+_COUNTERS = ("steps", "escapes", "coverage_violations")
+
+
+def _run_stats(final, n_sprints: int, p: Params, num_water: int,
+               wall: float, split: dict) -> dict:
+    """A run's stats: the counters of its ``final`` state, its wall and
+    rate over the ``n_sprints`` sprints it ran, and the split."""
+    return {
+        "steps": int(final.step),
+        "escapes": int(final.escapes),
+        "coverage_violations": int(final.coverage),
+        "wall_s": wall,
+        "walker_steps_per_s": n_sprints * p.sprint_steps * num_water / wall
+        if wall > 0 else 0.0,
+        "sprints": n_sprints,
+        **split,
+    }
 
 
 def run_decomposition(scene, params: Params, seed: int = 0, *,
@@ -98,10 +195,7 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
     returned result then carries empty (0-window) A/B arrays and the
     reconstruction lives in the consumer.
 
-    The drain is one sprint deep, as in the reference: sprint i+1 is
-    queued before sprint i's record is read, and on a card the record is
-    copied to pinned host memory on a second stream, so the copy and the
-    host's work on sprint i overlap the device's work on sprint i+1.
+    The drain is one sprint deep, as in the reference (``_one_deep``).
     ``stats`` holds, besides the counters, ``wall_s``, the
     ``walker_steps_per_s`` of the whole run, and the split summed over
     sprints: ``device_s`` (the sprints' kernels, CUDA events; on the CPU
@@ -111,87 +205,295 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
     """
     p = params.validate()
     num_water = scene.waters.shape[0]
-    dev, sprint, tbl, key, ss = _decompose_sprints(scene, p, seed, device,
-                                                   rng_impl)
-    on_card = dev.type == "cuda"
-
+    dev, step, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
+                                       cache)
     total = p.t if max_steps is None else min(p.t, max_steps)
     n_sprints = total // p.sprint_steps
     a_parts, b_parts = [], []
-    n_emitted = 0
     split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
-    copy_stream = torch.cuda.Stream(dev) if on_card else None
 
-    def emit(item):
-        nonlocal n_emitted
-        host, copy_done, timing = item
-        if on_card:
-            copy_done.synchronize()
-            dev0, dev1, cp0 = timing
-            split["device_s"] += dev0.elapsed_time(dev1) / 1e3
-            split["copy_s"] += cp0.elapsed_time(copy_done) / 1e3
-        t0 = time.perf_counter()
-        a_blk, b_blk = _unpack_wins(host.numpy(), num_water)
-        n_emitted += a_blk.shape[0]
+    def commit(a_blk, b_blk, ss_i, i):
         if consumer is not None:
             consumer.update(a_blk, b_blk)
         else:
             a_parts.append(a_blk.copy())
             b_parts.append(b_blk.copy())
-        split["host_s"] += time.perf_counter() - t0
-
-    def launch(ss):
-        """Queue one sprint and the copy of its record; returns the new
-        state and the pending (host record, copy event, timing)."""
-        if not on_card:
-            t0 = time.perf_counter()
-            ss, wins = sprint(tbl, key, ss, cache=cache)
-            split["device_s"] += time.perf_counter() - t0
-            return ss, (wins, None, None)
-        dev0 = torch.cuda.Event(enable_timing=True)
-        dev1 = torch.cuda.Event(enable_timing=True)
-        dev0.record()
-        ss, wins = sprint(tbl, key, ss, cache=cache)
-        dev1.record()
-        host = torch.empty(wins.shape, dtype=wins.dtype, pin_memory=True)
-        cp0 = torch.cuda.Event(enable_timing=True)
-        cp1 = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(copy_stream):
-            copy_stream.wait_event(dev1)
-            wins.record_stream(copy_stream)
-            cp0.record(copy_stream)
-            host.copy_(wins, non_blocking=True)
-            cp1.record(copy_stream)
-        return ss, (host, cp1, (dev0, dev1, cp0))
 
     t_start = time.perf_counter()
-    pending = None
-    for _ in range(n_sprints):
-        ss, item = launch(ss)
-        if pending is not None:
-            emit(pending)
-        pending = item
-    if pending is not None:
-        emit(pending)
-    if on_card:
-        torch.cuda.synchronize(dev)
+    ss = _one_deep(dev, step, ss, range(n_sprints), num_water, commit,
+                   split)
     wall = time.perf_counter() - t_start
     final = from_soa(ss, num_water)
 
     A = np.concatenate(a_parts) if a_parts else np.zeros((0, num_water))
     B = np.concatenate(b_parts) if b_parts else np.zeros((0, num_water))
+    n_emitted = n_sprints * (p.sprint_steps // p.pfreq)
     times = (np.arange(1, n_emitted + 1) * p.pfreq) * p.tau
-    stats = {
-        "steps": int(final.step),
-        "escapes": int(final.escapes),
-        "coverage_violations": int(final.coverage),
-        "wall_s": wall,
-        "walker_steps_per_s": n_sprints * p.sprint_steps * num_water / wall
-        if wall > 0 else 0.0,
-        "sprints": n_sprints,
-        **split,
+    return DecompositionResult(
+        times_ms=times, A=A, B=B,
+        stats=_run_stats(final, n_sprints, p, num_water, wall, split))
+
+
+def _resume_state(path: str, p: Params, dev, seed: int, scene_seed: int,
+                  rng_impl: str, scene_fp: str, what: str):
+    """The walker state of a durable run's checkpoint ``path`` (or
+    snapshot, ``what``) on ``dev``, its identity checked against this
+    run's; raises unless it sits on a sprint boundary."""
+    from ..io import checkpoint as ckpt_mod
+    state, ck_seed, ck_scene_seed = ckpt_mod.load_checkpoint(
+        path, p, dev, engine=ckpt_mod.ENGINE_TAG,
+        rng_impl=ckpt_mod.rng_tag(rng_impl), scene_fp=scene_fp)
+    if (ck_seed, ck_scene_seed) != (int(seed), int(scene_seed)):
+        raise ValueError(
+            f"{what} seeds (run={ck_seed}, scene={ck_scene_seed}) "
+            f"do not match this run's ({seed}, {scene_seed}); "
+            f"refusing to resume")
+    if state.step % p.sprint_steps != 0:
+        raise ValueError(
+            f"{what} step {state.step} is not a sprint boundary "
+            f"(sprint_steps={p.sprint_steps})"
+            + ("; it was not written by a durable decomposition run"
+               if what == "checkpoint" else ""))
+    return state
+
+
+def _save_state(path: str, ss, p: Params, num_water: int, seed: int,
+                scene_seed: int, rng_impl: str, scene_fp: str,
+                extra=None) -> None:
+    from ..io import checkpoint as ckpt_mod
+    ckpt_mod.save_checkpoint(
+        path, from_soa(ss, num_water), p, seed, scene_seed,
+        engine=ckpt_mod.ENGINE_TAG, rng_impl=ckpt_mod.rng_tag(rng_impl),
+        scene_fp=scene_fp, extra=extra)
+
+
+def run_decomposition_durable(scene, params: Params, record_path: str,
+                              seed: int = 0, scene_seed: int = 0, *,
+                              device="cuda", rng_impl: str = "threefry",
+                              max_steps: Optional[int] = None,
+                              checkpoint_path: Optional[str] = None,
+                              checkpoint_every_sprints: int = 1,
+                              fault_hook=None, progress: bool = False,
+                              cache=None) -> DecompositionResult:
+    """:func:`run_decomposition` with a DISK-backed record and
+    checkpoint/resume: the long-record production form (the reference's
+    decompose.py:287-496).
+
+    The per-sprint (A, B) blocks stream into an ``io.record.RecordStore``
+    directory instead of host RAM (a scale-up record is 32 GB; host
+    memory here stays one sprint block), and the walker state
+    checkpoints every ``checkpoint_every_sprints`` through
+    ``io.checkpoint``, record before checkpoint: sprint j's checkpoint is
+    saved only after sprint j's rows are committed, so on any crash
+    ``store.rows >= checkpoint-step rows`` and a resume trims the record
+    overhang.  Re-running the SAME call after a process death resumes
+    from the checkpoint and ends with a record bitwise equal to an
+    uninterrupted run's (counter-based generators).  A re-run on a
+    COMPLETE store returns its result without touching the device.
+
+    The drain stays one sprint deep (``_one_deep``); the state
+    checkpointed with sprint i's rows is the held state after sprint i,
+    not the one in flight.  The store's identity (its ``meta``) holds
+    the params fingerprint, the seeds, ``engine`` and ``rng_impl`` tags
+    (``io.checkpoint``: a store either package started under Threefry
+    resumes in the other), the scene's hash and the knobs offline
+    reconstruction needs.  ``cache`` is handed to every sprint.
+    ``fault_hook(sprint_index)`` is the seam of
+    ``resilience.FaultInjector``, called before each sprint is queued.
+
+    Returns a :class:`DecompositionResult` whose A/B are READ-ONLY disk
+    memmaps and whose ``stats`` are the counters and, when sprints ran,
+    the split of this call's sprints (as :func:`run_decomposition`'s).
+    """
+    from ..io import checkpoint as ckpt_mod
+    from ..io import record as record_mod
+
+    p = params.validate()
+    num_water = scene.waters.shape[0]
+    wps = p.sprint_steps // p.pfreq            # record rows per sprint
+    total = p.t if max_steps is None else min(p.t, max_steps)
+    n_sprints = total // p.sprint_steps
+    n_windows = n_sprints * wps
+    if n_windows == 0:
+        raise ValueError("durable decomposition needs at least one full "
+                         "sprint of windows")
+    if checkpoint_path is not None and checkpoint_every_sprints < 1:
+        raise ValueError("checkpoint_every_sprints must be >= 1")
+    scene_fp = ckpt_mod.scene_fingerprint(scene)
+    identity = {
+        "params_fp": ckpt_mod.params_fingerprint(p), "seed": int(seed),
+        "scene_seed": int(scene_seed), "engine": ckpt_mod.ENGINE_TAG,
+        "rng_impl": ckpt_mod.rng_tag(rng_impl), "scene_fp": scene_fp,
+        # the knobs offline reconstruction needs (record_params)
+        "taucp": p.taucp, "tau": p.tau, "pfreq": p.pfreq,
+        "mmoment": p.mmoment,
     }
-    return DecompositionResult(times_ms=times, A=A, B=B, stats=stats)
+
+    def result_from(store, stats):
+        a, b = store.arrays()
+        return DecompositionResult(times_ms=store.times_ms(), A=a, B=b,
+                                   stats=stats)
+
+    if record_mod.is_record_dir(record_path):
+        store = record_mod.RecordStore.open(record_path, writable=True)
+        if (store.n_windows, store.num_water) != (n_windows, num_water):
+            raise ValueError(
+                f"record store at {record_path} holds a "
+                f"[{store.n_windows}, {store.num_water}] record; this "
+                f"run produces [{n_windows}, {num_water}] — refusing to "
+                f"mix records")
+        for k, v in identity.items():
+            theirs = store.meta.get(k)
+            if theirs != v:
+                raise ValueError(
+                    f"record store at {record_path} was written under "
+                    f"{k}={theirs!r}, this run uses {k}={v!r}; the "
+                    f"resumed record would silently mix random sequences "
+                    f"— use a fresh --record-dir or the original config")
+        if store.complete:
+            return result_from(store, dict(store.meta.get("stats", {})))
+    else:
+        store = record_mod.RecordStore.create(record_path, n_windows,
+                                              num_water, identity)
+
+    dev, step, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
+                                       cache)
+    # resume point: the checkpoint pins the walker state; the store is
+    # trimmed to exactly the checkpointed sprint
+    start_sprint = 0
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        state = _resume_state(checkpoint_path, p, dev, seed, scene_seed,
+                              rng_impl, scene_fp, "checkpoint")
+        start_sprint = state.step // p.sprint_steps
+        need = start_sprint * wps
+        if store.rows < need:
+            raise ValueError(
+                f"checkpoint is AHEAD of the record store ({need} rows "
+                f"needed, {store.rows} committed) — the store was "
+                f"truncated or replaced; delete the checkpoint to "
+                f"restart, or restore the matching store")
+        dropped = store.truncate(need)
+        if dropped and progress:
+            print(f"  resume: trimmed {dropped} record row(s) past the "
+                  f"checkpoint (sprint {start_sprint})", file=sys.stderr)
+        ss = to_soa(state, p)
+    else:
+        store.truncate(0)   # no checkpoint: any partial rows restart
+
+    def save(ss_i):
+        _save_state(checkpoint_path, ss_i, p, num_water, seed, scene_seed,
+                    rng_impl, scene_fp)
+
+    def commit(a_blk, b_blk, ss_i, i):
+        """Sprint ``i``'s record rows, then (the order matters) its
+        checkpoint when one is due."""
+        store.append(a_blk, b_blk)
+        if checkpoint_path is not None and \
+                (i + 1) % checkpoint_every_sprints == 0:
+            save(ss_i)
+        if progress:
+            print(f"  sprint {i + 1}/{n_sprints}", file=sys.stderr)
+
+    split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
+    t_start = time.perf_counter()
+    ss = _one_deep(dev, step, ss, range(start_sprint, n_sprints), num_water,
+                   commit, split, fault_hook)
+    wall = time.perf_counter() - t_start
+    final = from_soa(ss, num_water)
+    stats = _run_stats(final, n_sprints - start_sprint, p, num_water, wall,
+                       split)
+    if checkpoint_path is not None:
+        save(ss)
+    store.finalize({"stats": {k: stats[k] for k in _COUNTERS}})
+    return result_from(store, stats)
+
+
+
+def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
+                          snapshot_path: str, seed: int = 0,
+                          scene_seed: int = 0, *, device="cuda",
+                          rng_impl: str = "threefry",
+                          max_steps: Optional[int] = None,
+                          snapshot_every_sprints: int = 1,
+                          fault_hook=None, progress: bool = False,
+                          cache=None) -> dict:
+    """Crash-safe ``--stream-plane`` runs (the reference's
+    decompose.py:498-615): no record in RAM, none on disk, and durable.
+
+    Feeds ``plane`` (a :class:`StreamingPlane`) as
+    ``run_decomposition(consumer=plane)`` does, but every
+    ``snapshot_every_sprints`` sprints the walker state AND the plane's
+    state go into ONE atomic npz
+    (``io.checkpoint.save_checkpoint(extra=plane.state_dict())``), so
+    their consistency is structural.  A killed run re-invoked with the
+    same arguments resumes from the snapshot and produces curves and
+    echo matrices bitwise equal to an uninterrupted run's (the same
+    per-sprint blocks, so the same float64 summation order).  A snapshot
+    of the reference package's (Threefry) resumes here too.
+
+    The plane must be fresh (or match the snapshot's configuration
+    digest).  ``cache`` is handed to every sprint.  Returns the stats
+    (counters, and the split of this call's sprints); read the results
+    from ``plane.result()`` / ``plane.echo_matrix()``.
+    """
+    from ..io import checkpoint as ckpt_mod
+
+    p = params.validate()
+    wps = p.sprint_steps // p.pfreq
+    total = p.t if max_steps is None else min(p.t, max_steps)
+    n_sprints = total // p.sprint_steps
+    if n_sprints * wps != plane._n:
+        raise ValueError(
+            f"plane was declared with {plane._n} windows but this run "
+            f"produces {n_sprints * wps}; construct the StreamingPlane "
+            f"with n_windows = total_steps // pfreq")
+    if snapshot_every_sprints < 1:
+        raise ValueError("snapshot_every_sprints must be >= 1")
+    scene_fp = ckpt_mod.scene_fingerprint(scene)
+    num_water = scene.waters.shape[0]
+    dev, step, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
+                                       cache)
+
+    start_sprint = 0
+    if os.path.exists(snapshot_path):
+        state = _resume_state(snapshot_path, p, dev, seed, scene_seed,
+                              rng_impl, scene_fp, "snapshot")
+        start_sprint = state.step // p.sprint_steps
+        plane.load_state(ckpt_mod.load_extra(snapshot_path))
+        if plane._r != start_sprint * wps:
+            raise ValueError(
+                f"snapshot is internally inconsistent: plane consumed "
+                f"{plane._r} windows but the walker state sits at "
+                f"sprint {start_sprint} ({start_sprint * wps} windows)")
+        if progress:
+            print(f"  resume: sprint {start_sprint}/{n_sprints} "
+                  f"({plane._r} windows already streamed)",
+                  file=sys.stderr)
+        ss = to_soa(state, p)
+    elif plane._r != 0:
+        raise ValueError("no snapshot exists but the plane has already "
+                         "consumed rows; pass a fresh StreamingPlane")
+
+    def commit(a_blk, b_blk, ss_i, i):
+        plane.update(a_blk, b_blk)
+        if (i + 1) % snapshot_every_sprints == 0:
+            _save_state(snapshot_path, ss_i, p, num_water, seed,
+                        scene_seed, rng_impl, scene_fp,
+                        extra=plane.state_dict())
+        if progress:
+            print(f"  sprint {i + 1}/{n_sprints}", file=sys.stderr)
+
+    split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
+    t_start = time.perf_counter()
+    ss = _one_deep(dev, step, ss, range(start_sprint, n_sprints), num_water,
+                   commit, split, fault_hook)
+    wall = time.perf_counter() - t_start
+    # the final snapshot marks completion (a resume of a finished run
+    # runs no sprint; the plane state is the whole stream)
+    _save_state(snapshot_path, ss, p, num_water, seed, scene_seed,
+                rng_impl, scene_fp, extra=plane.state_dict())
+    return _run_stats(from_soa(ss, num_water), n_sprints - start_sprint, p,
+                      num_water, wall, split)
 
 
 def make_plane_step(params: Params, num_water: int, scales, n_taucps: int,
@@ -414,8 +716,8 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
                 places[i] = (np.asarray(src, np.int64),
                              np.asarray(dst, np.int64))
 
-    dev, sprint, tbl, key, ss = _decompose_sprints(scene, p, seed, device,
-                                                   rng_impl)
+    dev, sprint, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
+                                         cache)
     on_card = dev.type == "cuda"
     step = make_plane_step(p, num_water, s_arr, T, tuple(echo_specs),
                            device=dev)
@@ -441,7 +743,7 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
             events[-1][0].record()
         else:
             t0 = time.perf_counter()
-        ss, wins = sprint(tbl, key, ss, cache=cache)
+        ss, wins = sprint(ss)
         lo = i * wps
         carry, blk, *emat = step(wins, carry, u_dev[lo:lo + wps],
                                  g_dev[:, lo:lo + wps], rows_dev[i])
@@ -1139,9 +1441,11 @@ def curves_at_scales(A, B, scales, quadrature: bool = False):
     dev = A.device if isinstance(A, torch.Tensor) else torch.device("cpu")
 
     def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float32)
-                               if not isinstance(x, torch.Tensor) else x,
-                               device=dev).to(torch.float32)
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x, np.float32)
+            if not x.flags.writeable:      # a record store's memmap
+                x = x.copy()
+        return torch.as_tensor(x, device=dev).to(torch.float32)
 
     A, B = f32(A), f32(B)
     out = []

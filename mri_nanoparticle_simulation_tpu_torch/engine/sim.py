@@ -13,6 +13,17 @@ sim.py:1198-1395: from the record on the host, from a plane streamed on
 the host (``--stream-plane``), or from a plane folded on the device
 (``--plane-device``, with ``--dump-echoes`` for the spin-echo captures).
 
+Runs survive a crash: ``--checkpoint C --checkpoint-every N`` snapshots
+the walkers (``io/checkpoint.py``), ``--resume C`` continues a run, and
+``--max-retries R`` rebuilds and resumes in the process after a failure
+(``engine/resilience.py``); re-running the same command after a process
+death resumes too.  A decomposition run is durable with ``--record-dir``
+(a record store on disk) or ``--stream-plane --checkpoint``.  The scene
+is the seeded ``BacteriaBox``, another family (``--scene-family``) or a
+user's geometry (``--scene-file``: cell centres in a CSV or a scene
+archive of ``--save-scene``); ``--dump-stats`` and ``--dump-field``
+write the scene's statistics or its field and exit.
+
 Run as a CLI:
     python -m mri_nanoparticle_simulation_tpu_torch.engine.sim \
         --num-water 4032 --totaltime 40 --out t2.csv --device cuda
@@ -31,11 +42,12 @@ import torch
 
 from .. import analysis
 from ..fields import expansion
+from ..io import checkpoint as ckpt_mod
 from ..io import writer as writer_mod
 from ..params import Params, params_fingerprint
-from ..scene import BacteriaBox
+from ..scene import BacteriaBox, ClusteredBacteriaBox, FCCLatticeBox
 from ..utils.device import require_cuda
-from . import chunk_kernel, cuda_engine
+from . import chunk_kernel, cuda_engine, resilience
 from . import decompose as dec
 from .convert import key_words, mnp_table
 from .reference_engine import init_state
@@ -73,7 +85,11 @@ class SimulationRunner:
     to the fast generator, the reference runner's production default
     (``RNG_THREEFRY`` is the bit-reproducible validation path).
     ``cache_build_s`` is the wall time of the scene cache build (0 when
-    the scene needs none)."""
+    the scene needs none).
+
+    ``resume(path)`` continues from a checkpoint, and ``run`` writes them
+    (``checkpoint_path``); both tag it as ``io/checkpoint.py`` says, so
+    a Threefry checkpoint crosses to and from the reference runner."""
 
     def __init__(self, params: Params, scene_seed: int = 0, seed: int = 0,
                  *, device, rng_impl: str = cuda_engine.RNG_HARDWARE,
@@ -90,6 +106,9 @@ class SimulationRunner:
             params, params.num_water, self.device, rng_impl=rng_impl)
         self.scene = scene if scene is not None \
             else BacteriaBox(params, seed=scene_seed).populate()
+        # geometry content hash for checkpoints, once per scene
+        self._scene_fp = ckpt_mod.scene_fingerprint(self.scene)
+        self._drain_timeout_s = None
         n_mnp = len(self.scene.mnps)
         cuda_engine.check_scene(params, n_mnp)
         self.uses_cubes = cuda_engine.needs_cache(params.num_water, n_mnp)
@@ -123,17 +142,54 @@ class SimulationRunner:
         self.key = key_words(seed)
         self.state = init_state(self.scene.waters, params, self.device)
 
+    def resume(self, path: str):
+        """Continue from the checkpoint at ``path``: raises ValueError when
+        it was written under other params, seeds, scene, engine or
+        generator."""
+        state, seed, scene_seed = ckpt_mod.load_checkpoint(
+            path, self.params, self.device, engine=ckpt_mod.ENGINE_TAG,
+            rng_impl=ckpt_mod.rng_tag(self.rng_impl),
+            scene_fp=self._scene_fp)
+        if seed != self.seed or scene_seed != self.scene_seed:
+            raise ValueError(
+                f"checkpoint seeds (run={seed}, scene={scene_seed}) do not "
+                f"match runner seeds (run={self.seed}, "
+                f"scene={self.scene_seed})")
+        self.state = state
+
+    def _save_checkpoint(self, path: str) -> None:
+        ckpt_mod.save_checkpoint(
+            path, self.state, self.params, self.seed, self.scene_seed,
+            engine=ckpt_mod.ENGINE_TAG,
+            rng_impl=ckpt_mod.rng_tag(self.rng_impl),
+            scene_fp=self._scene_fp)
+
     def run(self, csv_path: Optional[str] = None, quadrature: bool = False,
-            progress: bool = True, max_steps: Optional[int] = None,
-            drain_depth: int = 32):
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every_sprints: int = 0, progress: bool = True,
+            max_steps: Optional[int] = None, drain_depth: int = 32,
+            fault_hook=None, drain_timeout_s: Optional[float] = None):
         """Run from the current state to the end (or ``max_steps``),
         streaming CSV rows.  Sprints are queued without host syncs; the
         window sums of ``drain_depth`` sprints come back in one copy, so
-        a crash loses at most that many sprints of rows.
+        an un-checkpointed crash loses at most that many sprints of rows.
+
+        ``checkpoint_path`` with ``checkpoint_every_sprints``: every that
+        many sprints the pending rows are drained first, then the walker
+        state is converted from the kernel layout and saved, so a
+        checkpoint is never ahead of the rows on disk; the end state is
+        saved too.  ``fault_hook(sprint_index)`` is called before each
+        sprint is queued (``resilience.FaultInjector``); what it raises
+        is handled as a device failure.  ``drain_timeout_s`` puts a
+        watchdog deadline on every blocking readback (drains,
+        checkpoint and final state fetches): one that exceeds it raises
+        ``resilience.WatchdogTimeout``.  With none of these the sprint
+        loop issues no host sync but the drains.
 
         Returns (times_ms, sum_cos, sum_sin, stats)."""
         if drain_depth < 1:
             raise ValueError("drain_depth must be >= 1")
+        self._drain_timeout_s = drain_timeout_s
         p = self.params
         total = p.t if max_steps is None else min(p.t, max_steps)
         start_step = self.state.step
@@ -150,12 +206,21 @@ class SimulationRunner:
         pending, all_wins = [], []
         try:
             for i in range(n_sprints):
+                if fault_hook is not None:
+                    fault_hook(start_step // p.sprint_steps + i)
                 ss, wins = self._sprint(self.mnp_tbl, self.key, ss,
                                         cache=self.cache)
                 pending.append((start_step // p.pfreq + i * win_per_sprint,
                                 wins))
                 if len(pending) >= drain_depth:
                     self._drain(pending, writer, all_wins)
+                if checkpoint_path and checkpoint_every_sprints and \
+                        (i + 1) % checkpoint_every_sprints == 0:
+                    # the rows first: a checkpoint must never be ahead of
+                    # the rows on disk
+                    self._drain(pending, writer, all_wins)
+                    self._guarded(lambda: self._sync_and_save(
+                        ss, checkpoint_path))
                 if progress and (i + 1) % max(1, n_sprints // 20) == 0:
                     rate = ((i + 1) * p.sprint_steps * p.num_water
                             / (time.perf_counter() - t0))
@@ -166,7 +231,7 @@ class SimulationRunner:
             if writer is not None:
                 writer.close()
         wall = time.perf_counter() - t0
-        self.state = cuda_engine.from_soa(ss, p.num_water)
+        self._guarded(lambda: self._sync_and_save(ss, checkpoint_path))
 
         wins = np.concatenate(all_wins, 0) if all_wins \
             else np.zeros((0, 2), np.float32)
@@ -183,13 +248,48 @@ class SimulationRunner:
         }
         return times, wins[:, 0], wins[:, 1], stats
 
-    @staticmethod
-    def _drain(pending, writer, all_wins):
+    def _sync_and_save(self, ss, checkpoint_path) -> None:
+        """The walker state from the kernel layout, then its checkpoint
+        when ``checkpoint_path`` is set."""
+        self.state = cuda_engine.from_soa(ss, self.params.num_water)
+        if checkpoint_path:
+            self._save_checkpoint(checkpoint_path)
+
+    def _fetch_pending(self, pending):
+        """The one blocking device -> host copy of the steady state: all
+        pending sprints' window sums in one copy.  Split out so the
+        watchdog can bound it and tests can make it hang."""
+        return torch.cat([w for _, w in pending]).cpu().numpy()
+
+    def _on_caller_stream(self, fn):
+        """``fn`` to run in another thread on this thread's current CUDA
+        stream: torch's current stream is per thread, and a copy queued
+        on another stream would not wait for the sprints queued here."""
+        if self.device.type != "cuda":
+            return fn
+        stream = torch.cuda.current_stream(self.device)
+
+        def on_stream():
+            with torch.cuda.stream(stream):
+                return fn()
+        return on_stream
+
+    def _guarded(self, fn, what="walker-state readback"):
+        """Run a blocking device interaction under the drain watchdog
+        (when one is armed), on this thread's stream."""
+        if self._drain_timeout_s is None:
+            return fn()
+        return resilience.watchdog_call(self._on_caller_stream(fn),
+                                        self._drain_timeout_s, what=what)
+
+    def _drain(self, pending, writer, all_wins):
         """All pending sprints' window sums in one device->host copy."""
         if not pending:
             return
         first_idx = pending[0][0]
-        wins = torch.cat([w for _, w in pending]).cpu().numpy()
+        wins = self._guarded(
+            lambda: self._fetch_pending(pending),
+            what=f"drain of {len(pending)} pending sprint(s)")
         pending.clear()
         all_wins.append(wins)
         if writer is not None:
@@ -239,10 +339,50 @@ def build_parser() -> argparse.ArgumentParser:
                          "total step count)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scene-seed", type=int, default=0)
+    ap.add_argument("--scene-family", default="bacteria",
+                    choices=["bacteria", "clustered", "fcc"],
+                    help="cell geometry: 'bacteria' = uniform random "
+                         "throws (BacteriaBox.cpp:49-72), 'clustered' = "
+                         "Gaussian clumps (octree-adaptivity stress "
+                         "family), 'fcc' = deterministic face-centered-"
+                         "cubic lattice (the reference lineage's "
+                         "fcc_diffusion.h geometry, octree_test.cpp:14)")
+    ap.add_argument("--n-clusters", type=int, default=8,
+                    help="cluster count for --scene-family clustered")
+    ap.add_argument("--cluster-sigma", type=float, default=1.5,
+                    help="cluster spread (µm) for clustered scenes")
+    ap.add_argument("--lattice-a", type=float, default=None,
+                    help="FCC cubic lattice constant (µm); default "
+                         "sizes the lattice to host num_cells centered "
+                         "sites")
     ap.add_argument("--out", default=None,
                     help="CSV path (default: reference-style filename)")
     ap.add_argument("--quadrature", action="store_true",
                     help="also emit the sum-sin column")
+    ap.add_argument("--drain-depth", type=int, default=32,
+                    help="sprints queued between CSV drains; a crash "
+                         "loses up to this many sprints of rows (1 = "
+                         "per-sprint durability, one device sync a "
+                         "sprint)")
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="sprints between checkpoints")
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--max-retries", type=int, default=0, metavar="N",
+                    help="elastic recovery: on a device failure, rebuild "
+                         "the runner, resume from --checkpoint (trimming "
+                         "CSV rows past it) and retry, up to N "
+                         "consecutive failures without progress; "
+                         "requires --checkpoint and --checkpoint-every. "
+                         "The reference aborted on any CUDA error "
+                         "(HANDLE_ERROR, cuda_sim.cu:407).  A sticky CUDA "
+                         "error poisons the process: then only running "
+                         "the same command again recovers")
+    ap.add_argument("--drain-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="watchdog deadline on each device readback; a "
+                         "hung drain raises (and, with --max-retries, "
+                         "recovers) instead of blocking forever")
     ap.add_argument("--rng", default=cuda_engine.RNG_HARDWARE,
                     choices=[cuda_engine.RNG_HARDWARE,
                              cuda_engine.RNG_THREEFRY],
@@ -309,7 +449,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "(32 GB at 100k walkers x 40k windows) to "
                          "O(taucps x waters).  Same curves to f64 "
                          "rounding; incompatible with --dump-record "
-                         "(there is no record to save)")
+                         "(there is no record to save).  With "
+                         "--checkpoint the stream is DURABLE: walker "
+                         "and plane state snapshot into one atomic "
+                         "file every --checkpoint-every sprints, and "
+                         "re-running the same command after a process "
+                         "death resumes bitwise")
+    ap.add_argument("--record-dir", default=None, metavar="DIR",
+                    help="with --moment-scales/--echo-taucps: stream the "
+                         "per-walker record to a DISK-backed store "
+                         "directory (io/record.py) instead of host RAM "
+                         "and --dump-record's end-of-run .npz — host "
+                         "memory stays one sprint block regardless of "
+                         "record size, and with --checkpoint/"
+                         "--checkpoint-every the run RESUMES after a "
+                         "process death (re-run the same command; the "
+                         "record overhang past the checkpoint is "
+                         "trimmed and the result is bitwise-identical "
+                         "to an uninterrupted run).  Every record "
+                         "consumer (the analysis CLI's --record, "
+                         "decompose.reconstruct_record) accepts the "
+                         "directory in place of the .npz")
     ap.add_argument("--fit-r2", default=None, metavar="PATH",
                     help="with --echo-taucps: fit each grid point's "
                          "spin-echo envelope (analysis.fit_t2 at "
@@ -320,6 +480,33 @@ def build_parser() -> argparse.ArgumentParser:
                          "here from ONE simulation; grid points whose "
                          "envelope cannot be fit (too few echoes, no "
                          "decay) get nan rows")
+    ap.add_argument("--dump-field", default=None, metavar="PATH",
+                    help="write B_z on a uniform lattice over the scene "
+                         "to PATH as x,y,z,Bz rows and exit — the "
+                         "reference's DEBUG_FIELD product "
+                         "(octree.cpp:435-449) as a runtime flag")
+    ap.add_argument("--dump-field-n", type=int, default=32,
+                    help="lattice points per box edge for --dump-field")
+    ap.add_argument("--scene-file", default=None, metavar="PATH",
+                    help="simulate a user-provided geometry: a .csv of "
+                         "x,y,z cell centers (µm; dipoles, images, "
+                         "lookup table and waters are built around "
+                         "them — num_cells follows the file), or a "
+                         ".npz scene archive from scene.save_scene "
+                         "(exact array round trip; params must match). "
+                         "The reference hard-codes its generator "
+                         "(BacteriaBox.cpp) — geometry here is runtime "
+                         "data")
+    ap.add_argument("--dump-stats", default=None, metavar="PATH",
+                    help="write the scene statistics CSV (MNPs, waters, "
+                         "cells) to PATH and exit — the reference's "
+                         "SimboxTest / print_simulation_stats product "
+                         "(SimulationBox.cpp:214-237) as a runtime flag")
+    ap.add_argument("--save-scene", default=None, metavar="NPZ",
+                    help="archive the run's exact scene (cells, MNPs + "
+                         "images, waters, lookup table) as a .npz "
+                         "before simulating — reload it with "
+                         "--scene-file")
     return ap
 
 
@@ -360,18 +547,59 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     params = params_from_args(ap, args)
+    params, build_scene = _scene_builder(ap, args, params)
+
+    if args.dump_field:
+        from ..fields import debug as dbg
+        sc = build_scene() or BacteriaBox(params,
+                                          seed=args.scene_seed).populate()
+        dbg.dump_field_csv(sc.mnps, params, args.dump_field,
+                           grid_n=args.dump_field_n, device=args.device)
+        print(f"Field dump written: {args.dump_field} "
+              f"({args.dump_field_n}^3 points)", file=sys.stderr)
+        return 0
+    if args.dump_stats:
+        sc = build_scene() or BacteriaBox(params,
+                                          seed=args.scene_seed).populate()
+        sc.write_stats(args.dump_stats)
+        print(f"Scene statistics written: {args.dump_stats}",
+              file=sys.stderr)
+        return 0
 
     csv_path = args.out or writer_mod.default_output_path(params)
     print(f"Starting simulation on {args.device}...\nPrinting to: "
           f"{csv_path}", file=sys.stderr)
-    _check_decomposition_flags(ap, args)
+    _check_flags(ap, args)
     if args.moment_scales or args.echo_taucps:
-        return _run_decomposition_cli(ap, args, params, csv_path)
-    runner = SimulationRunner(params, scene_seed=args.scene_seed,
-                              seed=args.seed, device=args.device,
-                              rng_impl=args.rng)
-    _, _, _, stats = runner.run(csv_path=csv_path,
-                                quadrature=args.quadrature)
+        return _run_decomposition_cli(ap, args, params, csv_path,
+                                      build_scene)
+
+    def make_runner():
+        return SimulationRunner(params, scene_seed=args.scene_seed,
+                                seed=args.seed, device=args.device,
+                                rng_impl=args.rng, scene=build_scene())
+
+    if args.max_retries:
+        _, _, _, stats = resilience.run_resilient(
+            make_runner, csv_path=csv_path, quadrature=args.quadrature,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every_sprints=args.checkpoint_every,
+            drain_depth=args.drain_depth, max_retries=args.max_retries,
+            drain_timeout_s=args.drain_timeout)
+        if stats.get("recovery_attempts"):
+            print(f"Recovered from {stats['recovery_attempts']} "
+                  f"failure(s)", file=sys.stderr)
+    else:
+        runner = make_runner()
+        if args.resume:
+            runner.resume(args.resume)
+            resilience.trim_csv_overhang(runner, csv_path)
+        _, _, _, stats = runner.run(
+            csv_path=csv_path, quadrature=args.quadrature,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every_sprints=args.checkpoint_every,
+            drain_depth=args.drain_depth,
+            drain_timeout_s=args.drain_timeout)
     print(f"Simulation complete: {stats['steps']} steps in "
           f"{stats['wall_s']:.1f}s "
           f"({stats['walker_steps_per_s']:.3e} walker-steps/s), "
@@ -381,10 +609,90 @@ def main(argv=None):
     return 0
 
 
-def _check_decomposition_flags(ap, args) -> None:
-    """The reference CLI's rules for the decomposition flags, in its
-    order and words (sim.py:953-995, those of the flags the port has)."""
+def _scene_builder(ap, args, params: Params):
+    """(params, build_scene): the reference CLI's scene branch
+    (sim.py:838-865).  ``build_scene()`` returns the --scene-family /
+    --scene-file geometry, or None for the runner's default BacteriaBox;
+    with --save-scene it archives the scene it returns (the default one
+    included).  A CSV scene file sets num_cells."""
+    from ..scene import io as scene_io
+    custom_cells = None
+    if args.scene_file:
+        if args.scene_family != "bacteria":
+            ap.error("--scene-file IS the geometry; drop --scene-family")
+        if not args.scene_file.endswith(".npz"):
+            custom_cells = scene_io.load_cells_csv(args.scene_file)
+            if len(custom_cells) != params.num_cells:
+                # the file defines the cell count; --num-cells is the
+                # generator knob
+                params = params.replace(
+                    num_cells=len(custom_cells)).validate()
+
+    def build_scene():
+        if args.scene_file:
+            if args.scene_file.endswith(".npz"):
+                return scene_io.load_scene(args.scene_file, params)
+            return scene_io.CustomBox(params, custom_cells,
+                                      seed=args.scene_seed).populate()
+        if args.scene_family == "clustered":
+            return ClusteredBacteriaBox(
+                params, seed=args.scene_seed, n_clusters=args.n_clusters,
+                cluster_sigma=args.cluster_sigma).populate()
+        if args.scene_family == "fcc":
+            return FCCLatticeBox(params, seed=args.scene_seed,
+                                 lattice_a=args.lattice_a).populate()
+        return None
+
+    if not args.save_scene:
+        return params, build_scene
+    if not args.save_scene.endswith(".npz"):
+        args.save_scene += ".npz"    # np.savez appends it anyway
+
+    def build_and_save():
+        sc = build_scene() or BacteriaBox(params,
+                                          seed=args.scene_seed).populate()
+        scene_io.save_scene(sc, args.save_scene)
+        print(f"Scene archived: {args.save_scene}", file=sys.stderr)
+        return sc
+
+    return params, build_and_save
+
+
+def _check_flags(ap, args) -> None:
+    """The reference CLI's rules for the checkpoint, recovery and
+    decomposition flags, in its order and words (sim.py:925-1006, those
+    of the flags the port has)."""
     decomp_mode = bool(args.moment_scales or args.echo_taucps)
+    durable_decomp = decomp_mode and (args.record_dir
+                                      or (args.stream_plane
+                                          and args.checkpoint))
+    if decomp_mode and (args.checkpoint or args.resume
+                        or args.checkpoint_every or args.max_retries) \
+            and not durable_decomp:
+        ap.error("--checkpoint/--resume/--max-retries are single-run "
+                 "features; drop them for --ensemble/--sweep/"
+                 "--moment-scales/--echo-taucps runs (decomposition "
+                 "runs checkpoint through --record-dir, streaming "
+                 "runs through --stream-plane --checkpoint)")
+    if durable_decomp and (args.resume or args.max_retries):
+        ap.error("--record-dir resumes automatically when its "
+                 "checkpoint exists; drop --resume/--max-retries")
+    if args.record_dir:
+        if not decomp_mode:
+            ap.error("--record-dir stores a phase-decomposition record; "
+                     "run with --moment-scales and/or --echo-taucps")
+        if args.dump_record:
+            ap.error("--record-dir IS the saved record; drop "
+                     "--dump-record")
+        if args.stream_plane:
+            ap.error("--stream-plane never materializes the record; "
+                     "drop --record-dir (or drop --stream-plane to "
+                     "store the record)")
+        if args.checkpoint_every and not args.checkpoint:
+            ap.error("--checkpoint-every needs --checkpoint PATH")
+        d = os.path.dirname(os.path.abspath(args.record_dir)) or "."
+        if not os.path.isdir(d):
+            ap.error(f"--record-dir parent directory does not exist: {d}")
     if args.fit_r2 and not args.echo_taucps:
         ap.error("--fit-r2 is the dispersion over the --echo-taucps "
                  "grid; pass the echo spacings to fit")
@@ -394,7 +702,9 @@ def _check_decomposition_flags(ap, args) -> None:
                      "plane; run with --moment-scales and/or "
                      "--echo-taucps")
         for bad, flag in ((args.stream_plane, "--stream-plane"),
-                          (args.dump_record, "--dump-record")):
+                          (args.dump_record, "--dump-record"),
+                          (args.record_dir, "--record-dir"),
+                          (args.checkpoint, "--checkpoint")):
             if bad:
                 ap.error(f"--plane-device keeps the record on the "
                          f"device; {flag} needs the host/disk record "
@@ -424,15 +734,37 @@ def _check_decomposition_flags(ap, args) -> None:
             ap.error(f"--dump-record directory does not exist: {d}")
         if not args.dump_record.endswith(".npz"):
             args.dump_record += ".npz"   # np.savez appends it anyway
+    if args.max_retries:
+        if args.max_retries < 0:
+            ap.error("--max-retries must be >= 0")
+        if not (args.checkpoint and args.checkpoint_every >= 1):
+            ap.error("--max-retries needs --checkpoint PATH and "
+                     "--checkpoint-every N>=1 (recovery resumes from "
+                     "the last checkpoint)")
+        if args.resume:
+            ap.error("--max-retries auto-resumes from --checkpoint when "
+                     "it exists; drop --resume")
+        if not args.out:
+            ap.error("--max-retries needs an explicit --out: the "
+                     "default output filename embeds a timestamp, so a "
+                     "re-run after a process death would resume the "
+                     "checkpoint but write its rows to a NEW file")
+    if args.resume and not args.out:
+        ap.error("--resume needs an explicit --out (the CSV being "
+                 "continued): the default output filename embeds a "
+                 "timestamp, so the resumed rows would land in a NEW "
+                 "file while the original keeps its untrimmed overhang")
 
 
-def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
+def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
+                           build_scene) -> int:
     """``--moment-scales`` / ``--echo-taucps``: one decomposition run, one
     CSV per (scale, taucp) grid point, and optionally the record
     (``--dump-record``), the spin-echo captures (``--dump-echoes``) and
     the CPMG dispersion table (``--fit-r2``); the reference CLI's
     sim.py:1198-1395 on its record, streaming and on-device plane
-    paths."""
+    paths, the record on disk with ``--record-dir`` and the stream
+    durable with ``--stream-plane --checkpoint``."""
     try:
         scales = ([float(v) for v in args.moment_scales.split(",")]
                   if args.moment_scales else [1.0])
@@ -466,7 +798,8 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
     device = torch.device(args.device)
     if device.type == "cuda":
         require_cuda()
-    sc = BacteriaBox(params, seed=args.scene_seed).populate()
+    sc = build_scene() or BacteriaBox(params,
+                                      seed=args.scene_seed).populate()
     cache = None
     if cuda_engine.needs_cache(params.num_water, len(sc.mnps)):
         tbl = mnp_table(sc.mnps, torch.float32, device)
@@ -483,14 +816,39 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
     elif args.stream_plane:
         plane = dec.StreamingPlane(params, params.t // params.pfreq,
                                    scales, taucps, quadrature=True)
-        res = dec.run_decomposition(sc, params, seed=args.seed,
-                                    device=device, rng_impl=args.rng,
-                                    consumer=plane, cache=cache)
+        if args.checkpoint:
+            # walker and plane state in one atomic snapshot; a re-run
+            # after a process death resumes and ends bitwise the same
+            stats = dec.run_streaming_durable(
+                sc, params, plane, args.checkpoint, seed=args.seed,
+                scene_seed=args.scene_seed, device=device,
+                rng_impl=args.rng,
+                snapshot_every_sprints=args.checkpoint_every or 1,
+                progress=True, cache=cache)
+            res = dec.DecompositionResult(
+                times_ms=plane.times_ms, A=np.zeros((0, params.num_water)),
+                B=np.zeros((0, params.num_water)), stats=stats)
+        else:
+            res = dec.run_decomposition(sc, params, seed=args.seed,
+                                        device=device, rng_impl=args.rng,
+                                        consumer=plane, cache=cache)
         curves = plane.result()          # [s, t, n, 2], walker means
     else:
-        res = dec.run_decomposition(sc, params, seed=args.seed,
-                                    device=device, rng_impl=args.rng,
-                                    cache=cache)
+        if args.record_dir:
+            # a store on disk with checkpoint/resume; A and B come back
+            # as read-only memmaps the reconstruction streams from
+            res = dec.run_decomposition_durable(
+                sc, params, args.record_dir, seed=args.seed,
+                scene_seed=args.scene_seed, device=device,
+                rng_impl=args.rng, checkpoint_path=args.checkpoint,
+                checkpoint_every_sprints=args.checkpoint_every or 1,
+                progress=True, cache=cache)
+            print(f"Decomposition record stored: {args.record_dir} "
+                  f"(A/B {res.A.shape})", file=sys.stderr)
+        else:
+            res = dec.run_decomposition(sc, params, seed=args.seed,
+                                        device=device, rng_impl=args.rng,
+                                        cache=cache)
         t_rec = time.perf_counter()
         if taucps is None:
             curves = dec.curves_at_scales(res.A, res.B, scales,
@@ -551,12 +909,13 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str) -> int:
     what = ("on-device plane run", "curve copy", "host after the run") \
         if args.plane_device else ("decomposition run", "record copy",
                                    "host per sprint")
-    print(f"  {what[0]}: {st['wall_s']:.4f} s "
-          f"({st['walker_steps_per_s']:.4e} walker-steps/s) over "
-          f"{st['sprints']} sprints: device {st['device_s']:.4f} s, "
-          f"{what[1]} {st['copy_s']:.4f} s, {what[2]} "
-          f"{st['host_s']:.4f} s; reconstruction after the run "
-          f"{recon_s:.4f} s", file=sys.stderr)
+    if "wall_s" in st:      # a complete durable store ran no sprint
+        print(f"  {what[0]}: {st['wall_s']:.4f} s "
+              f"({st['walker_steps_per_s']:.4e} walker-steps/s) over "
+              f"{st['sprints']} sprints: device {st['device_s']:.4f} s, "
+              f"{what[1]} {st['copy_s']:.4f} s, {what[2]} "
+              f"{st['host_s']:.4f} s; reconstruction after the run "
+              f"{recon_s:.4f} s", file=sys.stderr)
     print(f"(moment x taucp)-plane reconstruction complete: {n_pts} "
           f"grid point(s) from ONE {params.t}-step run in {wall:.1f}s "
           f"({rate:.3e} walker-steps/s), {st['escapes']} chunk escapes, "

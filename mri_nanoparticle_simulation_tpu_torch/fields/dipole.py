@@ -54,3 +54,16 @@ def dipole_bz_masked(dx, dy, dz, M, cell_r):
     inv_r5 = 1.0 / (safe_r2 * safe_r2 * rs)
     val = M * FIELD_SCALE * (2 * dz * dz - dx * dx - dy * dy) * inv_r5
     return torch.where(outside, val, torch.zeros_like(val))
+
+
+def total_field_masked(pos, mnp_pos, mnp_M, cell_r):
+    """Explicit masked dipole sum: the exact field the reference GPU
+    integrates (get_field, cuda_sim.cu:269-286, every dipole at full
+    precision).  O(n_pos * n_mnp); the oracle of the field dumps.
+
+    pos: [..., 3]; mnp_pos: [N, 3]; mnp_M: [N].  Returns [...] B_z in
+    Tesla."""
+    d = pos[..., None, :] - mnp_pos  # [..., N, 3]
+    return torch.sum(
+        dipole_bz_masked(d[..., 0], d[..., 1], d[..., 2], mnp_M, cell_r),
+        dim=-1)

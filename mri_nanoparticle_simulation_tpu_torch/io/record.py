@@ -29,8 +29,7 @@ run writes one with ``consumer=RecordStore.create(...)``.
 The port's copy of the reference package's ``io/record.py``, carried
 over as it is: the format, the file names and the meta keys are the
 same, so either package reads the other's store.  The resumable run on
-top of it (the reference's ``run_decomposition_durable``) needs
-checkpoints, which the port does not have yet.
+top of it is ``decompose.run_decomposition_durable``.
 """
 
 from __future__ import annotations

@@ -68,6 +68,27 @@ class T2CsvWriter:
             self._f = None
 
 
+def truncate_rows(path: str, n_keep: int) -> int:
+    """Truncate a T2 CSV to its first ``n_keep`` rows; returns the number
+    of rows dropped (0 if the file is missing or already short enough).
+
+    Needed by checkpoint resume: the checkpoint path drains the CSV
+    *before* snapshotting, so the rows on disk are always at or AHEAD of
+    the checkpoint.  A resume that simply appended would then duplicate
+    every window between the checkpoint step and the crash; this trims
+    the overhang so the resumed run re-produces those rows instead
+    (bitwise, the generators being counter-based)."""
+    if not os.path.exists(path):
+        return 0
+    with open(path) as f:
+        lines = f.readlines()
+    if len(lines) <= n_keep:
+        return 0
+    with open(path, "w") as f:
+        f.writelines(lines[:n_keep])
+    return len(lines) - n_keep
+
+
 def default_output_path(params: Params, out_dir: str = ".") -> str:
     return os.path.join(out_dir, params.output_filename(int(time.time())))
 

@@ -547,6 +547,30 @@ ERRORS = {
     "scales_not_numbers": ["--moment-scales", "1,x"],
     "echo_spacing_misaligned": ["--echo-taucps", "0.0015"],
     "echo_spacing_below_window": ["--echo-taucps", "0.0005"],
+    "scene_file_and_scene_family": ["--scene-file", "cells.csv",
+                                    "--scene-family", "fcc"],
+    "checkpoint_in_a_decomposition": ["--moment-scales", "1",
+                                      "--checkpoint", "c.npz"],
+    "resume_with_record_dir": ["--moment-scales", "1", "--record-dir",
+                               "rec", "--resume", "c.npz"],
+    "record_dir_without_decomposition": ["--record-dir", "rec"],
+    "record_dir_and_dump_record": ["--moment-scales", "1", "--record-dir",
+                                   "rec", "--dump-record", "rec.npz"],
+    "record_dir_and_stream_plane": ["--moment-scales", "1", "--record-dir",
+                                    "rec", "--stream-plane"],
+    "record_dir_checkpoint_every_alone": ["--moment-scales", "1",
+                                          "--record-dir", "rec",
+                                          "--checkpoint-every", "2"],
+    "record_dir_missing_parent": ["--moment-scales", "1", "--record-dir",
+                                  "no/such/rec"],
+    "plane_device_and_record_dir": ["--moment-scales", "1",
+                                    "--plane-device", "--record-dir",
+                                    "rec"],
+    "max_retries_negative": ["--max-retries", "-1"],
+    "max_retries_without_checkpoint": ["--max-retries", "2"],
+    "max_retries_and_resume": ["--max-retries", "2", "--checkpoint",
+                               "c.npz", "--checkpoint-every", "1",
+                               "--resume", "c.npz"],
 }
 
 
@@ -569,4 +593,32 @@ def test_cli_flag_rules_match_jax(name, tmp_path, monkeypatch, capsys):
         return f"ValueError: {e.value}"
 
     assert fail(sim, ["--device", "cpu"]) == fail(jsim, ["--engine", "scan"])
+    assert not list(tmp_path.iterdir())       # nothing was written
+
+
+#: rules about a missing --out, which the table above always passes
+ERRORS_WITHOUT_OUT = {
+    "max_retries_without_out": ["--max-retries", "2", "--checkpoint",
+                                "c.npz", "--checkpoint-every", "1"],
+    "resume_without_out": ["--resume", "c.npz"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ERRORS_WITHOUT_OUT))
+def test_cli_out_rules_match_jax(name, tmp_path, monkeypatch, capsys):
+    """As ``test_cli_flag_rules_match_jax``, with no --out: the default
+    file name holds a timestamp, so a resumed run would not find its
+    CSV; both CLIs refuse before any run."""
+    monkeypatch.chdir(tmp_path)
+    from mri_nanoparticle_simulation_tpu.utils import cache as jcache
+    monkeypatch.setattr(jcache, "enable_compile_cache", lambda *a: None)
+    msgs = []
+    for mod, extra in ((sim, ["--device", "cpu"]),
+                       (jsim, ["--engine", "scan"])):
+        with pytest.raises(SystemExit) as e:
+            mod.main(CLI + ERRORS_WITHOUT_OUT[name] + extra)
+        assert e.value.code == 2
+        msgs.append(capsys.readouterr().err.splitlines()[-1].split(
+            "error: ", 1)[1])
+    assert msgs[0] == msgs[1]
     assert not list(tmp_path.iterdir())       # nothing was written

@@ -255,7 +255,7 @@ UNPORTED = {
 def test_unported_physics_raises(name):
     p = _tp(P.small_test_params(**UNPORTED[name]))
     with pytest.raises(NotImplementedError,
-                       match="scan engine.*ROADMAP Queue 1 item 1"):
+                       match="scan engine.*ROADMAP Queue 1 item 8"):
         cuda_engine.make_sprint_fn(p, p.num_water, "cpu")
 
 
