@@ -134,6 +134,30 @@ measured, and any failure raises (exit code != 0, no final line):
    CLI run's; --scene-family clustered and fcc for 2e5 steps, 0 escapes
    and violations, and the chunk entry each dipole count chose; (f) the
    seconds of a checkpoint save and a resume at 4032 and 100000 walkers;
+19. ensembles and sweeps at full width (``parallel/ensemble.py``; before
+   the kernels line): (a) 4 trials x 4032 walkers, 270 cells, scene
+   seeds 42-45, K 10, 2e5 steps on Threefry: each trial bitwise its
+   standalone run (positions, phases, windows, escapes, coverage), 4 x
+   50 chunk_kernel launches; then one trial each with a taucp, a run
+   cell_r, a d_scale and a moment of its own against static-parameter
+   runs (bitwise for taucp and cell_r, within POS_TOL / WIN_TOL for the
+   others); a P sweep on with_permeability(), only chunk_kernel[variants]
+   launched, each point against its static run; (b) 2 scale-up trials
+   (scene seeds 42 and the next seed with another dipole count, so one
+   table is padded), one sprint on Threefry: only chunk_near_kernel and
+   far_sums_kernel launched, 0 escapes and violations, trial 1 within
+   POS_TOL / WIN_TOL of its standalone sprint, the cube cache's build
+   seconds; (c) the golden T2 arms through golden.run_t2_arm (16 trials,
+   10 at d_scale 0.5, 6 at run cell_r 0.8, on Threefry, and the first on
+   the fast generator), |z_final| <= 3 against the oracle's final mean
+   and standard error; walker-steps/s at 1024 walkers a trial and the
+   layout; (d) the CLI as processes on the fast generator: --sweep D
+   (3 CSVs of 2000 rows, a dispersion table with a finite T2 a row),
+   --sweep-grid --paired --quadrature (4 CSVs bytewise an in-process
+   run_parameter_grid's), --ensemble 4 (bytewise the in-process mean),
+   --sweep Gz and --sweep num_cells (one sprint function a value;
+   launches by mode), --trace on the Gz sweep (the trace names the chunk
+   kernel); seconds and walker-steps/s of each part;
 17. the kernels line (every entry and mode, with its launches in the
    run of its path, its time beside its plain version's and its bound,
    its layout, registers and spills),
@@ -180,7 +204,9 @@ from mri_nanoparticle_simulation_tpu_torch.engine.sim import (  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch.io import (  # noqa: E402
     record as record_mod)
 from mri_nanoparticle_simulation_tpu_torch.io.writer import (  # noqa: E402
-    read_t2_csv)
+    T2CsvWriter, read_t2_csv)
+from mri_nanoparticle_simulation_tpu_torch.parallel import (  # noqa: E402
+    ensemble as ens)
 from mri_nanoparticle_simulation_tpu_torch.params import Params  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch.scene import (  # noqa: E402
     BacteriaBox, ClusteredBacteriaBox, FCCLatticeBox)
@@ -188,6 +214,8 @@ from mri_nanoparticle_simulation_tpu_torch.scene import (  # noqa: E402
     io as scene_io)
 from mri_nanoparticle_simulation_tpu_torch.utils.device import (  # noqa: E402
     card_label, require_cuda)
+from mri_nanoparticle_simulation_tpu_torch.utils import (  # noqa: E402
+    profiling)
 
 POS_TOL = 1e-4     # tests/test_pallas.py:109-111, compiled kernel vs plain
 WIN_TOL = 0.05
@@ -203,6 +231,9 @@ REC_RUN_TOL = 1e-3  # the same over the whole run
 PLANE_TOL = 1e-4   # cos/W, on-device plane vs float64 host plane
 #                    (tests/test_decompose.py:390)
 HEADLINE = dict(chunk_steps=4000, near_k=5)
+#: the ensembles of phase 19: scene seeds 42-45 need K 7 (seed 44), and
+#: a diffusion scale of 2 K 9 (near-k certificates)
+ENSEMBLE = dict(chunk_steps=4000, near_k=10)
 #: golden arm -> (committed curves and config, RMS gate, |final diff|
 #: gate): about 2.5x the committed JAX arm's own reading against oracle
 #: row 0 (scene 6000), and phase 5's gates for the as-written arm
@@ -567,7 +598,8 @@ def main():
         main_launches = launches()
         rows = read_t2_csv(csv)
         with open(csv) as fh:
-            keep = {"t4_csv": fh.read(), "t4_cos": cos, "scene": runner.scene}
+            keep = {"t4_csv": fh.read(), "t4_cos": cos, "scene": runner.scene,
+                    "t4_rate": stats["walker_steps_per_s"]}
     check(len(rows[0]) == 2000, f"{len(rows[0])} CSV rows, expected 2000")
     check(stats["escapes"] == 0, f"{stats['escapes']} escapes")
     check(stats["coverage_violations"] == 0,
@@ -634,6 +666,7 @@ def main():
     dec_launches = decompose_headline(sc, ours, oracle, label, keep)
     dec_launches.update(decompose_scaleup(ctx, label, keep))
     durability(ctx, keep, label)
+    ensembles(ctx, keep, label)
 
     t0 = phase("17 kernels")
     no_reference_imported()
@@ -1721,6 +1754,374 @@ def durability(ctx, keep, label):
             resume_s = time.perf_counter() - t1
             print(f"  {name}: save {save_s:.4f} s, resume {resume_s:.4f} s "
                   f"({os.path.getsize(path)} bytes) [{label}]", flush=True)
+    done(t0, f"[{label}]")
+
+
+def ensemble_rate(n_trials, p, steps, wall):
+    """Walker-steps/s of ``n_trials`` trials of ``steps`` steps."""
+    return n_trials * steps * p.num_water / wall
+
+
+def trial_setup(p, n, base_seed, d_scale=1.0, run_cell_r=0.0):
+    """(scenes s, near-k certificates s) of an ensemble's set-up, timed
+    ahead of it: its scenes built, then each scene's certificate at the
+    trials' reach (cached on disk, so the ensemble's own check then
+    finds them)."""
+    t0 = time.perf_counter()
+    _, _, _, scenes = ens.build_trial_scenes(p, n, base_seed)
+    t1 = time.perf_counter()
+    q = p.scale_D(max(d_scale, 1.0)).replace(cell_r=run_cell_r or p.cell_r)
+    for sc in scenes:
+        expansion.validate_near_k(sc.mnps[:, :3], q)
+    return t1 - t0, time.perf_counter() - t1
+
+
+def check_trial(st, i, alone, what, bitwise=True):
+    """Trial ``i`` of an ensemble's state ``st`` against ``alone``, a
+    standalone run's WalkerState: bitwise, or within POS_TOL; escapes
+    and coverage 0 in both.  Returns the position error."""
+    err = float((st.pos[i] - alone.pos).abs().max())
+    same = all(torch.equal(getattr(st, f)[i], getattr(alone, f))
+               for f in ("pos", "in_cell", "phase", "phase_comp"))
+    check(int(st.escapes[i]) == int(alone.escapes) == 0
+          and int(st.coverage[i]) == int(alone.coverage) == 0,
+          f"{what}: escapes {int(st.escapes[i])}/{int(alone.escapes)}, "
+          f"coverage {int(st.coverage[i])}/{int(alone.coverage)}")
+    check(same if bitwise else err < POS_TOL,
+          f"{what}: state {'not bitwise equal' if bitwise else err}")
+    return err, same
+
+
+def cli_process(argv, log):
+    """(launches, sprint functions built, stderr text, wall s) of the
+    port CLI with ``argv`` run as a process of its own that reports its
+    kernel launches and sprint functions on its last line; it must exit
+    0."""
+    code = (
+        "import json, sys\n"
+        "from mri_nanoparticle_simulation_tpu_torch.engine import "
+        "chunk_kernel, cuda_engine, sim\n"
+        "made = []\n"
+        "orig = cuda_engine.make_sprint_fn\n"
+        "def counted(*a, **k):\n"
+        "    made.append(1)\n"
+        "    return orig(*a, **k)\n"
+        "cuda_engine.make_sprint_fn = counted\n"
+        "rc = sim.main(sys.argv[1:])\n"
+        "print(json.dumps([chunk_kernel.LAUNCHES, len(made)]))\n"
+        "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        out = subprocess.run([sys.executable, "-c", code, *argv], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=err, text=True,
+                             timeout=600)
+    wall = time.perf_counter() - t0
+    with open(log) as fh:
+        text = fh.read()
+    check(out.returncode == 0,
+          f"CLI process exit {out.returncode}:\n{text[-2000:]}")
+    got, made = json.loads(out.stdout.strip().splitlines()[-1])
+    return got, made, text, wall
+
+
+def ensembles(ctx, keep, label):
+    """Phase 19: ensembles and sweeps at full width.  (a) the headline
+    ensemble on Threefry, each trial bitwise its standalone run, then
+    per-trial knobs against static-parameter runs and a P sweep; (b) a
+    large-scene ensemble (near entry and far sums); (c) the golden T2
+    arms; (d) the CLI's sweeps, grid and ensemble as processes."""
+    t0 = phase("19 (a) headline ensemble on Threefry, 4 x 4032 walkers")
+    p = Params(**ENSEMBLE).validate()
+    steps = 200_000
+    scenes_s, certs_s = trial_setup(p, 4, 42)
+    reset_launches()
+    t1 = time.perf_counter()
+    _, cos, sin, st = ens.run_ensemble(p, 4, base_seed=42, run_seed=7,
+                                       rng_impl="threefry", max_steps=steps,
+                                       device="cuda")
+    wall = time.perf_counter() - t1
+    got = launches()
+    check(got == only(chunk_kernel=4 * 50),
+          f"kernel launches {got}, expected 4 x 50 chunk_kernel")
+    lay4032 = chunk_kernel.LAYOUTS["chunk_kernel"]
+    rate4032 = ensemble_rate(4, p, steps, wall)
+    check(cos.shape == (4, 200) and bool(np.isfinite(cos).all()),
+          f"window sums {cos.shape}")
+    counts = []
+    for i in range(4):
+        sc = BacteriaBox(p, seed=42 + i).populate()
+        counts.append(len(sc.mnps))
+        _, c1, s1, alone = cuda_engine.run_simulation(
+            sc, p, seed=7 + i, device="cuda", rng_impl="threefry",
+            max_steps=steps)
+        check(np.array_equal(cos[i], c1) and np.array_equal(sin[i], s1),
+              f"trial {i}: window sums differ from its standalone run")
+        check_trial(st, i, alone, f"trial {i}")
+    print(f"  4 trials ({counts} dipoles) bitwise their standalone runs "
+          f"(positions, phases, windows, escapes, coverage); launches "
+          f"{launched(got)}; {rate4032:.4e} walker-steps/s (wall "
+          f"{wall:.3f} s; set-up before it: scenes {scenes_s:.3f} s, "
+          f"near-k certificates {certs_s:.3f} s), phase 4's single run "
+          f"{keep['t4_rate']:.4e}; layout {lay4032} [{label}]", flush=True)
+
+    # one knob a trial, the others at their static values
+    knobs = dict(taucps=[0.05, p.taucp, p.taucp, p.taucp],
+                 run_cell_rs=[p.cell_r, 0.6, p.cell_r, p.cell_r],
+                 d_scales=[1.0, 1.0, 0.25, 1.0],
+                 mmoments=[p.mmoment, p.mmoment, p.mmoment, 2 * p.mmoment])
+    statics = [p.replace(taucp=0.05), p.replace(cell_r=0.6), p.scale_D(0.25),
+               p.replace(mmoment=2 * p.mmoment)]
+    names = ("taucp 0.05 ms", "run cell_r 0.6", "d_scale 0.25",
+             "mmoment x2")
+    _, kcos, _, kst = ens.run_ensemble(p, 4, base_seed=42, run_seed=7,
+                                       rng_impl="threefry", max_steps=steps,
+                                       device="cuda", **knobs)
+    for i, (q, what) in enumerate(zip(statics, names)):
+        q = q.validate()
+        # the static run on the trial's scene: geometry at p's radius,
+        # the moment of q
+        sc = BacteriaBox(p if i < 3 else q, seed=42 + i).populate()
+        _, c1, _, alone = cuda_engine.run_simulation(
+            sc, q, seed=7 + i, device="cuda", rng_impl="threefry",
+            max_steps=steps)
+        bitwise = i < 2
+        err, same = check_trial(kst, i, alone, what, bitwise=bitwise)
+        werr = float(np.abs(kcos[i] - c1).max())
+        check(werr < WIN_TOL if not bitwise
+              else np.array_equal(kcos[i], c1),
+              f"{what}: window sums differ by {werr}")
+        print(f"  {what}: against the static-parameter run |pos| err "
+              f"{err:.3e}, |wins| err {werr:.3e} (gate "
+              f"{'bitwise' if bitwise else f'{POS_TOL} / {WIN_TOL}'}; "
+              f"{'bitwise equal' if same else 'not bitwise equal'})",
+              flush=True)
+
+    # the permeability axis: reflection on, only the variants mode
+    pp = p.with_permeability()
+    bound_p = 1.0 / (np.sqrt(p.tau / (6.0 * p.D_cell)) * 4.0)
+    pvals = [0.2 * bound_p, 0.8 * bound_p]
+    reset_launches()
+    _, pcurves = ens.run_parameter_sweep(pp, "P", pvals, base_seed=42,
+                                         run_seed=7, rng_impl="threefry",
+                                         max_steps=steps, device="cuda")
+    got = launches()
+    check(got == only(**{"chunk_kernel[variants]": 2 * 50}),
+          f"P sweep launches {got}")
+    sc = BacteriaBox(p, seed=42).populate()
+    for i, v in enumerate(pvals):
+        sc_i = sc if i == 0 else BacteriaBox(p, seed=43).populate()
+        _, c1, _, alone = cuda_engine.run_simulation(
+            sc_i, p.with_permeability(v), seed=7 + i, device="cuda",
+            rng_impl="threefry", max_steps=steps)
+        werr = float(np.abs(pcurves[i, 0] - c1).max())
+        check(werr < WIN_TOL, f"P {v}: window sums differ by {werr}")
+        print(f"  P {v:.4f} um/ms: |wins| err {werr:.3e} against the "
+              f"static-parameter run (gate {WIN_TOL}; "
+              f"{'bitwise equal' if werr == 0 else 'not bitwise equal'})",
+              flush=True)
+    done(t0, f"launches {launched(got)} in the P sweep [{label}]")
+
+    t0 = phase("19 (b) large-scene ensemble: 2 scale-up trials, Threefry")
+    q = ctx["p"]
+    counts = [len(ctx["runner"].scene.mnps), 0]
+    seed2 = 42
+    while counts[1] in (0, counts[0]):   # a second count, so one is padded
+        seed2 += 1
+        sc2 = BacteriaBox(q, seed=seed2).populate()
+        counts[1] = len(sc2.mnps)
+    seeds = [42, seed2]
+    tbl2 = mnp_table(sc2.mnps, torch.float32, "cuda")
+    cache_s = []
+    for _ in range(2):                   # the first build, then another
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        expansion.build_cache(tbl2.pos, tbl2.m, q, far_table=False)
+        torch.cuda.synchronize()
+        cache_s.append(time.perf_counter() - t1)
+    reset_launches()
+    t1 = time.perf_counter()
+    _, bcos, _, bst = ens.run_ensemble(
+        q, 2, base_seed=42, run_seed=7, scene_seeds=seeds,
+        rng_impl="threefry", max_steps=q.sprint_steps, device="cuda")
+    wall = time.perf_counter() - t1
+    got = launches()
+    n_chunks = q.sprint_steps // q.chunk_steps
+    check(got == only(chunk_near_kernel=2 * n_chunks,
+                      far_sums_kernel=2 * n_chunks),
+          f"kernel launches {got}: expected only chunk_near_kernel and "
+          f"far_sums_kernel, {2 * n_chunks} each")
+    check(bst.escapes.tolist() == [0, 0] and bst.coverage.tolist() == [0, 0],
+          f"escapes {bst.escapes.tolist()}, coverage "
+          f"{bst.coverage.tolist()}")
+    sprint = cuda_engine.make_sprint_fn(q, q.num_water, "cuda",
+                                        rng_impl="threefry")
+    ss = cuda_engine.to_soa(init_state(sc2.waters, q, "cuda"), q)
+    ss, wins = sprint(tbl2, key_words(8), ss, cache=None)
+    alone = cuda_engine.from_soa(ss, q.num_water)
+    perr = float((bst.pos[1] - alone.pos).abs().max())
+    werr = float(np.abs(bcos[1] - wins[:, 0].cpu().numpy()).max())
+    check(perr < POS_TOL and werr < WIN_TOL,
+          f"trial 1 vs its standalone sprint: |pos| {perr}, |wins| {werr}")
+    done(t0, f"scene seeds {seeds} ({counts} dipoles, the tables padded "
+         f"to {max(counts)}); one sprint of {q.sprint_steps} steps a trial: "
+         f"launches {launched(got)}, 0 escapes, 0 violations, "
+         f"{ensemble_rate(2, q, q.sprint_steps, wall):.4e} walker-steps/s "
+         f"(wall {wall:.3f} s; the cube cache, rebuilt in each sprint "
+         f"call, {cache_s[0]:.4f} s a first build, {cache_s[1]:.4f} s "
+         f"another); trial 1 against its standalone "
+         f"sprint: |pos| {perr:.3e} (tol {POS_TOL}), |wins| {werr:.3e} "
+         f"(tol {WIN_TOL}) [{label}]")
+
+    t0 = phase("19 (c) golden T2 arms through golden.run_t2_arm")
+    tp = golden.t2_arm_params()
+    for stem, n, d, cr, gen in (
+            ("GOLDEN_T2", 16, 1.0, 0.0, "threefry"),
+            ("GOLDEN_T2_D", 10, 0.5, 0.0, "threefry"),
+            ("GOLDEN_T2_r0.8", 6, 1.0, 0.8, "threefry"),
+            ("GOLDEN_T2", 16, 1.0, 0.0, "hardware")):
+        scenes_s, certs_s = trial_setup(tp, n, golden.T2_BASE_SEED, d, cr)
+        reset_launches()
+        t1 = time.perf_counter()
+        curves = golden.run_t2_arm(n, d, cr, "cuda", gen)
+        wall = time.perf_counter() - t1
+        got = launches()
+        key = "chunk_kernel[fast]" if gen == "hardware" else "chunk_kernel"
+        check(got == only(**{key: n * golden.T2_STEPS // tp.chunk_steps}),
+              f"{stem}: launches {got}")
+        check(curves.shape == (n, golden.T2_STEPS // golden.T2_PFREQ)
+              and bool(np.isfinite(curves).all()), f"{stem}: curves")
+        r = golden.t2_arm_gate(os.path.join(ROOT, stem + ".json"), curves)
+        lay = chunk_kernel.LAYOUTS["chunk_kernel"]
+        print(f"  {stem} ({n} trials, d_scale {d}, run cell_r "
+              f"{cr or tp.cell_r}, {gen}): port final {r['mean']:.5f} +- "
+              f"{r['stderr']:.5f}, oracle {r['oracle_mean']:.5f} +- "
+              f"{r['oracle_stderr']:.5f}, JAX arm {r['jax_mean']:.5f}; "
+              f"z_final {r['z_final']:+.3f} (gate {golden.T2_Z_GATE}); "
+              f"{ensemble_rate(n, tp, golden.T2_STEPS, wall):.4e} "
+              f"walker-steps/s at 1024 walkers a trial (wall {wall:.3f} s; "
+              f"set-up before it: scenes {scenes_s:.3f} s, certificates "
+              f"{certs_s:.3f} s); layout {lay} [{label}]", flush=True)
+        check(abs(r["z_final"]) <= golden.T2_Z_GATE,
+              f"{stem} {gen}: z_final {r['z_final']}")
+    done(t0, f"4 arms within |z| {golden.T2_Z_GATE} [{label}]")
+
+    t0 = phase("19 (d) the CLI's sweeps, grid and ensemble as processes")
+    cli = ["--num-water", "4032", "--num-cells", "270", "--chunk-steps",
+           "4000", "--near-k", "10", "--scene-seed", "42", "--seed", "7",
+           "--device", "cuda"]
+    long = cli + ["--totaltime", "2", "--taucp", "0.25"]
+    with tempfile.TemporaryDirectory() as tmp:
+        def out(name):
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            return d
+
+        d = out("sweep")
+        fit = os.path.join(d, "fit.csv")
+        got, made, _, w = cli_process(
+            long + ["--sweep", "D", "--sweep-values", "0.5,1,2",
+                    "--trials-per-value", "2", "--fit-t2", fit, "--out",
+                    os.path.join(d, "t2.csv")], os.path.join(tmp, "s.log"))
+        for v in ("0.5", "1", "2"):
+            rows = read_t2_csv(os.path.join(d, f"t2_D={v}.csv"))
+            check(len(rows[0]) == 2000 and bool(np.isfinite(rows[1]).all()),
+                  f"D={v}: CSV")
+        with open(fit) as fh:
+            table = fh.read().splitlines()
+        t2s = [float(r.split(",")[2]) for r in table[1:]]
+        check(len(table) == 4 and all(np.isfinite(t2s)),
+              f"dispersion table {table}")
+        check(launched(got) == {"chunk_kernel[fast]": 6 * 500} and made == 1,
+              f"--sweep D: launches {launched(got)}, {made} sprint functions")
+        print(f"  --sweep D 0.5,1,2 x 2 trials: 3 CSVs x 2000 rows, T2 "
+              f"{t2s} ms; launches {launched(got)}, {made} sprint "
+              f"function; process {w:.3f} s", flush=True)
+
+        d = out("grid")
+        grid = ["--sweep-grid", "D=0.5,1;taucp=0.25,0.5", "--paired",
+                "--trials-per-value", "2", "--quadrature"]
+        got, made, _, w = cli_process(
+            long + grid + ["--out", os.path.join(d, "t2.csv")],
+            os.path.join(tmp, "g.log"))
+        check(launched(got) == {"chunk_kernel[fast]": 8 * 500} and made == 1,
+              f"--sweep-grid: launches {launched(got)}")
+        ap = sim.build_parser()
+        args = ap.parse_args(long + grid + ["--out", "x"])
+        gp = sim.params_from_args(ap, args)
+        axes = {"D": [0.5, 1.0], "taucp": [0.25, 0.5]}
+        t1 = time.perf_counter()
+        times, curves = ens.run_parameter_grid(
+            gp, axes, n_trials_each=2, base_seed=42, run_seed=1007,
+            rng_impl="hardware", paired=True, quadrature=True,
+            device="cuda")
+        grid_wall = time.perf_counter() - t1
+        di = out("grid_in_process")
+        sim._emit_sweep_outputs(
+            os.path.join(di, "t2.csv"), times, ["D", "taucp"],
+            [(a, b) for a in axes["D"] for b in axes["taucp"]],
+            curves.reshape((-1, 2) + curves.shape[3:]),
+            lambda c: ens.sweep_params_for(
+                ens.sweep_params_for(gp, "D", c[0]), "taucp", c[1]),
+            None, quadrature=True)
+        names = sorted(os.listdir(d))
+        check(names == sorted(os.listdir(di)) and len(names) == 4,
+              f"grid CSVs {names}")
+        for n in names:
+            with open(os.path.join(d, n), "rb") as a, \
+                    open(os.path.join(di, n), "rb") as b:
+                check(a.read() == b.read(), f"{n}: not bytewise equal")
+        print(f"  --sweep-grid D x taucp, paired, 2 trials: 4 CSVs bytewise "
+              f"the in-process grid's ({grid_wall:.3f} s in process, "
+              f"{ensemble_rate(8, gp, gp.t, grid_wall):.4e} walker-steps/s); "
+              f"launches {launched(got)}; process {w:.3f} s", flush=True)
+
+        d = out("ensemble")
+        got, made, _, w = cli_process(
+            long + ["--ensemble", "4", "--out", os.path.join(d, "t2.csv")],
+            os.path.join(tmp, "e.log"))
+        check(launched(got) == {"chunk_kernel[fast]": 4 * 500},
+              f"--ensemble: launches {launched(got)}")
+        _, ecos, esin, _ = ens.run_ensemble(
+            gp, 4, base_seed=42, run_seed=1007, rng_impl="hardware",
+            device="cuda")
+        di = out("ensemble_in_process")
+        with T2CsvWriter(os.path.join(di, "t2.csv"), gp) as wr:
+            wr.append_windows(0, np.stack([ecos.mean(0), esin.mean(0)], -1))
+        with open(os.path.join(d, "t2.csv"), "rb") as a, \
+                open(os.path.join(di, "t2.csv"), "rb") as b:
+            check(a.read() == b.read(), "--ensemble CSV not bytewise the "
+                  "in-process mean")
+        print(f"  --ensemble 4: CSV bytewise the in-process mean; launches "
+              f"{launched(got)}; process {w:.3f} s", flush=True)
+
+        short = cli + ["--totaltime", "0.2"]
+        trace = os.path.join(tmp, "trace")
+        for knob, vals, want, extra in (
+                ("Gz", "0,3e-5", {"chunk_kernel[fast]": 50,
+                                  "chunk_kernel[fast+variants]": 50},
+                 ["--trace", trace]),
+                ("num_cells", "200,270", {"chunk_kernel[fast]": 100}, [])):
+            d = out(knob)
+            got, made, text, w = cli_process(
+                short + ["--sweep", knob, "--sweep-values", vals, "--out",
+                         os.path.join(d, "t2.csv")] + extra,
+                os.path.join(tmp, f"{knob}.log"))
+            check(launched(got) == want and made == 2,
+                  f"--sweep {knob}: launches {launched(got)}, {made} sprint "
+                  f"functions")
+            check(len(os.listdir(d)) == 2, f"--sweep {knob}: CSVs")
+            note = ""
+            if extra:
+                path = os.path.join(trace, profiling.TRACE_FILE)
+                kernels = profiling.trace_kernels(path)
+                check(any("chunk" in k for k in kernels),
+                      f"the trace names no chunk kernel: {kernels[:5]}")
+                note = (f"; --trace: {os.path.getsize(path)} B, "
+                        f"{len(kernels)} kernel events, e.g. "
+                        f"{sorted(set(kernels))[:2]}")
+            print(f"  --sweep {knob} {vals}, 2e5 steps: launches "
+                  f"{launched(got)}, {made} sprint functions; process "
+                  f"{w:.3f} s{note}", flush=True)
     done(t0, f"[{label}]")
 
 

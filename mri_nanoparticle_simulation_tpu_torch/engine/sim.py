@@ -13,6 +13,12 @@ sim.py:1198-1395: from the record on the host, from a plane streamed on
 the host (``--stream-plane``), or from a plane folded on the device
 (``--plane-device``, with ``--dump-echoes`` for the spin-echo captures).
 
+``--ensemble N`` runs N trials and writes their mean curve; ``--sweep
+KNOB`` and ``--sweep-grid`` run trials per value or grid point and write
+one CSV each (``parallel/ensemble.py``), with ``--fit-t2`` the
+dispersion table over the swept axis.  ``--trace DIR`` writes a
+profiler trace of the run.
+
 Runs survive a crash: ``--checkpoint C --checkpoint-every N`` snapshots
 the walkers (``io/checkpoint.py``), ``--resume C`` continues a run, and
 ``--max-retries R`` rebuilds and resumes in the process after a failure
@@ -32,6 +38,8 @@ Run as a CLI:
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import os
 import sys
 import time
@@ -44,8 +52,10 @@ from .. import analysis
 from ..fields import expansion
 from ..io import checkpoint as ckpt_mod
 from ..io import writer as writer_mod
+from ..parallel import ensemble as ens
 from ..params import Params, params_fingerprint
 from ..scene import BacteriaBox, ClusteredBacteriaBox, FCCLatticeBox
+from ..utils import profiling
 from ..utils.device import require_cuda
 from . import chunk_kernel, cuda_engine, resilience
 from . import decompose as dec
@@ -74,6 +84,72 @@ def fit_sprint_steps(params: Params, requested: int) -> int:
         if params.t % cand == 0:
             best = cand
     return best
+
+
+def _emit_sweep_outputs(csv_path, times, names, combos, flat, pv_fn,
+                        fit_path, quadrature=False):
+    """Per-grid-point outputs shared by --sweep and --sweep-grid: one
+    reference-schema CSV per point (suffix KNOB=V[_KNOB2=V2]) and,
+    when ``fit_path`` is set, the fitted dispersion table with one knob
+    column per axis.  ``flat`` is [n_points, trials, n_windows]
+    (+ a trailing (cos, sin) component axis when ``quadrature``);
+    ``pv_fn(combo)`` yields the point's physical Params (header
+    metadata and the echo spacing each point is fitted at)."""
+    stem, ext = os.path.splitext(csv_path)
+    fit_rows = []
+    for ci, combo in enumerate(combos):
+        pv = pv_fn(combo).validate()
+        tag = "_".join(f"{n}={v:g}" for n, v in zip(names, combo))
+        path = f"{stem}_{tag}{ext or '.csv'}"
+        pt = flat[ci].mean(axis=0)           # trial mean
+        if quadrature:
+            mean, wins = pt[:, 0], pt
+        else:
+            mean = pt
+            wins = np.stack([pt, np.zeros_like(pt)], -1)
+        with writer_mod.T2CsvWriter(path, pv, quadrature=quadrature) as w:
+            w.append_windows(0, wins)
+        print(f"  {tag}: wrote {path}", file=sys.stderr)
+        if fit_path:
+            try:
+                te, me = analysis.sample_at_echoes(times, mean, pv.taucp)
+                fit = analysis.fit_t2(te, me)
+                # error bar: with >= 2 trials, the scatter of per-trial
+                # fits is the Monte-Carlo error of the mean-curve fit
+                # (independent replicates); a single trial falls back to
+                # the fit's linearized stderr, which understates (rows
+                # share walkers; analysis.T2Fit)
+                se = fit.t2_stderr_ms
+                if flat[ci].shape[0] >= 2:
+                    t2s = []
+                    for trial in flat[ci]:
+                        try:
+                            tt, mt = analysis.sample_at_echoes(
+                                times,
+                                trial[:, 0] if quadrature else trial,
+                                pv.taucp)
+                            t2s.append(analysis.fit_t2(tt, mt).t2_ms)
+                        except ValueError:
+                            continue
+                    if len(t2s) >= 2:
+                        se = float(np.std(t2s, ddof=1) / np.sqrt(len(t2s)))
+                fit_rows.append(combo + (1.0 / fit.t2_ms, fit.t2_ms,
+                                         fit.r_squared, fit.n_used, se))
+            except ValueError as e:
+                print(f"  fit-t2: {tag} unfittable ({e})",
+                      file=sys.stderr)
+                fit_rows.append(combo + (float("nan"), float("nan"),
+                                         float("nan"), 0, float("nan")))
+    if fit_path:
+        with open(fit_path, "w") as f:
+            f.write(",".join(names)
+                    + ",r2_per_ms,t2_ms,r_squared,n_echoes,t2_stderr_ms\n")
+            for row in fit_rows:
+                f.write(",".join(
+                    [f"{v:g}" for v in row[:len(names)]]
+                    + [str(v) for v in row[len(names):]]) + "\n")
+        print(f"Sweep dispersion table written: {fit_path}",
+              file=sys.stderr)
 
 
 class SimulationRunner:
@@ -507,6 +583,53 @@ def build_parser() -> argparse.ArgumentParser:
                          "images, waters, lookup table) as a .npz "
                          "before simulating — reload it with "
                          "--scene-file")
+    ap.add_argument("--ensemble", type=int, default=1, metavar="N",
+                    help="run N independent trials (scenes seeded "
+                         "scene-seed..scene-seed+N-1) and write the "
+                         "ensemble-averaged curve — the reference's "
+                         "'multitrial' PBS-resubmission workflow "
+                         "(T2_GPU_sim.cu:45) as one device computation")
+    ap.add_argument("--sweep", default=None, metavar="KNOB",
+                    help="sweep a numeric Params knob over --sweep-values, "
+                         "writing one CSV per value; mmoment/taucp/cell_r, "
+                         "D (global diffusion scale: v scales D_cell "
+                         "and D_extra together) and P (membrane "
+                         "permeability µm/ms via the parameters.h:116-117 "
+                         "formulas) ride runtime launch "
+                         "scalars so the whole sweep shares ONE compiled "
+                         "program (the reference re-ran nvcc per value, "
+                         "README.md:13)")
+    ap.add_argument("--sweep-values", default=None, metavar="V1,V2,...",
+                    help="comma-separated values for --sweep")
+    ap.add_argument("--sweep-grid", default=None, metavar="SPEC",
+                    help="cross-product sweep over launch-scalar knobs "
+                         "in ONE compiled program, e.g. "
+                         "'D=0.25,0.5,1;taucp=0.001,0.002' runs every "
+                         "combination as a trial (the full dispersion "
+                         "surface; knobs: mmoment/taucp/cell_r/D); "
+                         "writes one CSV per grid point and composes "
+                         "with --paired/--trials-per-value/--fit-t2")
+    ap.add_argument("--fit-t2", default=None, metavar="PATH",
+                    help="with --sweep: fit each value's mean curve "
+                         "(spin-echo envelope at its taucp) and write "
+                         "the dispersion table "
+                         "KNOB,r2_per_ms,t2_ms,r_squared,n_echoes to "
+                         "PATH — e.g. R2(D) from --sweep D, or R2(taucp) "
+                         "by fresh simulation (--echo-taucps + --fit-r2 "
+                         "gets the same axis from ONE run)")
+    ap.add_argument("--paired", action="store_true",
+                    help="with --sweep: give trial k of every value the "
+                         "same scene and the same RNG stream (common "
+                         "random numbers), so differences along the "
+                         "sweep axis are the knob's effect alone — "
+                         "Monte-Carlo noise cancels in contrasts")
+    ap.add_argument("--trials-per-value", type=int, default=1,
+                    help="independent trials averaged per sweep value")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler device trace of the run "
+                         "to DIR (DIR/trace.json, chrome://tracing- or "
+                         "Perfetto-viewable) — kernel-level "
+                         "observability the reference's Timer never had")
     return ap
 
 
@@ -570,6 +693,12 @@ def main(argv=None):
     print(f"Starting simulation on {args.device}...\nPrinting to: "
           f"{csv_path}", file=sys.stderr)
     _check_flags(ap, args)
+    if args.sweep_grid:
+        return _run_grid_cli(ap, args, params, csv_path)
+    if args.sweep:
+        return _run_sweep_cli(ap, args, params, csv_path)
+    if args.ensemble > 1:
+        return _run_ensemble_cli(args, params, csv_path)
     if args.moment_scales or args.echo_taucps:
         return _run_decomposition_cli(ap, args, params, csv_path,
                                       build_scene)
@@ -580,12 +709,13 @@ def main(argv=None):
                                 rng_impl=args.rng, scene=build_scene())
 
     if args.max_retries:
-        _, _, _, stats = resilience.run_resilient(
-            make_runner, csv_path=csv_path, quadrature=args.quadrature,
-            checkpoint_path=args.checkpoint,
-            checkpoint_every_sprints=args.checkpoint_every,
-            drain_depth=args.drain_depth, max_retries=args.max_retries,
-            drain_timeout_s=args.drain_timeout)
+        with profiling.device_trace(args.trace, args.device):
+            _, _, _, stats = resilience.run_resilient(
+                make_runner, csv_path=csv_path, quadrature=args.quadrature,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every_sprints=args.checkpoint_every,
+                drain_depth=args.drain_depth, max_retries=args.max_retries,
+                drain_timeout_s=args.drain_timeout)
         if stats.get("recovery_attempts"):
             print(f"Recovered from {stats['recovery_attempts']} "
                   f"failure(s)", file=sys.stderr)
@@ -594,12 +724,14 @@ def main(argv=None):
         if args.resume:
             runner.resume(args.resume)
             resilience.trim_csv_overhang(runner, csv_path)
-        _, _, _, stats = runner.run(
-            csv_path=csv_path, quadrature=args.quadrature,
-            checkpoint_path=args.checkpoint,
-            checkpoint_every_sprints=args.checkpoint_every,
-            drain_depth=args.drain_depth,
-            drain_timeout_s=args.drain_timeout)
+        with profiling.device_trace(args.trace, args.device):
+            _, _, _, stats = runner.run(
+                csv_path=csv_path, quadrature=args.quadrature,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every_sprints=args.checkpoint_every,
+                drain_depth=args.drain_depth,
+                drain_timeout_s=args.drain_timeout)
+    _trace_written(args)
     print(f"Simulation complete: {stats['steps']} steps in "
           f"{stats['wall_s']:.1f}s "
           f"({stats['walker_steps_per_s']:.3e} walker-steps/s), "
@@ -659,16 +791,20 @@ def _scene_builder(ap, args, params: Params):
 
 
 def _check_flags(ap, args) -> None:
-    """The reference CLI's rules for the checkpoint, recovery and
-    decomposition flags, in its order and words (sim.py:925-1006, those
-    of the flags the port has)."""
+    """The reference CLI's rules for the sweep, ensemble, checkpoint,
+    recovery, decomposition and scene flags, in its order and words
+    (sim.py:908-1049 and 1105-1109, those of the flags the port has)."""
     decomp_mode = bool(args.moment_scales or args.echo_taucps)
+    sweepish = bool(args.sweep or args.sweep_grid)
+    if args.sweep and args.sweep_grid:
+        ap.error("--sweep is one knob, --sweep-grid a cross product; "
+                 "use one")
     durable_decomp = decomp_mode and (args.record_dir
                                       or (args.stream_plane
                                           and args.checkpoint))
-    if decomp_mode and (args.checkpoint or args.resume
-                        or args.checkpoint_every or args.max_retries) \
-            and not durable_decomp:
+    if (sweepish or args.ensemble > 1 or decomp_mode) and \
+            (args.checkpoint or args.resume or args.checkpoint_every
+             or args.max_retries) and not durable_decomp:
         ap.error("--checkpoint/--resume/--max-retries are single-run "
                  "features; drop them for --ensemble/--sweep/"
                  "--moment-scales/--echo-taucps runs (decomposition "
@@ -693,6 +829,9 @@ def _check_flags(ap, args) -> None:
         d = os.path.dirname(os.path.abspath(args.record_dir)) or "."
         if not os.path.isdir(d):
             ap.error(f"--record-dir parent directory does not exist: {d}")
+    if decomp_mode and (sweepish or args.ensemble > 1):
+        ap.error("--moment-scales/--echo-taucps are themselves sweeps "
+                 "over the (moment, taucp) plane; drop --sweep/--ensemble")
     if args.fit_r2 and not args.echo_taucps:
         ap.error("--fit-r2 is the dispersion over the --echo-taucps "
                  "grid; pass the echo spacings to fit")
@@ -754,6 +893,167 @@ def _check_flags(ap, args) -> None:
                  "continued): the default output filename embeds a "
                  "timestamp, so the resumed rows would land in a NEW "
                  "file while the original keeps its untrimmed overhang")
+    if (args.scene_family != "bacteria" or args.scene_file
+            or args.save_scene) and (sweepish or args.ensemble > 1):
+        ap.error("--scene-family/--scene-file/--save-scene are "
+                 "single-run features (ensembles/sweeps build their "
+                 "per-trial BacteriaBox scenes internally)")
+    if args.paired and not sweepish:
+        ap.error("--paired is a --sweep/--sweep-grid modifier (common "
+                 "random numbers across sweep values)")
+    if args.fit_t2 and not sweepish:
+        ap.error("--fit-t2 is the dispersion over the --sweep/"
+                 "--sweep-grid axes; pass the knob(s) and values to "
+                 "sweep (the echo axis has --echo-taucps + --fit-r2)")
+    if args.sweep_grid and args.ensemble > 1:
+        ap.error("--sweep-grid runs --trials-per-value trials per "
+                 "grid point; drop --ensemble")
+    if args.sweep:
+        if not args.sweep_values:
+            ap.error("--sweep requires --sweep-values")
+        if args.ensemble > 1:
+            ap.error("--sweep runs --trials-per-value trials per value; "
+                     "drop --ensemble")
+
+
+def _grid_axes(ap, args) -> dict:
+    """{knob: values} of --sweep-grid, with the reference CLI's errors
+    (sim.py:1051-1067)."""
+    axes = {}
+    try:
+        for part in args.sweep_grid.split(";"):
+            knob, eq, vals = part.partition("=")
+            knob = knob.strip()
+            if not eq or knob in axes:
+                raise ValueError(part)
+            axes[knob] = [float(v) for v in vals.split(",")]
+            if knob == "D" and any(not v > 0 for v in axes[knob]):
+                ap.error("--sweep-grid D values must be > 0")
+    except ValueError:
+        ap.error("--sweep-grid wants 'KNOB=V1,V2;KNOB2=V1,V2' with "
+                 "distinct knobs and numeric values")
+    bad = [n for n in axes if n not in ens.SCALAR_AXES]
+    if bad:
+        ap.error(f"--sweep-grid knobs must be launch scalars "
+                 f"{ens.SCALAR_AXES}; got {bad}")
+    return axes
+
+
+def _sweep_values(ap, args, params: Params) -> list:
+    """The values of --sweep's knob from --sweep-values, with the
+    reference CLI's errors (sim.py:1110-1147)."""
+    name = args.sweep
+    if name in ("Gz", "D", "P"):
+        # Gz: the z background gradient, T/µm (static in the kernels);
+        # D: the diffusion scale and P the membrane permeability, µm/ms,
+        # both launch scalars
+        values = [float(v) for v in args.sweep_values.split(",")]
+        if name == "D" and any(not v > 0 for v in values):
+            ap.error("--sweep D values must be > 0 (diffusion scale)")
+        if name == "P":
+            for v in values:
+                try:
+                    params.reflect_pair(v)
+                except ValueError as e:
+                    ap.error(f"--sweep P: {e}")
+        return values
+    # real dataclass fields only: derived read-only properties (tcp, t,
+    # in_stdev, ...) cannot be replaced
+    if name not in {f.name for f in dataclasses.fields(params)}:
+        ap.error(f"unknown Params knob {name!r} (must be a "
+                 f"settable field, not a derived property, or "
+                 f"'D' for the global diffusion scale)")
+    cast = type(getattr(params, name))
+    if cast not in (int, float):
+        ap.error(f"--sweep only supports numeric knobs; {name!r} "
+                 f"is {cast.__name__}")
+    return [cast(float(v)) for v in args.sweep_values.split(",")]
+
+
+def _trace_written(args) -> None:
+    if args.trace:
+        print(f"Profiler trace written to {args.trace}", file=sys.stderr)
+
+
+def _run_grid_cli(ap, args, params: Params, csv_path: str) -> int:
+    """--sweep-grid: every combination of the axes' values as trials of
+    one ensemble, one CSV per grid point (sim.py:1046-1102)."""
+    axes = _grid_axes(ap, args)
+    t0 = time.perf_counter()
+    with profiling.device_trace(args.trace, args.device):
+        times, curves = ens.run_parameter_grid(
+            params, axes, n_trials_each=args.trials_per_value,
+            base_seed=args.scene_seed, run_seed=args.seed + 1000,
+            rng_impl=args.rng, paired=args.paired,
+            quadrature=args.quadrature, device=args.device)
+    wall = time.perf_counter() - t0
+    names = list(axes)
+    flat = curves.reshape((-1, args.trials_per_value)
+                          + curves.shape[len(axes) + 1:])
+    combos = list(itertools.product(*[axes[n] for n in names]))
+
+    def pv_fn(combo):
+        pv = params
+        for n, v in zip(names, combo):
+            pv = ens.sweep_params_for(pv, n, v)
+        return pv
+
+    _emit_sweep_outputs(csv_path, times, names, combos, flat, pv_fn,
+                        args.fit_t2, quadrature=args.quadrature)
+    n_runs = len(combos) * args.trials_per_value
+    rate = n_runs * params.t * params.num_water / wall
+    print(f"Grid sweep complete: {len(combos)} grid points x "
+          f"{args.trials_per_value} trial(s) in {wall:.1f}s "
+          f"({rate:.3e} walker-steps/s)", file=sys.stderr)
+    _trace_written(args)
+    return 0
+
+
+def _run_sweep_cli(ap, args, params: Params, csv_path: str) -> int:
+    """--sweep: --trials-per-value trials per value of one knob, one CSV
+    per value (sim.py:1104-1173)."""
+    name = args.sweep
+    values = _sweep_values(ap, args, params)
+    t0 = time.perf_counter()
+    with profiling.device_trace(args.trace, args.device):
+        times, curves = ens.run_parameter_sweep(
+            params, name, values, n_trials_each=args.trials_per_value,
+            base_seed=args.scene_seed, run_seed=args.seed + 1000,
+            rng_impl=args.rng, paired=args.paired,
+            quadrature=args.quadrature, device=args.device)
+    wall = time.perf_counter() - t0
+    _emit_sweep_outputs(
+        csv_path, times, [name], [(v,) for v in values], curves,
+        lambda combo: ens.sweep_params_for(params, name, combo[0]),
+        args.fit_t2, quadrature=args.quadrature)
+    n_runs = len(values) * args.trials_per_value
+    rate = n_runs * params.t * params.num_water / wall
+    print(f"Sweep complete: {len(values)} values x "
+          f"{args.trials_per_value} trial(s) in {wall:.1f}s "
+          f"({rate:.3e} walker-steps/s)", file=sys.stderr)
+    _trace_written(args)
+    return 0
+
+
+def _run_ensemble_cli(args, params: Params, csv_path: str) -> int:
+    """--ensemble N: N trials, the mean curve in one CSV
+    (sim.py:1175-1196)."""
+    t0 = time.perf_counter()
+    with profiling.device_trace(args.trace, args.device):
+        times, cos, sin, _ = ens.run_ensemble(
+            params, n_trials=args.ensemble, base_seed=args.scene_seed,
+            run_seed=args.seed + 1000, rng_impl=args.rng,
+            device=args.device)
+    wall = time.perf_counter() - t0
+    with writer_mod.T2CsvWriter(csv_path, params, args.quadrature) as w:
+        wins = np.stack([cos.mean(axis=0), sin.mean(axis=0)], -1)
+        w.append_windows(0, wins)
+    rate = args.ensemble * params.t * params.num_water / wall
+    print(f"Ensemble complete: {args.ensemble} trials x {params.t} "
+          f"steps in {wall:.1f}s ({rate:.3e} walker-steps/s)",
+          file=sys.stderr)
+    _trace_written(args)
+    return 0
 
 
 def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
@@ -805,59 +1105,60 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
         tbl = mnp_table(sc.mnps, torch.float32, device)
         cache = expansion.build_cache(tbl.pos, tbl.m, params)
     t0 = time.perf_counter()
-    t_rec = None
-    if args.plane_device:
-        times, curves, stats, echoes = dec.run_plane_on_device(
-            sc, params, scales, taucps, seed=args.seed, device=device,
-            rng_impl=args.rng, echo_pairs=echo_pairs, cache=cache)
-        res = dec.DecompositionResult(
-            times_ms=times, A=np.zeros((0, params.num_water)),
-            B=np.zeros((0, params.num_water)), stats=stats)
-    elif args.stream_plane:
-        plane = dec.StreamingPlane(params, params.t // params.pfreq,
-                                   scales, taucps, quadrature=True)
-        if args.checkpoint:
-            # walker and plane state in one atomic snapshot; a re-run
-            # after a process death resumes and ends bitwise the same
-            stats = dec.run_streaming_durable(
-                sc, params, plane, args.checkpoint, seed=args.seed,
-                scene_seed=args.scene_seed, device=device,
-                rng_impl=args.rng,
-                snapshot_every_sprints=args.checkpoint_every or 1,
-                progress=True, cache=cache)
+    with profiling.device_trace(args.trace, args.device):
+        t_rec = None
+        if args.plane_device:
+            times, curves, stats, echoes = dec.run_plane_on_device(
+                sc, params, scales, taucps, seed=args.seed, device=device,
+                rng_impl=args.rng, echo_pairs=echo_pairs, cache=cache)
             res = dec.DecompositionResult(
-                times_ms=plane.times_ms, A=np.zeros((0, params.num_water)),
+                times_ms=times, A=np.zeros((0, params.num_water)),
                 B=np.zeros((0, params.num_water)), stats=stats)
+        elif args.stream_plane:
+            plane = dec.StreamingPlane(params, params.t // params.pfreq,
+                                       scales, taucps, quadrature=True)
+            if args.checkpoint:
+                # walker and plane state in one atomic snapshot; a re-run
+                # after a process death resumes and ends bitwise the same
+                stats = dec.run_streaming_durable(
+                    sc, params, plane, args.checkpoint, seed=args.seed,
+                    scene_seed=args.scene_seed, device=device,
+                    rng_impl=args.rng,
+                    snapshot_every_sprints=args.checkpoint_every or 1,
+                    progress=True, cache=cache)
+                res = dec.DecompositionResult(
+                    times_ms=plane.times_ms, A=np.zeros((0, params.num_water)),
+                    B=np.zeros((0, params.num_water)), stats=stats)
+            else:
+                res = dec.run_decomposition(sc, params, seed=args.seed,
+                                            device=device, rng_impl=args.rng,
+                                            consumer=plane, cache=cache)
+            curves = plane.result()          # [s, t, n, 2], walker means
         else:
-            res = dec.run_decomposition(sc, params, seed=args.seed,
-                                        device=device, rng_impl=args.rng,
-                                        consumer=plane, cache=cache)
-        curves = plane.result()          # [s, t, n, 2], walker means
-    else:
-        if args.record_dir:
-            # a store on disk with checkpoint/resume; A and B come back
-            # as read-only memmaps the reconstruction streams from
-            res = dec.run_decomposition_durable(
-                sc, params, args.record_dir, seed=args.seed,
-                scene_seed=args.scene_seed, device=device,
-                rng_impl=args.rng, checkpoint_path=args.checkpoint,
-                checkpoint_every_sprints=args.checkpoint_every or 1,
-                progress=True, cache=cache)
-            print(f"Decomposition record stored: {args.record_dir} "
-                  f"(A/B {res.A.shape})", file=sys.stderr)
-        else:
-            res = dec.run_decomposition(sc, params, seed=args.seed,
-                                        device=device, rng_impl=args.rng,
-                                        cache=cache)
-        t_rec = time.perf_counter()
-        if taucps is None:
-            curves = dec.curves_at_scales(res.A, res.B, scales,
-                                          quadrature=True)
-            # [s, 2, n] -> [s, 1, n, 2] so one writer loop serves both
-            curves = np.moveaxis(curves, 1, -1)[:, None]
-        else:
-            curves = dec.curves_at_plane(res.A, res.B, scales, taucps,
-                                         params, quadrature=True)
+            if args.record_dir:
+                # a store on disk with checkpoint/resume; A and B come back
+                # as read-only memmaps the reconstruction streams from
+                res = dec.run_decomposition_durable(
+                    sc, params, args.record_dir, seed=args.seed,
+                    scene_seed=args.scene_seed, device=device,
+                    rng_impl=args.rng, checkpoint_path=args.checkpoint,
+                    checkpoint_every_sprints=args.checkpoint_every or 1,
+                    progress=True, cache=cache)
+                print(f"Decomposition record stored: {args.record_dir} "
+                      f"(A/B {res.A.shape})", file=sys.stderr)
+            else:
+                res = dec.run_decomposition(sc, params, seed=args.seed,
+                                            device=device, rng_impl=args.rng,
+                                            cache=cache)
+            t_rec = time.perf_counter()
+            if taucps is None:
+                curves = dec.curves_at_scales(res.A, res.B, scales,
+                                              quadrature=True)
+                # [s, 2, n] -> [s, 1, n, 2] so one writer loop serves both
+                curves = np.moveaxis(curves, 1, -1)[:, None]
+            else:
+                curves = dec.curves_at_plane(res.A, res.B, scales, taucps,
+                                             params, quadrature=True)
     wall = time.perf_counter() - t0
     recon_s = 0.0 if t_rec is None else t0 + wall - t_rec
     stem, ext = os.path.splitext(csv_path)
@@ -916,6 +1217,7 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
               f"{what[1]} {st['copy_s']:.4f} s, {what[2]} "
               f"{st['host_s']:.4f} s; reconstruction after the run "
               f"{recon_s:.4f} s", file=sys.stderr)
+    _trace_written(args)
     print(f"(moment x taucp)-plane reconstruction complete: {n_pts} "
           f"grid point(s) from ONE {params.t}-step run in {wall:.1f}s "
           f"({rate:.3e} walker-steps/s), {st['escapes']} chunk escapes, "

@@ -15,11 +15,20 @@ The gates below are those of the repository's
 the copies equal to it): ``gate_readings`` reads one seed's curve
 against its oracles, ``gate_failures`` applies every limit, per seed and
 across seeds.  ``run_seed`` runs the port on a seed's scene.
+
+The T2 arms are those of the repository's ``scripts/golden_t2.py``
+(its constants and Params, copied as ``T2_*`` and ``t2_arm_params``): an
+ensemble of 1024-walker trials of 5e5 steps, moment x20, against the
+reference oracle's ensemble in ``GOLDEN_T2.json`` (d_scale 1),
+``GOLDEN_T2_D.json`` (d_scale 0.5) and ``GOLDEN_T2_r0.8.json`` (run
+cell_r 0.8).  ``run_t2_arm`` runs the port's arm, ``t2_arm_gate``
+reads it against the oracle's final mean and standard error.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -192,3 +201,72 @@ def cross_seed(readings: dict) -> tuple:
     differences of ``readings`` ({scene seed: ``gate_readings``})."""
     return (float(np.mean([r["final"] for r in readings.values()])),
             float(np.mean([r["late"] for r in readings.values()])))
+
+
+#: the T2 arms' configuration (scripts/golden_t2.py:55-59): walkers,
+#: steps, steps a window, steps between Carr-Purcell flips, moment scale
+T2_N_WATER = 1024
+T2_STEPS = 500_000
+T2_PFREQ = 1000
+T2_TCP = 125_000
+T2_MSCALE = 20.0
+#: the scene seed of trial 0 (trial k builds T2_BASE_SEED + k) and the
+#: run seed of trial 0 (trial k runs T2_RUN_SEED + k)
+T2_BASE_SEED = 7000
+T2_RUN_SEED = 8000
+#: the gate on the final window: |oracle - port| within this many
+#: standard errors of the difference
+T2_Z_GATE = 3.0
+
+
+def t2_arm_params() -> P.Params:
+    """The T2 arms' Params (scripts/golden_t2.py:125-138 without
+    reflection): 1024 waters, 5e5 steps in one sprint of 4000-step
+    chunks, 1000-step windows, a flip every 125000 steps, the moment
+    x20, K = 10."""
+    return P.DEFAULT.replace(
+        num_water=T2_N_WATER,
+        totaltime=T2_STEPS * P.DEFAULT.tau,
+        sprint_steps=T2_STEPS,
+        chunk_steps=4000,
+        print_interval=T2_PFREQ * P.DEFAULT.tau,
+        taucp=T2_TCP * P.DEFAULT.tau,
+        mmoment=P.DEFAULT.mmoment * T2_MSCALE,
+        near_k=10,
+        reflect_io=0.0,
+        reflect_oi=0.0,
+    ).validate()
+
+
+def run_t2_arm(n_trials: int, d_scale: float, cell_r: float, device,
+               rng_impl: str):
+    """Σcos/W [n_trials, n_windows] of the port's T2 arm: an ensemble
+    of ``n_trials`` trials of ``t2_arm_params`` (scene seeds 7000 + k,
+    run seeds 8000 + k) with every trial's ``d_scale`` (1 = none) and
+    run cell_r (0 = the params' radius on fixed geometry), as
+    scripts/golden_t2.py:139-146 runs the JAX ensemble."""
+    from .parallel import ensemble
+    _, cos, _, _ = ensemble.run_ensemble(
+        t2_arm_params(), n_trials=n_trials, base_seed=T2_BASE_SEED,
+        run_seed=T2_RUN_SEED, engine="pallas", rng_impl=rng_impl,
+        d_scales=None if d_scale == 1.0 else [d_scale] * n_trials,
+        run_cell_rs=None if not cell_r else [cell_r] * n_trials,
+        device=device)
+    return np.asarray(cos) / T2_N_WATER
+
+
+def t2_arm_gate(path: str, curves) -> dict:
+    """The final window of the port's arm ``curves`` (Σcos/W, [trials,
+    windows]) against the oracle's in the report at ``path``: the
+    port's mean and standard error (std with ddof 1 over sqrt(trials),
+    scripts/golden_t2.py:218-219), the oracle's, the committed JAX arm's
+    mean, and z_final = (oracle - port) / sqrt(se_o^2 + se_p^2)."""
+    with open(path) as f:
+        rep = json.load(f)
+    curves = np.asarray(curves, np.float64)
+    mean = float(curves[:, -1].mean())
+    se = float(curves[:, -1].std(ddof=1) / np.sqrt(len(curves)))
+    mo, so = rep["oracle_final_mean"], rep["oracle_final_stderr"]
+    return dict(mean=mean, stderr=se, oracle_mean=mo, oracle_stderr=so,
+                jax_mean=rep["framework_final_mean"],
+                z_final=(mo - mean) / float(np.sqrt(so ** 2 + se ** 2)))

@@ -571,6 +571,42 @@ ERRORS = {
     "max_retries_and_resume": ["--max-retries", "2", "--checkpoint",
                                "c.npz", "--checkpoint-every", "1",
                                "--resume", "c.npz"],
+    "sweep_and_sweep_grid": ["--sweep", "D", "--sweep-values", "1",
+                             "--sweep-grid", "D=1"],
+    "checkpoint_in_an_ensemble": ["--ensemble", "2", "--checkpoint",
+                                  "c.npz"],
+    "max_retries_in_a_sweep": ["--sweep", "D", "--sweep-values", "1",
+                               "--max-retries", "1"],
+    "resume_in_a_sweep_grid": ["--sweep-grid", "D=1", "--resume", "c.npz"],
+    "decomposition_and_ensemble": ["--moment-scales", "1", "--ensemble",
+                                   "2"],
+    "decomposition_and_sweep": ["--echo-taucps", "0.001", "--sweep", "D",
+                                "--sweep-values", "1"],
+    "scene_family_in_an_ensemble": ["--scene-family", "fcc", "--ensemble",
+                                    "2"],
+    "save_scene_in_a_sweep": ["--save-scene", "s.npz", "--sweep", "D",
+                              "--sweep-values", "1"],
+    "scene_file_in_a_sweep_grid": ["--scene-file", "scene.npz",
+                                   "--sweep-grid", "D=1"],
+    "paired_without_a_sweep": ["--paired"],
+    "fit_t2_without_a_sweep": ["--fit-t2", "fit.csv"],
+    "sweep_grid_and_ensemble": ["--sweep-grid", "D=1", "--ensemble", "2"],
+    "sweep_without_values": ["--sweep", "D"],
+    "sweep_and_ensemble": ["--sweep", "D", "--sweep-values", "1",
+                           "--ensemble", "2"],
+    "sweep_grid_without_equals": ["--sweep-grid", "D1,2"],
+    "sweep_grid_repeated_knob": ["--sweep-grid", "D=1;D=2"],
+    "sweep_grid_not_numbers": ["--sweep-grid", "D=1,x"],
+    "sweep_grid_d_not_positive": ["--sweep-grid", "D=0,1"],
+    "sweep_grid_not_a_launch_scalar": ["--sweep-grid", "num_cells=10,20"],
+    "sweep_d_not_positive": ["--sweep", "D", "--sweep-values", "-1"],
+    "sweep_p_outside_formulas": ["--sweep", "P", "--sweep-values", "1e6"],
+    "sweep_gz_not_numbers": ["--sweep", "Gz", "--sweep-values", "x"],
+    "sweep_derived_property": ["--sweep", "tcp", "--sweep-values", "1"],
+    "sweep_non_numeric_knob": ["--sweep", "kick_mode", "--sweep-values",
+                               "1"],
+    "sweep_values_not_numbers": ["--sweep", "cell_r", "--sweep-values",
+                                 "0.5,x"],
 }
 
 

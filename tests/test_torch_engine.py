@@ -390,6 +390,8 @@ def test_package_imports_without_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('parallel', 'parallel.ensemble', 'utils.profiling'):\n"
+        "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m, v in sys.modules.items()\n"
         "       if v is not None and m.split('.')[0] in ('jax', 'jaxlib',\n"
         "           'mri_nanoparticle_simulation_tpu', 'golden_paired')]\n"

@@ -12,6 +12,11 @@ means.  Run it with
 
     python -m pytest tests/test_torch_golden.py -m cuda -q
 
+The T2 arms (also on the card): the port's ensembles of
+``golden.run_t2_arm`` against the reference oracle's final mean and
+standard error in GOLDEN_T2.json, GOLDEN_T2_D.json (d_scale 0.5) and
+GOLDEN_T2_r0.8.json (run cell_r 0.8), |z_final| <= 3 each.
+
 On the CPU: the port keeps its own copies of the gates (it imports
 nothing of the reference's scripts or tests); they are held equal to
 tests/test_golden_full.py, read with ``ast``; and the gate function is
@@ -20,6 +25,7 @@ gates were set from) and to curves shifted past each limit.
 """
 
 import ast
+import json
 import os
 
 import numpy as np
@@ -129,3 +135,48 @@ def test_port_meets_every_golden_gate(dev):
             golden.oracle_curve(TESTDATA, seed, tight=True))
     assert "tight_rms" in readings[6000]
     assert golden.gate_failures(readings) == [], readings
+
+
+#: committed T2 report -> (trials, d_scale, run cell_r; 0 = none)
+T2_ARMS = {"GOLDEN_T2.json": (16, 1.0, 0.0),
+           "GOLDEN_T2_D.json": (10, 0.5, 0.0),
+           "GOLDEN_T2_r0.8.json": (6, 1.0, 0.8)}
+
+
+@pytest.mark.parametrize("name", sorted(T2_ARMS))
+def test_t2_arms_are_the_committed_reports(name):
+    with open(os.path.join(REPO, name)) as f:
+        cfg = json.load(f)["config"]
+    n, d, cr = T2_ARMS[name]
+    assert (cfg["n_water"], cfg["steps"], cfg["pfreq"], cfg["tcp"],
+            cfg["moment_scale"]) == (golden.T2_N_WATER, golden.T2_STEPS,
+                                     golden.T2_PFREQ, golden.T2_TCP,
+                                     golden.T2_MSCALE)
+    assert cfg["framework_trials"] == n
+    assert cfg.get("d_scale", 1.0) == d
+    assert (cfg.get("cell_r_run") or 0.0) == cr
+
+
+def test_t2_arm_gate_reads_the_report(tmp_path):
+    path = tmp_path / "r.json"
+    path.write_text(json.dumps({"oracle_final_mean": 0.85,
+                                "oracle_final_stderr": 0.03,
+                                "framework_final_mean": 0.84}))
+    curves = np.ones((4, 3)) * np.array([0.80, 0.82, 0.84, 0.86])[:, None]
+    r = golden.t2_arm_gate(str(path), curves)
+    se = np.std([0.80, 0.82, 0.84, 0.86], ddof=1) / 2
+    assert r["mean"] == pytest.approx(0.83)
+    assert r["stderr"] == pytest.approx(se)
+    assert r["z_final"] == pytest.approx(0.02 / np.sqrt(0.03 ** 2 + se ** 2))
+    assert (r["oracle_mean"], r["oracle_stderr"], r["jax_mean"]) == \
+        (0.85, 0.03, 0.84)
+
+
+@pytest.mark.cuda
+def test_port_meets_the_t2_arms(dev):
+    for name, (n, d, cr) in T2_ARMS.items():
+        curves = golden.run_t2_arm(n, d, cr, dev, "threefry")
+        assert curves.shape == (n, golden.T2_STEPS // golden.T2_PFREQ)
+        assert np.isfinite(curves).all()
+        r = golden.t2_arm_gate(os.path.join(REPO, name), curves)
+        assert abs(r["z_final"]) <= golden.T2_Z_GATE, (name, r)

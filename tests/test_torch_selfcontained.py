@@ -199,6 +199,49 @@ def test_golden_scene_equals_golden_paired(golden_paired):
     assert len(ours.mnps) == 745
 
 
+def _golden_t2_tree():
+    with open(os.path.join(REPO, "scripts", "golden_t2.py")) as f:
+        return ast.parse(f.read())
+
+
+#: scripts/golden_t2.py's module constants -> the port's copies
+T2_CONSTANTS = {"N_WATER": "T2_N_WATER", "STEPS": "T2_STEPS",
+                "PFREQ": "T2_PFREQ", "TCP": "T2_TCP", "MSCALE": "T2_MSCALE"}
+
+
+def test_t2_arm_constants_equal_golden_t2():
+    ref = {t.id: ast.literal_eval(node.value)
+           for node in _golden_t2_tree().body
+           if isinstance(node, ast.Assign) for t in node.targets
+           if isinstance(t, ast.Name) and t.id in T2_CONSTANTS}
+    assert set(ref) == set(T2_CONSTANTS)
+    for name, ours in T2_CONSTANTS.items():
+        assert getattr(golden, ours) == ref[name], name
+
+
+def test_t2_arm_params_and_seeds_equal_golden_t2():
+    """The Params of scripts/golden_t2.py's framework arm (its
+    ``P.DEFAULT.replace(...)`` without reflection, each field's
+    expression evaluated with its constants) and the seeds of its
+    ``run_ensemble`` call."""
+    fn = next(n for n in _golden_t2_tree().body
+              if isinstance(n, ast.FunctionDef)
+              and n.name == "run_framework_trials")
+    calls = {c.func.attr: c for c in ast.walk(fn)
+             if isinstance(c, ast.Call) and isinstance(c.func, ast.Attribute)}
+    env = {"P": JP, "reflect": None,
+           **{n: getattr(golden, ours) for n, ours in T2_CONSTANTS.items()}}
+    fields = {k.arg: eval(compile(ast.Expression(k.value), "golden_t2",
+                                  "eval"), env)
+              for k in calls["replace"].keywords}
+    assert dataclasses.asdict(golden.t2_arm_params()) == \
+        dataclasses.asdict(JP.DEFAULT.replace(**fields).validate())
+    run = {k.arg: k.value for k in calls["run_ensemble"].keywords}
+    assert ast.literal_eval(run["base_seed"]) == golden.T2_BASE_SEED
+    assert ast.literal_eval(run["run_seed"]) == golden.T2_RUN_SEED
+    assert ast.literal_eval(run["engine"]) == "pallas"
+
+
 def test_golden_scene_rejects_wrong_sizes():
     d = os.path.join(REPO, "golden", "testdata", "scene_6000")
     with pytest.raises(ValueError, match="scene dump"):
@@ -264,7 +307,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 20
     for mod in ("io/checkpoint.py", "engine/resilience.py", "scene/io.py",
-                "fields/debug.py"):
+                "fields/debug.py", "parallel/__init__.py",
+                "parallel/ensemble.py", "utils/profiling.py"):
         assert os.path.join(PORT, mod) in files, mod
     bad = []
     for path in files:
