@@ -158,6 +158,30 @@ measured, and any failure raises (exit code != 0, no final line):
    --sweep Gz and --sweep num_cells (one sprint function a value;
    launches by mode), --trace on the Gz sweep (the trace names the chunk
    kernel); seconds and walker-steps/s of each part;
+20. the scan engine and the inverse fits at full width (before the
+   kernels line): (a) the scan engine (``engine="scan"``, eager torch, no
+   chunk kernel) against the chunk kernel on the headline, one sprint of
+   2e4 Threefry steps: positions within POS_TOL, window sums within
+   WIN_TOL, escapes and coverage equal; the window-major order (chunk
+   500, 4e3 steps) against the chunk kernel's curve; field_mode exact and grid
+   (grid_n 64) for 2e3 steps each: residency equal at the walkers, the
+   field's error against exact, curves within 5 sqrt(2/W); walker-steps/s
+   of each mode; (b) run_decomposition(engine="scan") against the chunk
+   kernel's decompose record over one sprint (DEC_TOL); (c) autograd
+   through the scan engine: d(curve)/d(moment scale) and d/d(d_scale)
+   against central finite differences (rtol 2e-2), then fit_moment_scale
+   and fit_diffusion_scale, 3 Adam steps each, toward the hidden scale,
+   seconds an iteration and peak memory; (d) the CRN fits on the chunk
+   kernels (D and joint over 2e5 steps, cell_r and P over 2e6), each
+   within 5% of its hidden value, only the chunk-kernel modes it needs
+   launched; (e) the CLIs as
+   processes side by side: ``--engine scan`` of the simulator (its curve
+   against the chunk kernel's), and ``inverse`` with ``--method
+   decompose``, ``crn`` on each axis, ``--record/--target`` on phase
+   15's record (each its own 5% gate, exit 0), and ``--method ad`` on
+   the moment and D axes with 2 iterations (their recovered scale moved
+   from --init-scale toward --true-scale; at 2 iterations their exit
+   code is no gate);
 17. the kernels line (every entry and mode, with its launches in the
    run of its path, its time beside its plain version's and its bound,
    its layout, registers and spills),
@@ -186,17 +210,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from mri_nanoparticle_simulation_tpu_torch import (  # noqa: E402
-    analysis, golden)
+    analysis, golden, inverse)
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (  # noqa: E402
     FAR_SUMS_K10, SCALEUP, all_variants, sass_loop, time_on_device)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
-    chunk_kernel, cuda_engine, resilience, sim)
+    chunk_kernel, cuda_engine, reference_engine, resilience, sim)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
     decompose as dec)
 from mri_nanoparticle_simulation_tpu_torch.engine.convert import (  # noqa
     key_words, mnp_table)
 from mri_nanoparticle_simulation_tpu_torch.fields import (  # noqa: E402
-    expansion, fartable)
+    dipole, expansion, fartable)
+from mri_nanoparticle_simulation_tpu_torch.fields import (  # noqa: E402
+    grid as grid_mod)
 from mri_nanoparticle_simulation_tpu_torch.engine.reference_engine import (  # noqa
     init_state)
 from mri_nanoparticle_simulation_tpu_torch.engine.sim import (  # noqa: E402
@@ -667,6 +693,7 @@ def main():
     dec_launches.update(decompose_scaleup(ctx, label, keep))
     durability(ctx, keep, label)
     ensembles(ctx, keep, label)
+    scan_and_inverse(keep, label)
 
     t0 = phase("17 kernels")
     no_reference_imported()
@@ -1172,7 +1199,8 @@ def decompose_headline(sc, direct_golden, oracle, label, keep):
         check(rec_shape == (2000, 4032), f"record A {rec_shape}")
         keep["5c"] = dict(argv=argv, csvs=csv_texts(tmp))
         with np.load(os.path.join(tmp, "rec.npz")) as z:
-            keep["5c"].update(A=z["A"], B=z["B"])
+            keep["5c"].update(A=z["A"], B=z["B"], times_ms=z["times_ms"],
+                              mmoment=float(z["mmoment"]))
         with open(os.path.join(tmp, "r2.csv")) as fh:
             r2 = fh.read().splitlines()
         check(len(r2) == 17, f"dispersion table of {len(r2)} lines")
@@ -2123,6 +2151,360 @@ def ensembles(ctx, keep, label):
                   f"{launched(got)}, {made} sprint functions; process "
                   f"{w:.3f} s{note}", flush=True)
     done(t0, f"[{label}]")
+
+
+#: phase 20: the moment of the CRN fits (100x the headline's: a curve
+#: the scales shape within 2e5 steps) and of the AD phase (1000x: its
+#: 2e3 steps' curve must move in float32 under a 1% change of scale)
+FIT_MOMENT = 3.5e-15
+AD_MOMENT = 3.5e-14
+#: phase 20: steps of the scan engine's headline sprint, and of its
+#: exact and grid runs
+SCAN_STEPS = 20_000
+ORACLE_STEPS = 2_000
+
+
+def curve_gate(a, b, w):
+    """Max |a - b| of two Σcos curves over W, and the 5 sqrt(2/W) gate of
+    two independent W-walker means (tests/test_pallas.py:113-130)."""
+    return float(np.abs((a - b) / w).max()), 5.0 * np.sqrt(2.0 / w)
+
+
+def scan_run(p, scene, steps, **kw):
+    """(runner, cos, sin, stats) of ``steps`` steps of the scan engine on
+    ``scene``, seed 7; no chunk kernel may launch."""
+    reset_launches()
+    run = SimulationRunner(p, scene=scene, seed=7, device="cuda",
+                           engine="scan", **kw)
+    _, cos, sin, st = run.run(progress=False, max_steps=steps)
+    check(launched(launches()) == {}, f"the scan engine launched "
+          f"{launched(launches())}")
+    check(st["escapes"] == 0 and st["coverage_violations"] == 0,
+          f"scan run: escapes {st['escapes']}, coverage "
+          f"{st['coverage_violations']}")
+    check(bool(np.isfinite(cos).all()), "non-finite scan curve")
+    return run, cos, sin, st
+
+
+def start_process(module, argv, log):
+    """A port CLI (``module``, run with -m) as a process of its own with
+    its stderr in ``log``; returns (Popen, log, start time)."""
+    err = open(log, "w")
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    return proc, log, time.perf_counter()
+
+
+def finish_process(started, timeout=600):
+    """(exit code, stdout, stderr, wall s) of a ``start_process``
+    process."""
+    proc, log, t0 = started
+    out, _ = proc.communicate(timeout=timeout)
+    wall = time.perf_counter() - t0
+    with open(log) as fh:
+        return proc.returncode, out, fh.read(), wall
+
+
+def scan_and_inverse(keep, label):
+    """Phase 20: the scan engine (eager torch) against the chunk kernel
+    at full width, its window-major order and its exact and grid field
+    modes; the decomposition on it; autograd through it and the AD fits;
+    the CRN fits on the chunk kernels; the CLIs as processes."""
+    scene = keep["scene"]
+    t0 = phase("20 (a) the scan engine against the chunk kernel, headline")
+    p = Params(**HEADLINE).validate()
+    w = p.num_water
+    check(p.sprint_steps == SCAN_STEPS, f"sprint of {p.sprint_steps}")
+    reset_launches()
+    kr = SimulationRunner(p, scene=scene, seed=7, device="cuda",
+                          rng_impl="threefry")
+    _, kcos, ksin, kst = kr.run(progress=False, max_steps=SCAN_STEPS)
+    check(launches() == only(chunk_kernel=5), f"kernel run {launches()}")
+    sr, scos, ssin, sst = scan_run(p, scene, SCAN_STEPS)
+    pos_err = float((sr.state.pos - kr.state.pos).abs().max())
+    win_err = float(max(np.abs(scos - kcos).max(),
+                        np.abs(ssin - ksin).max()))
+    incell = int((sr.state.in_cell != kr.state.in_cell).sum())
+    print(f"  2e4 steps: |pos| err {pos_err:.3e} (tol {POS_TOL}), |wins| "
+          f"err {win_err:.3e} (tol {WIN_TOL}), in-cell flags differing "
+          f"{incell}, escapes {sst['escapes']}/{kst['escapes']}, coverage "
+          f"{sst['coverage_violations']}/{kst['coverage_violations']}; "
+          f"scan {sst['walker_steps_per_s']:.4e} walker-steps/s (wall "
+          f"{sst['wall_s']:.2f} s), chunk kernel "
+          f"{kst['walker_steps_per_s']:.4e}", flush=True)
+    check(pos_err < POS_TOL, f"scan positions differ by {pos_err}")
+    check(win_err < WIN_TOL, f"scan window sums differ by {win_err}")
+    check(sst["escapes"] == kst["escapes"]
+          and sst["coverage_violations"] == kst["coverage_violations"],
+          "escapes or coverage differ")
+    rates = {"expansion": sst["walker_steps_per_s"]}
+
+    # the window-major order: two 500-step chunks a window
+    pw = Params(**{**HEADLINE, "chunk_steps": 500,
+                   "sprint_steps": 4000}).validate()
+    _, wcos, _, wst = scan_run(pw, scene, 4000)
+    wm_err, gate = curve_gate(wcos, kcos[:len(wcos)], w)
+    print(f"  window-major (chunk 500), 4e3 steps: max |d Σcos/W| "
+          f"{wm_err:.3e} against the chunk kernel (gate {gate:.4f}); "
+          f"{wst['walker_steps_per_s']:.4e} walker-steps/s", flush=True)
+    check(wm_err < gate, f"window-major curve off by {wm_err}")
+    rates["window-major"] = wst["walker_steps_per_s"]
+
+    oracle = {**HEADLINE, "chunk_steps": 1000, "sprint_steps": ORACLE_STEPS}
+    pe_ = Params(**oracle, field_mode="exact").validate()
+    er, ecos, _, est = scan_run(pe_, scene, ORACLE_STEPS)
+    t_grid = time.perf_counter()
+    pg = Params(**oracle, field_mode="grid", grid_n=64).validate()
+    reset_launches()
+    gr = SimulationRunner(pg, scene=scene, seed=7, device="cuda",
+                          engine="scan")
+    torch.cuda.synchronize()
+    grid_build_s = time.perf_counter() - t_grid
+    _, gcos, _, gst = gr.run(progress=False, max_steps=ORACLE_STEPS)
+    check(launched(launches()) == {}, "the grid run launched a kernel")
+    check(bool(np.isfinite(gcos).all()), "non-finite grid curve")
+    grid_err, gate = curve_gate(gcos, ecos, w)
+    # field and residency of the grid against exact at the walkers
+    pos = reference_engine.wrap(er.state.pos, float(p.bound))
+    mnp_pos, mnp_M = er.mnp_tbl.pos, er.mnp_tbl.m
+    cr = torch.tensor(p.cell_r, device=pos.device)
+    b_grid, in_grid = grid_mod.query(gr.field_grid, pos, cr)
+    d = pos[:, None, :] - mnp_pos
+    in_exact = torch.any(torch.sum(d * d, -1) < cr * cr, -1)
+    b_exact = dipole.total_field_masked(pos.double(), mnp_pos.double(),
+                                        mnp_M.double(), p.cell_r)
+    ferr = (b_grid.double() - b_exact).abs()
+    print(f"  exact 2e3 steps: {est['walker_steps_per_s']:.4e} "
+          f"walker-steps/s; grid (G 64, built in {grid_build_s:.2f} s) "
+          f"2e3 steps: {gst['walker_steps_per_s']:.4e} walker-steps/s, "
+          f"curve max |d Σcos/W| {grid_err:.3e} against exact (gate "
+          f"{gate:.4f}); at the {w} walkers: residency differing "
+          f"{int((in_grid != in_exact).sum())} ({int(in_exact.sum())} in "
+          f"cells), field error against the f64 exact sum max "
+          f"{float(ferr.max()):.3e} T, mean {float(ferr.mean()):.3e} T "
+          f"(tests/test_grid.py bounds 5e-6 / 2e-7 on its scene)",
+          flush=True)
+    check(torch.equal(in_grid, in_exact), "grid residency differs from "
+          "exact's")
+    check(grid_err < gate, f"grid curve off exact's by {grid_err}")
+    rates.update(exact=est["walker_steps_per_s"],
+                 grid=gst["walker_steps_per_s"])
+    done(t0, "walker-steps/s: " + ", ".join(
+        f"{k} {v:.4e}" for k, v in rates.items())
+        + f"; phase 4's chunk kernel {keep['t4_rate']:.4e} "
+        f"({keep['t4_rate'] / rates['expansion']:.0f}x the scan "
+        f"engine's expansion mode) [{label}]")
+
+    t0 = phase("20 (b) the decomposition on the scan engine")
+    pd = Params(**{**HEADLINE, "sprint_steps": 4000}).validate()
+    reset_launches()
+    kd = dec.run_decomposition(scene, pd, seed=7, device="cuda",
+                               rng_impl="threefry", max_steps=4000)
+    check(launches() == only(**{"chunk_kernel[dec]": 1}),
+          f"kernel decompose launches {launches()}")
+    reset_launches()
+    sd = dec.run_decomposition(scene, pd, seed=7, device="cuda",
+                               engine="scan", max_steps=4000)
+    check(launched(launches()) == {}, "the scan decomposition launched "
+          "a kernel")
+    ab_err = max(float(np.abs(sd.A - kd.A).max()),
+                 float(np.abs(sd.B - kd.B).max()))
+    check(sd.A.shape == kd.A.shape == (4, w), f"record {sd.A.shape}")
+    check(ab_err < DEC_TOL, f"scan record differs by {ab_err}")
+    done(t0, f"one sprint (4000 steps): A and B within {ab_err:.3e} of "
+         f"the chunk kernel's record (tol {DEC_TOL}); scan device "
+         f"{sd.stats['device_s']:.2f} s [{label}]")
+
+    t0 = phase("20 (c) autograd through the scan engine, headline")
+    pa = Params(**{**HEADLINE, "chunk_steps": 1000}, mmoment=AD_MOMENT,
+                totaltime=0.002, sprint_steps=1000).validate()
+    ad_scene = golden.scale_moments(scene, AD_MOMENT / p.mmoment)
+    # the moment leaves the trajectories alone: float32 and a difference
+    # of 1% (tests/test_differentiable.py).  The diffusion scale moves
+    # every step, and a walker whose membrane crossing a finite step
+    # turns over jumps the curve (the pathwise derivative leaves those
+    # out; among 4032 walkers a 1% step turns over dozens): float64 and a
+    # step of 1e-7, where such a walker is unlikely
+    for axis, make, x0, dtype, eps in (
+            ("moment", inverse.make_curve_fn, 1.0, torch.float32, 1e-2),
+            ("D", inverse.make_diffusion_curve_fn, 0.7, torch.float64,
+             1e-7)):
+        # one sprint: the gradient's check needs no second
+        curve = make(pa.replace(totaltime=0.001), ad_scene, seed=7,
+                     device="cuda", dtype=dtype)
+        x = torch.tensor(x0, dtype=dtype, device="cuda", requires_grad=True)
+        torch.cuda.reset_peak_memory_stats()
+        tg = time.perf_counter()
+        curve(x)[-1].backward()
+        g = float(x.grad)
+        grad_s = time.perf_counter() - tg
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with torch.no_grad():
+            fd = (float(curve(x0 + eps)[-1])
+                  - float(curve(x0 - eps)[-1])) / (2 * eps)
+        print(f"  d(final Σcos/W)/d({axis} scale) at {x0}, {dtype}: "
+              f"autograd {g:.6e}, central difference {fd:.6e} (step "
+              f"{eps:g}; rtol 2e-2); {grad_s:.2f} s, peak {peak:.3f} GiB",
+              flush=True)
+        check(np.isfinite(g) and abs(g - fd) <= 2e-2 * abs(fd),
+              f"{axis} gradient {g} against {fd}")
+    # D from below: at this width and depth the loss against d = 0.6
+    # falls monotonically from 0.4, not from 1.0 (a bump near 0.8)
+    fits = {}
+    for axis, make, fit, hidden, init in (
+            ("moment", inverse.make_curve_fn, inverse.fit_moment_scale, 1.4,
+             1.0),
+            ("D", inverse.make_diffusion_curve_fn,
+             inverse.fit_diffusion_scale, 0.6, 0.4)):
+        with torch.no_grad():
+            target = make(pa, ad_scene, seed=7, device="cuda")(hidden)
+        torch.cuda.reset_peak_memory_stats()
+        tf = time.perf_counter()
+        res = fit(target.cpu().numpy(), pa, ad_scene, seed=7,
+                  init_scale=init, iters=3, lr=0.05, device="cuda")
+        fits[axis] = (time.perf_counter() - tf) / 3
+        hist = np.asarray(res.scale_history)
+        print(f"  fit {axis}: scales {' '.join(f'{v:.5f}' for v in hist)} "
+              f"(from {init} toward {hidden}), losses "
+              f"{' '.join(f'{v:.4e}' for v in res.loss_history)}; "
+              f"{fits[axis]:.2f} s an iteration, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+              flush=True)
+        check(bool(np.isfinite(hist).all() and np.isfinite(
+            res.loss_history).all()), f"{axis} fit: NaN")
+        toward = np.sign(hidden - init)
+        check(bool(np.all(np.diff(np.concatenate([[init], hist])) * toward
+                          > 0)), f"{axis} fit did not move toward {hidden}")
+    done(t0, f"2e3 steps x 4032 walkers in sprints of 1000; seconds an "
+         f"Adam iteration: moment {fits['moment']:.2f}, D {fits['D']:.2f} "
+         f"[{label}]")
+
+    t0 = phase("20 (d) CRN fits on the chunk kernels")
+    worst = expansion.validate_near_k(scene.mnps[:, :3],
+                                      Params(**ENSEMBLE).replace(cell_r=1.0))
+    pc = Params(**{**ENSEMBLE, "near_k": max(ENSEMBLE["near_k"], worst)},
+                mmoment=FIT_MOMENT, totaltime=0.2,
+                sprint_steps=100_000).validate()
+    # the radius and the permeability act only where a walker meets a
+    # membrane: 2e6 steps, so that enough of them do (at 2e5 the loss in
+    # cell_r is flat over wide stretches and the search strays)
+    pm = pc.replace(totaltime=2.0)
+    pp = pm.with_permeability()
+    crn_scene = golden.scale_moments(scene, FIT_MOMENT / p.mmoment)
+    curve = inverse.make_engine_curve_fn(pc, crn_scene, seed=7, device="cuda")
+    mcurve = inverse.make_engine_curve_fn(pm, crn_scene, seed=7,
+                                          device="cuda")
+    pcurve = inverse.make_engine_curve_fn(pp, crn_scene, seed=7, device="cuda")
+    cases = (
+        ("D", 0.6, "chunk_kernel", lambda: inverse.fit_diffusion_scale_crn(
+            curve(0.6), pc, crn_scene, seed=7, bracket=(0.1, 1.0), iters=20,
+            device="cuda")),
+        ("cell_r", 0.6, "chunk_kernel", lambda: inverse.fit_cell_radius_crn(
+            mcurve(cell_r=0.6), pm, crn_scene, seed=7, bracket=(0.3, 1.0),
+            iters=20, device="cuda")),
+        ("P", 5.0, "chunk_kernel[variants]",
+         lambda: inverse.fit_permeability_crn(
+             pcurve(p_expr=5.0), pp, crn_scene, seed=7, bracket=(0.5, 50.0),
+             iters=20, device="cuda")),
+        ("joint", (1.4, 0.6), "chunk_kernel", lambda: inverse.fit_joint_crn(
+            curve(0.6, m_scale=1.4), pc, crn_scene, seed=7, max_evals=70,
+            device="cuda")))
+    for axis, hidden, mode, run_fit in cases:
+        reset_launches()
+        tf = time.perf_counter()
+        res = run_fit()
+        wall = time.perf_counter() - tf
+        got = launched(launches())
+        n_eval = len(res.loss_history)
+        check(set(got) == {mode}, f"{axis} fit launched {got}")
+        if axis == "joint":
+            err = max(abs(res.m_scale - 1.4) / 1.4,
+                      abs(res.d_scale - 0.6) / 0.6)
+            found = f"({res.m_scale:.5f}, {res.d_scale:.5f})"
+        else:
+            err = abs(res.scale - hidden) / hidden
+            found = f"{res.scale:.5f}"
+        print(f"  {axis}: {found} against {hidden}, rel err {err:.2e} "
+              f"(gate 0.05); {n_eval} evaluations ({n_eval + 1} with the "
+              f"target), {wall:.2f} s; launches {got}", flush=True)
+        check(err < 0.05, f"{axis} CRN fit off by {err}")
+    done(t0, f"4032 walkers, K {pc.near_k}; an evaluation 2e5 steps (D, "
+         f"joint) or 2e6 (cell_r, P) [{label}]")
+
+    t0 = phase("20 (e) the CLIs as processes")
+    procs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "rec.npz")
+        np.savez(rec, A=keep["5c"]["A"], B=keep["5c"]["B"],
+                 times_ms=keep["5c"]["times_ms"],
+                 mmoment=keep["5c"]["mmoment"])
+        target = os.path.join(tmp, "target.csv")
+        with open(target, "w") as fh:
+            fh.write(keep["5c"]["csvs"]["t2_mscale=2_taucp=0.25.csv"])
+        scan_csv = os.path.join(tmp, "scan.csv")
+        inv = "mri_nanoparticle_simulation_tpu_torch.inverse"
+        base = ["--num-water", "4032", "--device", "cuda"]
+        runs = {
+            "sim --engine scan": (
+                "mri_nanoparticle_simulation_tpu_torch.engine.sim",
+                ["--num-water", "4032", "--num-cells", "270", "--totaltime",
+                 "0.01", "--chunk-steps", "500", "--near-k", "5",
+                 "--scene-seed", "42", "--seed", "7", "--engine", "scan",
+                 "--device", "cuda", "--out", scan_csv]),
+            "decompose": (inv, base + ["--method", "decompose", "--iters",
+                                       "150"]),
+            "crn D": (inv, base + ["--axis", "D", "--method", "crn",
+                                   "--true-scale", "0.6", "--iters",
+                                   "20"]),
+            "crn cell_r": (inv, base + ["--axis", "cell_r", "--method",
+                                        "crn", "--true-scale", "0.7",
+                                        "--iters", "20"]),
+            "crn joint": (inv, base + ["--axis", "joint", "--method", "crn",
+                                       "--true-scale", "1.5", "--iters",
+                                       "70"]),
+            "record": (inv, ["--record", rec, "--target", target, "--iters",
+                             "150", "--lr", "0.1", "--device", "cuda"]),
+            "ad moment": (inv, base + ["--iters", "2"]),
+            "ad D": (inv, base + ["--axis", "D", "--true-scale", "0.6",
+                                  "--iters", "2"]),
+        }
+        try:
+            for name, (mod, argv) in runs.items():
+                procs[name] = start_process(
+                    mod, argv, os.path.join(tmp, name.replace(" ", "_")
+                                            + ".log"))
+            results = {name: finish_process(pr)
+                       for name, pr in procs.items()}
+        finally:
+            for pr, _, _ in procs.values():
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        rows = read_t2_csv(scan_csv)
+    for name, (rc, out, err, wall) in results.items():
+        last = (out.strip().splitlines() or [""])[-1]
+        print(f"  {name}: exit {rc}, {wall:.1f} s: {last}", flush=True)
+        if name.startswith("ad "):
+            m = re.search(r"recovered scale = ([0-9.]+)", out)
+            check(m is not None, f"{name}: no recovered-scale line:\n"
+                  f"{err[-2000:]}")
+            got, true = float(m.group(1)), (1.4 if name == "ad moment"
+                                             else 0.6)
+            check(np.isfinite(got) and (got - 1.0) * (true - 1.0) > 0,
+                  f"{name}: {got} did not move from 1.0 toward {true}")
+        else:
+            check(rc == 0, f"{name}: exit {rc}:\n{err[-2000:]}")
+    m = re.search(r"recovered moment scale = ([0-9.]+)",
+                  results["record"][1])
+    check(m is not None and abs(float(m.group(1)) - 2.0) < 0.1,
+          f"record fit: {results['record'][1]}")
+    cli_err, gate = curve_gate(rows[1], kcos[:len(rows[1])], w)
+    check(len(rows[1]) == 10, f"scan CLI wrote {len(rows[1])} rows")
+    check(cli_err < gate, f"scan CLI curve off by {cli_err}")
+    done(t0, f"{len(runs)} processes side by side; the scan CLI's curve "
+         f"max |d Σcos/W| {cli_err:.3e} against the chunk kernel's (gate "
+         f"{gate:.4f}) [{label}]")
 
 
 def launched(got):

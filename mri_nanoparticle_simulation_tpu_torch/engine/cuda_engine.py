@@ -63,6 +63,9 @@ from ..params import DIRECTION_SPHERE, KICK_INTENDED, Params
 from . import chunk_kernel
 from .reference_engine import (WalkerState, cauchy_kick_sd, check_overrides,
                                constant_kick, intracellular_kick)
+from .reference_engine import direction as _direction
+from .reference_engine import inv_norm as _inv_norm
+from .reference_engine import wrap as _wrap
 
 RNG_THREEFRY = "threefry"
 RNG_HARDWARE = "hardware"
@@ -140,15 +143,16 @@ def chunk_physics(params: Params,
                   rng_impl: str = RNG_THREEFRY) -> ChunkPhysics:
     """The kernel's static arguments for ``params`` and the generator
     ``rng_impl``; raises NotImplementedError for chunks that are not a
-    whole number of windows (only the reference's scan engine runs
-    those) and ValueError for an unknown generator."""
+    whole number of windows (only the scan engine,
+    ``reference_engine.make_sprint_fn``, runs those) and ValueError for
+    an unknown generator."""
     if rng_impl not in (RNG_THREEFRY, RNG_HARDWARE):
         raise ValueError(f"unknown rng_impl {rng_impl!r}")
     if params.chunk_steps % params.pfreq != 0:
         raise NotImplementedError(
             "chunk_steps that are not a multiple of pfreq run only in the "
-            "reference's scan engine (its window-major mode), which is not "
-            "ported yet: ROADMAP Queue 1 item 8")
+            "scan engine (its window-major order): engine='scan', "
+            "reference_engine.make_sprint_fn")
     travel2 = float(expansion.default_travel_bound(params) ** 2)
     intended = params.kick_mode == KICK_INTENDED
     return ChunkPhysics(
@@ -237,12 +241,6 @@ def from_soa(ss: SoAState, num_water: int) -> WalkerState:
                        escapes=ss.escapes, coverage=ss.coverage)
 
 
-def _wrap(v: torch.Tensor, bound: float) -> torch.Tensor:
-    """``jnp.mod(v + bound, bound)``: fmod with the sign fixed."""
-    r = torch.fmod(v + bound, bound)
-    return torch.where((r != 0) & (r < 0), r + bound, r)
-
-
 def chunk_reference(state, mnp, *, step0, key, lane_offset, num_water,
                     tcp, cell_r2, dstd, phys: ChunkPhysics,
                     decompose: bool = False):
@@ -312,28 +310,6 @@ def chunk_near_reference(state, near, taylor, *, step0, key, lane_offset,
     cov = torch.zeros(state.shape[1] // GROUP, dtype=state.dtype,
                       device=state.device)
     return out, esc, cov, wins
-
-
-#: 2 pi in float32, the sphere direction's azimuth scale
-TWO_PI = _f32(2.0 * np.pi)
-
-
-def _direction(u0, u1, u2, sphere: bool):
-    """Step direction from three uniforms: (dx, dy, dz, inv_norm), with
-    inv_norm None where the direction is a unit vector already.  Cube:
-    2u - 1 per axis, normalised; sphere: cos(theta) = 2 u0 - 1 and azimuth
-    2 pi u1 (pallas_engine.py:512-525)."""
-    if not sphere:
-        dx, dy, dz = 2.0 * u0 - 1.0, 2.0 * u1 - 1.0, 2.0 * u2 - 1.0
-        return dx, dy, dz, _inv_norm(dx, dy, dz)
-    cos_t = 2.0 * u0 - 1.0
-    sin_t = rng.sqrt_rn(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
-    phi = TWO_PI * u1
-    return sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t, None
-
-
-def _inv_norm(dx, dy, dz):
-    return torch.rsqrt(torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-12))
 
 
 def _threefry_draws(key, win_step0, lane, phys: ChunkPhysics, dt):

@@ -23,7 +23,8 @@ to the output interval is one cumulative sum away
 Counterpart of the reference's ``engine/decompose.py`` on its record
 and on-device plane paths: ``run_decomposition`` drives the chunk
 kernels in decompose mode (``cuda_engine.make_sprint_fn(...,
-decompose=True)``) and drains the per-walker record to the host;
+decompose=True)``), or the scan engine's decompose sprint
+(``engine="scan"``), and drains the per-walker record to the host;
 ``run_plane_on_device`` runs the same sprints and folds each record into
 the plane on the device (``make_plane_step``, plain torch), so only the
 curves and the spin-echo captures (``EchoCapture``) come back.
@@ -48,10 +49,10 @@ import torch
 
 from ..params import Params
 from ..utils.device import require_cuda
-from . import chunk_kernel
+from . import chunk_kernel, reference_engine
 from .convert import key_words, mnp_table
 from .cuda_engine import from_soa, make_sprint_fn, to_soa
-from .reference_engine import init_state
+from .reference_engine import ENGINES, init_state
 
 
 class DecompositionResult(NamedTuple):
@@ -69,27 +70,62 @@ def _unpack_wins(wins: np.ndarray, num_water: int):
 
 
 def _decompose_sprints(scene, p: Params, seed: int, device, rng_impl: str,
-                       cache=None):
+                       cache=None, engine: str = "pallas"):
     """The sprint plumbing of a decomposition run on ``device``: (device,
-    ``step(ss) -> (ss', wins)``, the initial decompose state as planes).
-    ``step`` runs one sprint and hands ``cache`` (the scene cache of a
-    scene above ``REBUILD_MAX_MNPS`` dipoles) to it.  On a card the
-    library is built and loaded first, so the build is set-up and not
-    part of the run; a CUDA device without a card raises."""
+    ``step(ss) -> (ss', wins)``, the initial decompose state in the
+    sprint's form).  ``wins`` is the record ``[n_win, 2, W']`` on both
+    engines.  ``engine`` "pallas" runs the chunk kernels (``ss`` their
+    planes; ``cache``, the scene cache of a scene above
+    ``REBUILD_MAX_MNPS`` dipoles, handed to each sprint), "scan" the
+    scan engine (``ss`` a WalkerState; Threefry only, as the
+    reference's).  On a card the kernels' library is built and loaded
+    first, so the build is set-up and not part of the run; a CUDA device
+    without a card raises."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()
-        chunk_kernel.load_library()
-    sprint = make_sprint_fn(p, scene.waters.shape[0], dev,
-                            rng_impl=rng_impl, decompose=True)
+        if engine == "pallas":
+            chunk_kernel.load_library()
     tbl = mnp_table(scene.mnps, torch.float32, dev)
     key = key_words(seed)
-    ss = to_soa(init_state(scene.waters, p, dev, decompose=True), p)
+    state = init_state(scene.waters, p, dev, decompose=True)
+    if engine == "scan":
+        sprint = reference_engine.make_sprint_fn(p, dev, decompose=True)
+
+        def step(ss):
+            ss, wins = sprint(tbl.pos, tbl.m, key, ss)
+            return ss, wins.permute(0, 2, 1).contiguous()
+
+        return dev, step, state
+    sprint = make_sprint_fn(p, scene.waters.shape[0], dev,
+                            rng_impl=rng_impl, decompose=True)
 
     def step(ss):
         return sprint(tbl, key, ss, cache=cache)
 
-    return dev, step, ss
+    return dev, step, to_soa(state, p)
+
+
+def _walker_state(ss, num_water: int):
+    """The WalkerState of a decomposition run's sprint state (the
+    kernels' planes, or the scan engine's state as it is)."""
+    return ss if isinstance(ss, reference_engine.WalkerState) \
+        else from_soa(ss, num_water)
+
+
+def _kernels_only(engine: str, what: str) -> None:
+    """Raise for a scan-engine form of ``what``, not ported yet."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "scan":
+        raise ValueError(
+            f"{what} with engine='scan' is not ported yet (its checkpoints "
+            f"and stores would carry the scan tag and the [W, 2] state): "
+            f"ROADMAP Queue 1 item 8b; run it on engine='pallas' (Threefry "
+            f"gives the scan engine's streams), or run_decomposition("
+            f"engine='scan')")
 
 
 def _one_deep(dev, step, ss, sprints, num_water: int, commit, split,
@@ -178,13 +214,17 @@ def _run_stats(final, n_sprints: int, p: Params, num_water: int,
 
 
 def run_decomposition(scene, params: Params, seed: int = 0, *,
-                      device="cuda", rng_impl: str = "threefry",
+                      device="cuda", engine: str = "pallas",
+                      rng_impl: str = "threefry",
                       max_steps: Optional[int] = None, consumer=None,
                       cache=None) -> DecompositionResult:
     """One forward simulation recording per-walker (A, B) per window.
 
     Runs on ``device`` ("cuda" unless the caller asks for "cpu"; a CUDA
-    device without a card raises).  ``rng_impl`` "threefry" reproduces
+    device without a card raises).  ``engine`` "pallas" runs the chunk
+    kernels, "scan" the scan engine (Threefry; ``rng_impl`` and
+    ``cache`` unused); both draw the same Threefry streams, so their
+    records agree to f32 rounding.  ``rng_impl`` "threefry" reproduces
     the reference engines' streams; "hardware" is the fast generator.
     ``cache`` (``expansion.SceneCache``) is handed to every sprint, as
     the runner does for scenes above ``REBUILD_MAX_MNPS`` dipoles.
@@ -206,7 +246,7 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
     p = params.validate()
     num_water = scene.waters.shape[0]
     dev, step, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
-                                       cache)
+                                       cache, engine)
     total = p.t if max_steps is None else min(p.t, max_steps)
     n_sprints = total // p.sprint_steps
     a_parts, b_parts = [], []
@@ -223,7 +263,7 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
     ss = _one_deep(dev, step, ss, range(n_sprints), num_water, commit,
                    split)
     wall = time.perf_counter() - t_start
-    final = from_soa(ss, num_water)
+    final = _walker_state(ss, num_water)
 
     A = np.concatenate(a_parts) if a_parts else np.zeros((0, num_water))
     B = np.concatenate(b_parts) if b_parts else np.zeros((0, num_water))
@@ -269,7 +309,8 @@ def _save_state(path: str, ss, p: Params, num_water: int, seed: int,
 
 def run_decomposition_durable(scene, params: Params, record_path: str,
                               seed: int = 0, scene_seed: int = 0, *,
-                              device="cuda", rng_impl: str = "threefry",
+                              device="cuda", engine: str = "pallas",
+                              rng_impl: str = "threefry",
                               max_steps: Optional[int] = None,
                               checkpoint_path: Optional[str] = None,
                               checkpoint_every_sprints: int = 1,
@@ -308,6 +349,7 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
     from ..io import checkpoint as ckpt_mod
     from ..io import record as record_mod
 
+    _kernels_only(engine, "run_decomposition_durable")
     p = params.validate()
     num_water = scene.waters.shape[0]
     wps = p.sprint_steps // p.pfreq            # record rows per sprint
@@ -412,6 +454,7 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
 def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
                           snapshot_path: str, seed: int = 0,
                           scene_seed: int = 0, *, device="cuda",
+                          engine: str = "pallas",
                           rng_impl: str = "threefry",
                           max_steps: Optional[int] = None,
                           snapshot_every_sprints: int = 1,
@@ -438,6 +481,7 @@ def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
     """
     from ..io import checkpoint as ckpt_mod
 
+    _kernels_only(engine, "run_streaming_durable")
     p = params.validate()
     wps = p.sprint_steps // p.pfreq
     total = p.t if max_steps is None else min(p.t, max_steps)
@@ -616,6 +660,7 @@ def load_echoes(path: str):
 
 def run_plane_on_device(scene, params: Params, scales, taucps=None,
                         seed: int = 0, *, device="cuda",
+                        engine: str = "pallas",
                         rng_impl: str = "threefry",
                         max_steps: Optional[int] = None, echo_pairs=(),
                         cache=None):
@@ -653,6 +698,7 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
     """
     from ..analysis import echo_indices
 
+    _kernels_only(engine, "run_plane_on_device")
     p = params.validate()
     num_water = scene.waters.shape[0]
     wps = p.sprint_steps // p.pfreq

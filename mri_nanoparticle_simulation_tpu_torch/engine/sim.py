@@ -50,17 +50,18 @@ import torch
 
 from .. import analysis
 from ..fields import expansion
+from ..fields import grid as grid_mod
 from ..io import checkpoint as ckpt_mod
 from ..io import writer as writer_mod
 from ..parallel import ensemble as ens
-from ..params import Params, params_fingerprint
+from ..params import FIELD_GRID, Params, params_fingerprint
 from ..scene import BacteriaBox, ClusteredBacteriaBox, FCCLatticeBox
 from ..utils import profiling
 from ..utils.device import require_cuda
-from . import chunk_kernel, cuda_engine, resilience
+from . import chunk_kernel, cuda_engine, reference_engine, resilience
 from . import decompose as dec
 from .convert import key_words, mnp_table
-from .reference_engine import init_state
+from .reference_engine import ENGINES, init_state
 
 
 def fit_chunk_steps(params: Params, requested: int) -> int:
@@ -157,38 +158,63 @@ class SimulationRunner:
     walker state.
 
     ``device`` has no default, and a CUDA device without a card raises:
-    the runner never moves to the CPU on its own.  ``rng_impl`` defaults
-    to the fast generator, the reference runner's production default
+    the runner never moves to the CPU on its own.  ``engine`` "pallas"
+    runs the chunk kernels (``cuda_engine``), "scan" the torch-eager scan
+    engine (``reference_engine.make_sprint_fn``: every chunk size, and
+    the field modes exact and grid; it always draws Threefry, as the
+    reference's scan engine).  ``rng_impl`` defaults to the fast
+    generator, the reference runner's production default
     (``RNG_THREEFRY`` is the bit-reproducible validation path).
     ``cache_build_s`` is the wall time of the scene cache build (0 when
-    the scene needs none).
+    the scene needs none); grid mode builds its grid (``field_grid``)
+    once here.
 
     ``resume(path)`` continues from a checkpoint, and ``run`` writes them
     (``checkpoint_path``); both tag it as ``io/checkpoint.py`` says, so
-    a Threefry checkpoint crosses to and from the reference runner."""
+    a Threefry checkpoint crosses to and from the reference runner of
+    the same engine."""
 
     def __init__(self, params: Params, scene_seed: int = 0, seed: int = 0,
-                 *, device, rng_impl: str = cuda_engine.RNG_HARDWARE,
+                 *, device, engine: str = "pallas",
+                 rng_impl: str = cuda_engine.RNG_HARDWARE,
                  check_coverage: bool = True, scene=None):
         self.params = params.validate()
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; use one of "
+                             f"{ENGINES}")
+        grid_mode = params.field_mode == FIELD_GRID
+        if grid_mode and engine == "pallas":
+            raise ValueError(
+                "field_mode='grid' is a scan-engine backend (the pallas "
+                "engine's fused kernel always uses the local expansion, "
+                "which is both faster and more accurate); use "
+                "engine='scan'")
         self.device = torch.device(device)
+        self.engine = engine
         if self.device.type == "cuda":
             require_cuda()
-            chunk_kernel.load_library()   # the build is set-up, not run
+            if engine == "pallas":
+                chunk_kernel.load_library()   # the build is set-up, not run
         self.seed = seed
         self.scene_seed = scene_seed
-        self.rng_impl = rng_impl
-        self._sprint = cuda_engine.make_sprint_fn(
-            params, params.num_water, self.device, rng_impl=rng_impl)
+        self.rng_impl = rng_impl if engine == "pallas" \
+            else cuda_engine.RNG_THREEFRY
+        if engine == "pallas":
+            self._sprint = cuda_engine.make_sprint_fn(
+                params, params.num_water, self.device, rng_impl=rng_impl)
         self.scene = scene if scene is not None \
             else BacteriaBox(params, seed=scene_seed).populate()
         # geometry content hash for checkpoints, once per scene
         self._scene_fp = ckpt_mod.scene_fingerprint(self.scene)
         self._drain_timeout_s = None
         n_mnp = len(self.scene.mnps)
-        cuda_engine.check_scene(params, n_mnp)
-        self.uses_cubes = cuda_engine.needs_cache(params.num_water, n_mnp)
-        if check_coverage:
+        if not grid_mode:
+            cuda_engine.check_scene(params, n_mnp)
+        self.uses_cubes = (cuda_engine.needs_cache(params.num_water, n_mnp)
+                           if engine == "pallas" else
+                           expansion.uses_large_path(params.num_water,
+                                                     n_mnp))
+        if check_coverage and not grid_mode:
             worst = expansion.validate_near_k(self.scene.mnps[:, :3], params)
             if worst > params.near_k:
                 raise ValueError(
@@ -205,25 +231,51 @@ class SimulationRunner:
                         f"(configured {params.cube_candidates}); raise it "
                         f"or shrink cube_hash_dim cubes")
         self.mnp_tbl = mnp_table(self.scene.mnps, torch.float32, self.device)
-        # the scene cache, once per scene rather than once per sprint
+        # the scene cache, once per scene rather than once per sprint (the
+        # scan engine builds its own, as the reference's does)
         self.cache = None
         self.cache_build_s = 0.0
-        if self.uses_cubes:
+        if self.uses_cubes and engine == "pallas":
             t0 = time.perf_counter()
             self.cache = expansion.build_cache(self.mnp_tbl.pos,
                                                self.mnp_tbl.m, params)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.cache_build_s = time.perf_counter() - t0
+        self.field_grid = None
+        if grid_mode:
+            self.field_grid = grid_mod.build_grid(
+                self.mnp_tbl.pos, self.mnp_tbl.m, params,
+                grid_n=params.grid_n,
+                max_residents=params.grid_max_residents)
+        if engine == "scan":
+            self._sprint = reference_engine.make_sprint_fn(
+                params, self.device, field_grid=self.field_grid)
         self.key = key_words(seed)
         self.state = init_state(self.scene.waters, params, self.device)
+
+    @property
+    def _engine_tag(self) -> str:
+        """The ``engine`` tag of this runner's checkpoints."""
+        return ckpt_mod.ENGINE_TAG if self.engine == "pallas" else "scan"
+
+    def _to_device_state(self, state):
+        """The sprint's own form of ``state``: the kernels' planes, or the
+        state itself on the scan engine."""
+        return cuda_engine.to_soa(state, self.params) \
+            if self.engine == "pallas" else state
+
+    def _run_sprint(self, ss):
+        if self.engine == "pallas":
+            return self._sprint(self.mnp_tbl, self.key, ss, cache=self.cache)
+        return self._sprint(self.mnp_tbl.pos, self.mnp_tbl.m, self.key, ss)
 
     def resume(self, path: str):
         """Continue from the checkpoint at ``path``: raises ValueError when
         it was written under other params, seeds, scene, engine or
         generator."""
         state, seed, scene_seed = ckpt_mod.load_checkpoint(
-            path, self.params, self.device, engine=ckpt_mod.ENGINE_TAG,
+            path, self.params, self.device, engine=self._engine_tag,
             rng_impl=ckpt_mod.rng_tag(self.rng_impl),
             scene_fp=self._scene_fp)
         if seed != self.seed or scene_seed != self.scene_seed:
@@ -236,7 +288,7 @@ class SimulationRunner:
     def _save_checkpoint(self, path: str) -> None:
         ckpt_mod.save_checkpoint(
             path, self.state, self.params, self.seed, self.scene_seed,
-            engine=ckpt_mod.ENGINE_TAG,
+            engine=self._engine_tag,
             rng_impl=ckpt_mod.rng_tag(self.rng_impl),
             scene_fp=self._scene_fp)
 
@@ -277,15 +329,14 @@ class SimulationRunner:
             writer = writer_mod.T2CsvWriter(csv_path, p, quadrature,
                                             append=start_step > 0)
             writer.__enter__()
-        ss = cuda_engine.to_soa(self.state, p)
+        ss = self._to_device_state(self.state)
         t0 = time.perf_counter()
         pending, all_wins = [], []
         try:
             for i in range(n_sprints):
                 if fault_hook is not None:
                     fault_hook(start_step // p.sprint_steps + i)
-                ss, wins = self._sprint(self.mnp_tbl, self.key, ss,
-                                        cache=self.cache)
+                ss, wins = self._run_sprint(ss)
                 pending.append((start_step // p.pfreq + i * win_per_sprint,
                                 wins))
                 if len(pending) >= drain_depth:
@@ -325,9 +376,10 @@ class SimulationRunner:
         return times, wins[:, 0], wins[:, 1], stats
 
     def _sync_and_save(self, ss, checkpoint_path) -> None:
-        """The walker state from the kernel layout, then its checkpoint
+        """The walker state from the sprint's form, then its checkpoint
         when ``checkpoint_path`` is set."""
-        self.state = cuda_engine.from_soa(ss, self.params.num_water)
+        self.state = cuda_engine.from_soa(ss, self.params.num_water) \
+            if self.engine == "pallas" else ss
         if checkpoint_path:
             self._save_checkpoint(checkpoint_path)
 
@@ -391,6 +443,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the physical reflectIO/OI permeability")
     ap.add_argument("--impermeable", action="store_true",
                     help="reflectIO = reflectOI = 1")
+    ap.add_argument("--engine", default="pallas", choices=ENGINES,
+                    help="pallas: the chunk kernels (the production "
+                         "path); scan: the torch-eager scan engine (the "
+                         "reference's correctness anchor: every chunk "
+                         "size and the exact and grid field modes, "
+                         "Threefry only)")
     ap.add_argument("--chunk-steps", type=int, default=4000,
                     help="field-model rebuild interval (auto-shrunk for "
                          "short runs)")
@@ -459,13 +517,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="watchdog deadline on each device readback; a "
                          "hung drain raises (and, with --max-retries, "
                          "recovers) instead of blocking forever")
-    ap.add_argument("--rng", default=cuda_engine.RNG_HARDWARE,
+    ap.add_argument("--rng", default=None,
                     choices=[cuda_engine.RNG_HARDWARE,
                              cuda_engine.RNG_THREEFRY],
-                    help="RNG implementation: hardware (the default) is "
-                         "the fast generator, Philox4x32-10 in place of "
-                         "the TPU's hardware PRNG; threefry is the "
-                         "bit-reproducible validation path")
+                    help="RNG implementation (default: hardware on the "
+                         "pallas engine, the fast generator, "
+                         "Philox4x32-10 in place of the TPU's hardware "
+                         "PRNG; threefry is the bit-reproducible "
+                         "cross-engine validation path and the scan "
+                         "engine's only one)")
+    ap.add_argument("--field-mode", default="expansion",
+                    choices=["expansion", "exact", "grid"],
+                    help="scan-engine field backend (the pallas engine "
+                         "always uses the expansion). 'exact' and 'grid' "
+                         "are cross-validation oracles, NOT production "
+                         "engines: 'grid' (the reference octree's direct "
+                         "analogue) is dispatch-bound at ~1000x the "
+                         "production path's runtime — use it to check "
+                         "curves, not to run experiments")
+    ap.add_argument("--grid-n", type=int, default=64,
+                    help="field-grid resolution (field-mode=grid)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' fails without a card")
     ap.add_argument("--moment-scales", default=None, metavar="S1,S2,...",
@@ -645,7 +716,8 @@ def params_from_args(ap: argparse.ArgumentParser, args) -> Params:
         sprint_steps=args.sprint_steps, max_neighbors=args.max_neighbors,
         hash_dim=args.hash_dim, tau=args.tau,
         cube_candidates=args.cube_candidates,
-        far_table_order=args.far_table_order)
+        far_table_order=args.far_table_order,
+        field_mode=args.field_mode, grid_n=args.grid_n)
     if args.gradient:
         try:
             g = tuple(float(v) for v in args.gradient.split(","))
@@ -669,6 +741,11 @@ def params_from_args(ap: argparse.ArgumentParser, args) -> Params:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.rng is None:
+        # the runner's generator on each engine (the scan engine draws
+        # Threefry only)
+        args.rng = cuda_engine.RNG_HARDWARE if args.engine == "pallas" \
+            else cuda_engine.RNG_THREEFRY
     params = params_from_args(ap, args)
     params, build_scene = _scene_builder(ap, args, params)
 
@@ -706,7 +783,8 @@ def main(argv=None):
     def make_runner():
         return SimulationRunner(params, scene_seed=args.scene_seed,
                                 seed=args.seed, device=args.device,
-                                rng_impl=args.rng, scene=build_scene())
+                                engine=args.engine, rng_impl=args.rng,
+                                scene=build_scene())
 
     if args.max_retries:
         with profiling.device_trace(args.trace, args.device):
@@ -984,7 +1062,7 @@ def _run_grid_cli(ap, args, params: Params, csv_path: str) -> int:
         times, curves = ens.run_parameter_grid(
             params, axes, n_trials_each=args.trials_per_value,
             base_seed=args.scene_seed, run_seed=args.seed + 1000,
-            rng_impl=args.rng, paired=args.paired,
+            engine=args.engine, rng_impl=args.rng, paired=args.paired,
             quadrature=args.quadrature, device=args.device)
     wall = time.perf_counter() - t0
     names = list(axes)
@@ -1019,7 +1097,7 @@ def _run_sweep_cli(ap, args, params: Params, csv_path: str) -> int:
         times, curves = ens.run_parameter_sweep(
             params, name, values, n_trials_each=args.trials_per_value,
             base_seed=args.scene_seed, run_seed=args.seed + 1000,
-            rng_impl=args.rng, paired=args.paired,
+            engine=args.engine, rng_impl=args.rng, paired=args.paired,
             quadrature=args.quadrature, device=args.device)
     wall = time.perf_counter() - t0
     _emit_sweep_outputs(
@@ -1042,7 +1120,8 @@ def _run_ensemble_cli(args, params: Params, csv_path: str) -> int:
     with profiling.device_trace(args.trace, args.device):
         times, cos, sin, _ = ens.run_ensemble(
             params, n_trials=args.ensemble, base_seed=args.scene_seed,
-            run_seed=args.seed + 1000, rng_impl=args.rng,
+            run_seed=args.seed + 1000, engine=args.engine,
+            rng_impl=args.rng,
             device=args.device)
     wall = time.perf_counter() - t0
     with writer_mod.T2CsvWriter(csv_path, params, args.quadrature) as w:
@@ -1065,6 +1144,10 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
     sim.py:1198-1395 on its record, streaming and on-device plane
     paths, the record on disk with ``--record-dir`` and the stream
     durable with ``--stream-plane --checkpoint``."""
+    if params.field_mode == FIELD_GRID:
+        ap.error("--moment-scales/--echo-taucps need the production "
+                 "expansion backend (the grid backend is a "
+                 "cross-validation oracle)")
     try:
         scales = ([float(v) for v in args.moment_scales.split(",")]
                   if args.moment_scales else [1.0])
@@ -1101,7 +1184,8 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
     sc = build_scene() or BacteriaBox(params,
                                       seed=args.scene_seed).populate()
     cache = None
-    if cuda_engine.needs_cache(params.num_water, len(sc.mnps)):
+    if args.engine == "pallas" and cuda_engine.needs_cache(
+            params.num_water, len(sc.mnps)):
         tbl = mnp_table(sc.mnps, torch.float32, device)
         cache = expansion.build_cache(tbl.pos, tbl.m, params)
     t0 = time.perf_counter()
@@ -1110,7 +1194,8 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
         if args.plane_device:
             times, curves, stats, echoes = dec.run_plane_on_device(
                 sc, params, scales, taucps, seed=args.seed, device=device,
-                rng_impl=args.rng, echo_pairs=echo_pairs, cache=cache)
+                engine=args.engine, rng_impl=args.rng,
+                echo_pairs=echo_pairs, cache=cache)
             res = dec.DecompositionResult(
                 times_ms=times, A=np.zeros((0, params.num_water)),
                 B=np.zeros((0, params.num_water)), stats=stats)
@@ -1123,7 +1208,7 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
                 stats = dec.run_streaming_durable(
                     sc, params, plane, args.checkpoint, seed=args.seed,
                     scene_seed=args.scene_seed, device=device,
-                    rng_impl=args.rng,
+                    engine=args.engine, rng_impl=args.rng,
                     snapshot_every_sprints=args.checkpoint_every or 1,
                     progress=True, cache=cache)
                 res = dec.DecompositionResult(
@@ -1131,7 +1216,9 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
                     B=np.zeros((0, params.num_water)), stats=stats)
             else:
                 res = dec.run_decomposition(sc, params, seed=args.seed,
-                                            device=device, rng_impl=args.rng,
+                                            device=device,
+                                            engine=args.engine,
+                                            rng_impl=args.rng,
                                             consumer=plane, cache=cache)
             curves = plane.result()          # [s, t, n, 2], walker means
         else:
@@ -1141,15 +1228,17 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
                 res = dec.run_decomposition_durable(
                     sc, params, args.record_dir, seed=args.seed,
                     scene_seed=args.scene_seed, device=device,
-                    rng_impl=args.rng, checkpoint_path=args.checkpoint,
+                    engine=args.engine, rng_impl=args.rng,
+                    checkpoint_path=args.checkpoint,
                     checkpoint_every_sprints=args.checkpoint_every or 1,
                     progress=True, cache=cache)
                 print(f"Decomposition record stored: {args.record_dir} "
                       f"(A/B {res.A.shape})", file=sys.stderr)
             else:
                 res = dec.run_decomposition(sc, params, seed=args.seed,
-                                            device=device, rng_impl=args.rng,
-                                            cache=cache)
+                                            device=device,
+                                            engine=args.engine,
+                                            rng_impl=args.rng, cache=cache)
             t_rec = time.perf_counter()
             if taucps is None:
                 curves = dec.curves_at_scales(res.A, res.B, scales,

@@ -5,7 +5,10 @@ displacement (dx, dy, dz) [µm] from a dipole of moment M feels
 ``B_z = M * 1e11 * (2 dz^2 - dx^2 - dy^2) / |r|^5`` [T], zeroed within
 ``cell_r`` of the dipole (the intracellular field is the phase kick's).
 The expressions keep the reference's operation order, so the plain
-chunk and the CUDA kernel round as the JAX kernels do.
+chunk and the CUDA kernel round as the JAX kernels do.  The closed forms
+of the unmasked field, its gradient and Hessian (``dipole_bz``,
+``dipole_bz_grad``, ``dipole_bz_hessian``) serve the field grid and the
+torch route of the far sums, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -42,6 +45,47 @@ def bz_taylor_parts(dx, dy, dz, m_scaled):
             m3r7 * dx * dy * (2.0 - u_r2),
             m3r7 * dx * dz * (-8.0 - u_r2),
             m3r7 * dy * dz * (-8.0 - u_r2))
+
+
+def dipole_bz(dx, dy, dz, M):
+    """Unmasked dipole B_z (octree.cpp:206-210); inputs broadcast.  1/r^5
+    by sqrt and products, as the reference (exactly rounded, unlike a
+    pow)."""
+    r2 = dx * dx + dy * dy + dz * dz
+    inv_r5 = 1.0 / (r2 * r2 * torch.sqrt(r2))
+    return M * FIELD_SCALE * (2 * dz * dz - dx * dx - dy * dy) * inv_r5
+
+
+def dipole_bz_grad(dx, dy, dz, M):
+    """Gradient of the unmasked B_z with respect to the field point: with
+    u = r^2 - 5 dz^2 and v = 3 r^2 - 5 dz^2, (3 M' dx u, 3 M' dy u,
+    3 M' dz v) / r^7."""
+    m = M * FIELD_SCALE
+    r2 = dx * dx + dy * dy + dz * dz
+    inv_r7 = 1.0 / (r2 * r2 * r2 * torch.sqrt(r2))
+    u = r2 - 5 * dz * dz
+    v = 3 * r2 - 5 * dz * dz
+    return (3 * m * dx * u * inv_r7, 3 * m * dy * u * inv_r7,
+            3 * m * dz * v * inv_r7)
+
+
+def dipole_bz_hessian(dx, dy, dz, M):
+    """Hessian (xx, yy, zz, xy, xz, yz) of the unmasked B_z, the
+    reference's closed forms (dipole.py:105-137); traceless."""
+    m3 = 3 * M * FIELD_SCALE
+    r2 = dx * dx + dy * dy + dz * dz
+    inv_r2 = 1.0 / r2
+    inv_r7 = 1.0 / (r2 * r2 * r2 * torch.sqrt(r2))
+    u = r2 - 5 * dz * dz
+    v = 3 * r2 - 5 * dz * dz
+    u_r2 = 7 * u * inv_r2
+    hxx = m3 * (u + 2 * dx * dx - dx * dx * u_r2) * inv_r7
+    hyy = m3 * (u + 2 * dy * dy - dy * dy * u_r2) * inv_r7
+    hzz = m3 * (v - 4 * dz * dz - 7 * dz * dz * v * inv_r2) * inv_r7
+    hxy = m3 * dx * dy * (2 - u_r2) * inv_r7
+    hxz = m3 * dx * dz * (-8 - u_r2) * inv_r7
+    hyz = m3 * dy * dz * (-8 - u_r2) * inv_r7
+    return hxx, hyy, hzz, hxy, hxz, hyz
 
 
 def dipole_bz_masked(dx, dy, dz, M, cell_r):

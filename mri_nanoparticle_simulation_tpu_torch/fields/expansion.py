@@ -15,8 +15,12 @@ Counterpart of the reference's ``fields/expansion.py``:
   cube, its C nearest dipoles (also in the candidate-model kernel's
   layout) and the cube's far-field Taylor table (``fields.fartable``).
 * ``build``: the per-walker model (``NearField``) by cube-pruned or
-  whole-table selection and the far sums; ``coverage_reach2``, the
-  large path's coverage reach.
+  whole-table selection and the far sums, by the far-sums kernel or
+  (``far_impl="torch"``, the reference's ``far_impl="xla"``) in torch,
+  one masked pass over [W, N] or blocks of dipoles
+  (``far_sums_torch``); ``coverage_reach2``, the large path's coverage
+  reach.  ``evaluate``: the model's field and residency at positions
+  within the chunk, the scan engine's per-step hot path.
 * ``build_planes``: the large-scene rebuild straight into the chunk
   kernel's near/taylor inputs; its CUDA route is
   ``csrc/cand_model_kernel.cu``, its plain version
@@ -42,7 +46,8 @@ from ..engine import chunk_kernel
 from ..params import Params
 from ..utils import cache as cache_mod
 from . import fartable
-from .dipole import FIELD_SCALE, bz_taylor_parts
+from .dipole import (FIELD_SCALE, bz_taylor_parts, dipole_bz,
+                     dipole_bz_grad, dipole_bz_hessian)
 
 
 class SceneCache(NamedTuple):
@@ -294,44 +299,156 @@ def cube_select(anchor, payload, params: Params, reach2=None):
     return torch.take_along_dim(cand, sel[..., None], 1), n_reach
 
 
+#: walker-dipole pairs up to which ``far_sums_torch`` sums in one pass
+FAR_ONE_PASS = 1 << 24
+
+#: ``build``'s far-sums routes: the far-sums kernel
+#: (``chunk_kernel.run_far_sums``; the reference's ``far_impl="pallas"``)
+#: and torch, differentiable (the reference's ``far_impl="xla"``)
+FAR_IMPLS = ("kernel", "torch")
+
+
 def build(anchor, mnp_pos, mnp_M, params: Params, cache=None, reach2=None,
-          tbl=None) -> NearField:
+          tbl=None, far_impl: str = "kernel") -> NearField:
     """Each walker's K nearest dipoles and the far Taylor model of the
-    rest (the reference's ``build`` with ``far_impl='pallas'`` and no far
-    table; a cache with a far table goes through ``build_planes``).
+    rest (the reference's ``build`` without a far table; a cache with a
+    far table goes through ``build_planes``).
 
     ``anchor`` [W, 3]; ``mnp_pos`` [N, 3], ``mnp_M`` [N] all dipoles with
     images; ``cache`` a ``SceneCache`` without far table (cube-pruned
     selection) or None (selection over all N); ``reach2`` the squared
-    coverage reach, giving ``n_reach``; ``tbl`` the packed table
-    (``pack_table``), made here when None.  The far sums go through
-    ``chunk_kernel.run_far_sums`` (the CUDA kernel on a card)."""
+    coverage reach, giving ``n_reach``.  ``far_impl="kernel"`` sums the
+    far field through ``chunk_kernel.run_far_sums`` (the CUDA kernel on a
+    card) over ``tbl``, the packed table (``pack_table``, made here when
+    None); ``far_impl="torch"`` sums it in torch (``far_sums_torch``),
+    as the reference's scan engine does and as autograd differentiates.
+    The selection runs without autograd: its indices are constants of
+    the differentiation."""
     k = params.near_k
+    if far_impl not in FAR_IMPLS:
+        raise ValueError(f"unknown far_impl {far_impl!r}; use one of "
+                         f"{FAR_IMPLS}")
     if k > mnp_pos.shape[0]:
         raise ValueError(
             f"near_k={k} exceeds the number of dipoles "
             f"({mnp_pos.shape[0]}); selection would duplicate entries and "
             f"double-count their field")
-    if cache is not None:
-        if cache.far_coeffs is not None:
-            raise ValueError("a cache with a far table goes through "
-                             "build_planes")
-        rows, n_reach = cube_select(anchor, cache.payload, params, reach2)
-        near_pos, near_M = rows[..., :3], rows[..., 3]
-        idx = rows[..., 4].to(torch.int32)
-    else:
-        d2 = _pairwise_d2(anchor, mnp_pos)                  # [W, N]
-        n_reach = (None if reach2 is None
-                   else (d2 < reach2).sum(1).to(torch.int32))
-        sel = _argmin_passes(d2, k)
-        near_pos, near_M = mnp_pos[sel], mnp_M[sel]
-        idx = sel.to(torch.int32)
+    with torch.no_grad():
+        if cache is not None:
+            if cache.far_coeffs is not None:
+                raise ValueError("a cache with a far table goes through "
+                                 "build_planes")
+            rows, n_reach = cube_select(anchor.detach(), cache.payload,
+                                        params, reach2)
+            idx = rows[..., 4].long()
+        else:
+            d2 = _pairwise_d2(anchor.detach(), mnp_pos.detach())  # [W, N]
+            n_reach = (None if reach2 is None
+                       else (d2 < reach2).sum(1).to(torch.int32))
+            idx = _argmin_passes(d2, k)
+    near_pos, near_M = mnp_pos[idx], mnp_M[idx]
+    if far_impl == "torch":
+        b0, g, h = far_sums_torch(anchor, mnp_pos, mnp_M, idx)
+        return NearField(anchor, near_pos, near_M, b0, g, h, n_reach)
     if tbl is None:
         tbl = pack_table(mnp_pos, mnp_M)
     t = chunk_kernel.run_far_sums(anchor.T.contiguous(), tbl,
-                                  idx.T.contiguous())
+                                  idx.to(torch.int32).T.contiguous())
     return NearField(anchor, near_pos, near_M, t[0], t[1:4].T, t[4:10].T,
                      n_reach)
+
+
+def _far_parts(dx, dy, dz, M, far):
+    """The 10 masked sums (b0, grad, Hessian) of the dipoles where
+    ``far`` holds, over the last axis.  Excluded entries get the dummy
+    displacement 1.0 before the closed forms (an excluded dipole can sit
+    at r = 0, and inf * 0 is nan, in the forward pass and, behind a
+    ``where``, in the backward)."""
+    one = torch.ones((), dtype=dx.dtype, device=dx.device)
+    dx = torch.where(far, dx, one)
+    dy = torch.where(far, dy, one)
+    dz = torch.where(far, dz, one)
+    is_far = far.to(dx.dtype)
+    parts = ((dipole_bz(dx, dy, dz, M),) + dipole_bz_grad(dx, dy, dz, M)
+             + dipole_bz_hessian(dx, dy, dz, M))
+    return [torch.sum(c * is_far, -1) for c in parts]
+
+
+def far_sums_torch(anchor, mnp_pos, mnp_M, idx, block: int = 512):
+    """Far-field value [W], gradient [W, 3] and Hessian [W, 6] at each
+    anchor over every dipole but the K ``idx`` [W, K] (the reference's
+    ``far_impl="xla"`` route, expansion.py:328-351 and 712-757): one
+    masked pass over [W, N] when W * N <= ``FAR_ONE_PASS``, else an
+    accumulation over
+    blocks of ``block`` dipoles (zero-moment padding 1e6 µm away), so no
+    [W, N] intermediate is made whole.  Exclusion is by index."""
+    w, n = anchor.shape[0], mnp_pos.shape[0]
+    k = idx.shape[1]
+    if w * n <= FAR_ONE_PASS:
+        col = torch.arange(n, device=anchor.device)[None, :]
+        far = torch.ones((w, n), dtype=torch.bool, device=anchor.device)
+        for j in range(k):
+            far = far & (col != idx[:, j:j + 1])
+        d = anchor[:, None, :] - mnp_pos[None, :, :]        # [W, N, 3]
+        parts = _far_parts(d[..., 0], d[..., 1], d[..., 2], mnp_M[None, :],
+                           far)
+    else:
+        pad = (-n) % block
+        dt, dev = anchor.dtype, anchor.device
+        if pad:
+            mnp_pos = torch.cat([mnp_pos, torch.full((pad, 3), 1e6,
+                                                     dtype=dt, device=dev)])
+            mnp_M = torch.cat([mnp_M, torch.zeros(pad, dtype=dt,
+                                                  device=dev)])
+        ax, ay, az = anchor[:, 0:1], anchor[:, 1:2], anchor[:, 2:3]
+        acc = [torch.zeros(w, dtype=dt, device=dev) for _ in range(10)]
+        for j0 in range(0, n + pad, block):
+            pb = mnp_pos[j0:j0 + block]
+            col = torch.arange(j0, j0 + block, device=dev)[None, :]
+            sel = torch.zeros((w, block), dtype=torch.bool, device=dev)
+            for j in range(k):
+                sel = sel | (col == idx[:, j:j + 1])
+            blk = _far_parts(ax - pb[None, :, 0], ay - pb[None, :, 1],
+                             az - pb[None, :, 2], mnp_M[None, j0:j0 + block],
+                             ~sel)
+            acc = [a + b for a, b in zip(acc, blk)]
+        parts = acc
+    return (parts[0], torch.stack(parts[1:4], -1),
+            torch.stack(parts[4:10], -1))
+
+
+def evaluate(nf: NearField, pos, cell_r):
+    """Field and cell residency at [W, 3] positions within the chunk
+    (the reference's ``evaluate``, expansion.py:759-790): the exact
+    masked field of the K near dipoles plus the far Taylor about the
+    anchor.  ``cell_r`` a scalar tensor of the positions' dtype (its
+    square an f32 product).  Returns (B [W] in Tesla, in_cell [W] bool,
+    d2_min [W]).  Inside ``cell_r`` the distance is replaced by 1.0
+    before the closed form, so neither pass meets an inf."""
+    d = pos[:, None, :] - nf.near_pos                   # [W, K, 3]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    d2 = dx * dx + dy * dy + dz * dz
+    outside = d2 > cell_r * cell_r
+    safe = torch.where(outside, d2, torch.ones_like(d2))
+    inv_r5 = 1.0 / (safe * safe * torch.sqrt(safe))
+    contrib = nf.near_M * FIELD_SCALE * \
+        (2 * dz * dz - dx * dx - dy * dy) * inv_r5
+    b_near = torch.sum(torch.where(outside, contrib,
+                                   torch.zeros_like(contrib)), -1)
+    in_cell = torch.any(~outside, -1)
+    d2_min = torch.min(d2, -1).values
+
+    e = pos - nf.anchor                                 # [W, 3]
+    ex, ey, ez = e[..., 0], e[..., 1], e[..., 2]
+    g, h = nf.grad, nf.hess
+    b_far = (nf.b0
+             + g[..., 0] * ex + g[..., 1] * ey
+             + g[..., 2] * ez
+             + 0.5 * (h[..., 0] * ex * ex + h[..., 1] * ey * ey
+                      + h[..., 2] * ez * ez)
+             + h[..., 3] * ex * ey + h[..., 4] * ex * ez
+             + h[..., 5] * ey * ez)
+    return b_near + b_far, in_cell, d2_min
 
 
 def cand_model_reference(pos, cand, coeffs, *, near_k, order, h, bound,

@@ -19,9 +19,16 @@ padded dipoles run the rebuild entry; larger ones the near entry with
 the far-sums kernel, their cube cache (without far table) built in every
 sprint call, as in the reference.
 
-Not ported: the scan engine (``engine="scan"``, ROADMAP Queue 1 item 8)
-and walker shards or a trial mesh over several devices (item 11); each
-raises.
+``engine="scan"`` runs the trials through the torch-eager scan engine
+(``reference_engine.make_sprint_fn``) the same way: one sprint function,
+each trial its own padded dipoles, key and launch scalars.  The port's
+default stays ``"pallas"`` (the reference's functions default to its
+scan engine, its CLI passes ``"pallas"``): on Threefry the two engines
+give the same trials to f32 rounding, and on the card the default is
+the production engine.
+
+Not ported: walker shards or a trial mesh over several devices (ROADMAP
+Queue 1 item 11); each raises.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..engine import chunk_kernel, cuda_engine
+from ..engine import chunk_kernel, cuda_engine, reference_engine
 from ..engine.convert import key_words, mnp_table
 from ..engine.reference_engine import WalkerState, init_state
 from ..fields import expansion
@@ -100,12 +107,7 @@ def trial_table(pos: np.ndarray, mom: np.ndarray, dtype,
 def _check_port_options(engine: str, walker_shards: int, mesh) -> None:
     """Raise for the options of the reference that the port does not
     run: nothing runs something else in their place."""
-    if engine == "scan":
-        raise ValueError(
-            "engine='scan' (the torch-eager scan engine) is not ported "
-            "yet: ROADMAP Queue 1 item 8; the port runs engine='pallas', "
-            "its chunk kernels")
-    if engine != "pallas":
+    if engine not in reference_engine.ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if walker_shards > 1 or mesh is not None:
         raise ValueError(
@@ -153,11 +155,13 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
     ``base_seed + i`` / ``run_seed + i`` per-trial seeds; repeating one
     gives trials the same scene and the same stream (paired sweeps).
 
-    ``engine`` is ``"pallas"``, the chunk kernels (the reference's
-    default here is its scan engine, not ported: ``"scan"`` raises, as
-    do ``walker_shards`` > 1 and ``mesh``).  ``check_coverage``
-    validates near_k against every distinct (scene, effective params)
-    once."""
+    ``engine`` is ``"pallas"``, the chunk kernels (the port's default:
+    the reference's function defaults to its scan engine, and on
+    Threefry the two give the same trials to f32 rounding), or
+    ``"scan"``, the scan engine (Threefry whatever ``rng_impl`` says, as
+    the reference's).  ``walker_shards`` > 1 and ``mesh`` raise.
+    ``check_coverage`` validates near_k against every distinct (scene,
+    effective params) once."""
     params.validate()
     for name, vals in (("scene_seeds", scene_seeds),
                        ("run_seeds", run_seeds)):
@@ -203,7 +207,8 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
     device = torch.device(device)
     if device.type == "cuda":
         require_cuda()
-        chunk_kernel.load_library()   # the build is set-up, not run
+        if engine == "pallas":
+            chunk_kernel.load_library()   # the build is set-up, not run
 
     mnp_pos, mnp_M, waters, scenes = build_trial_scenes(
         params, n_trials, base_seed, mmoments, cell_rs,
@@ -235,8 +240,14 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
                     f"near_k >= {worst} (configured {params.near_k}); "
                     f"raise near_k or lower chunk_steps")
 
-    sprint = cuda_engine.make_sprint_fn(params, params.num_water, device,
-                                        dtype, rng_impl)
+    if engine == "pallas":
+        sprint = cuda_engine.make_sprint_fn(params, params.num_water,
+                                            device, dtype, rng_impl)
+    else:
+        scan = reference_engine.make_sprint_fn(params, device, dtype=dtype)
+
+        def sprint(tbl, key, state, lane_offset, **scalars):
+            return scan(tbl.pos, tbl.m, key, state, lane_offset, **scalars)
     run_crs = run_cell_rs if run_cell_rs is not None else cell_rs
     trials = []
     for i in range(n_trials):
@@ -251,9 +262,10 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
             d_scale=1.0 if d_scales is None else float(d_scales[i]),
             reflect=(None if permeabilities is None
                      else params.reflect_pair(float(permeabilities[i])))))
-    states = [cuda_engine.to_soa(init_state(waters[i], params, device,
-                                            dtype), params)
+    states = [init_state(waters[i], params, device, dtype)
               for i in range(n_trials)]
+    if engine == "pallas":
+        states = [cuda_engine.to_soa(st, params) for st in states]
 
     total = params.t if max_steps is None else min(params.t, max_steps)
     outs = [[] for _ in range(n_trials)]
@@ -271,7 +283,8 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
         wins = torch.stack([torch.cat(o) for o in outs]).cpu().numpy()
     else:
         wins = np.zeros((n_trials, 0, 2), np.float32)
-    walkers = [cuda_engine.from_soa(ss, params.num_water) for ss in states]
+    walkers = [cuda_engine.from_soa(ss, params.num_water)
+               if engine == "pallas" else ss for ss in states]
     state = WalkerState(
         pos=torch.stack([w.pos for w in walkers]),
         in_cell=torch.stack([w.in_cell for w in walkers]),

@@ -607,6 +607,12 @@ ERRORS = {
                                "1"],
     "sweep_values_not_numbers": ["--sweep", "cell_r", "--sweep-values",
                                  "0.5,x"],
+    "unknown_engine": ["--engine", "eager"],
+    "unknown_field_mode": ["--field-mode", "octree"],
+    "grid_n_not_a_number": ["--grid-n", "x"],
+    "grid_n_below_two": ["--field-mode", "grid", "--grid-n", "1"],
+    "grid_field_in_a_decomposition": ["--field-mode", "grid",
+                                      "--moment-scales", "1,2"],
 }
 
 

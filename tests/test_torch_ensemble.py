@@ -384,7 +384,8 @@ def test_run_ensemble_errors_match_jax(name):
     assert str(t.value) == str(j.value)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(engine="scan"), "item 8"),
+@pytest.mark.parametrize("kw,item", [(dict(engine="scan", walker_shards=2),
+                                      "item 11"),
                                      (dict(walker_shards=2), "item 11"),
                                      (dict(mesh=ONE), "item 11"),
                                      (dict(engine="eager"), "unknown")])
@@ -395,10 +396,12 @@ def test_unported_options_raise(kw, item):
 
 
 def test_sweeps_raise_for_the_scan_engine():
+    """The scan engine's sweeps run (tests/test_torch_scan.py); on walker
+    shards they raise as the kernels' do."""
     p = _tp(JP.small_test_params(**SMALL))
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="item 11"):
         tens.run_parameter_sweep(p, "num_cells", [10], engine="scan",
-                                 device="cpu")
+                                 walker_shards=2, device="cpu")
     with pytest.raises(ValueError, match="item 11"):
         tens.run_parameter_grid(p, {"D": [1.0]}, walker_shards=2,
                                 device="cpu")
@@ -525,3 +528,29 @@ def test_device_trace_off_is_a_no_op(tmp_path):
     with profiling.Timer() as tm:
         pass
     assert tm.elapsed_ms >= 0.0
+
+
+def test_cli_p_axis_grid_writes_csvs_where_jax_raises(tmp_path,
+                                                      monkeypatch):
+    """A P (permeability) axis in --sweep-grid: the reference CLI builds
+    each point's Params with ``pv.replace(P=...)`` (its sim.py:1084-1089)
+    and ``Params`` has no field P, so it raises TypeError after the run;
+    the port maps the axis through ``sweep_params_for`` and writes one
+    CSV per point, each with that point's permeability."""
+    from mri_nanoparticle_simulation_tpu.utils import cache as jcache
+    monkeypatch.setattr(jcache, "enable_compile_cache", lambda *a: None)
+    argv = CLI + ["--sweep-grid", "P=1,10"]
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    assert sim.main(argv + ["--device", "cpu", "--out",
+                            str(tmp_path / "port" / "t2.csv")]) == 0
+    files = sorted(os.listdir(tmp_path / "port"))
+    assert files == ["t2_P=1.csv", "t2_P=10.csv"]
+    curves = [writer.read_t2_csv(str(tmp_path / "port" / f))[1]
+              for f in files]
+    assert all(len(c) == 2 and np.all(np.isfinite(c)) for c in curves)
+    assert not np.array_equal(curves[0], curves[1])
+    with pytest.raises(TypeError, match="P"):
+        jsim.main(argv + ["--engine", "scan", "--out",
+                          str(tmp_path / "jax" / "t2.csv")])
+    assert not os.listdir(tmp_path / "jax")
