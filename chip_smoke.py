@@ -182,6 +182,33 @@ measured, and any failure raises (exit code != 0, no final line):
    the moment and D axes with 2 iterations (their recovered scale moved
    from --init-scale toward --true-scale; at 2 iterations their exit
    code is no gate);
+21. walker sharding and multi-process runs (``parallel/sharding.py``,
+   ``parallel/distributed.py``; before the kernels line): (a) the
+   headline through the runner, 2e5 steps on each generator, unsharded,
+   on ``make_walker_mesh()`` (one shard a card) and on two shards of the
+   one card: the state bitwise, window sums within WIN_TOL, escapes and
+   coverage equal, twice the launches on two shards and nothing else;
+   the scale-up (order 5) and its order-0 twin on two shards (2e5 and
+   2e4 steps): the state bitwise, window sums within 1e-6 W; walker-
+   steps/s beside phases 4, 7 and 8; (b) a two-sprint decomposition on
+   two shards through ``run_decomposition_durable(mesh=)``: the record
+   bitwise; three sprints killed after sprint 0 on two shards and
+   resumed with no mesh: bitwise; ``run_plane_on_device(mesh=)``:
+   curves within 1e-6, echo matrices bitwise; (c) 4 trials on a 2 x 2
+   (trials x walkers) mesh, each bitwise its standalone run; (d) this
+   script as two gloo worker processes sharing the card (``--worker``):
+   every ``run_*_multihost`` (simulation, record, plane, 4-trial
+   ensemble, 2 x 2 grid), both ranks equal and each equal to the
+   one-process result, then a one-rank NCCL group's walker-sharded run;
+   (e) ``--engine scan`` through the CLI (4032 walkers, 6e3 steps):
+   ``--record-dir``, ``--stream-plane --checkpoint`` killed and run
+   again, ``--plane-device --dump-echoes``, each within DEC_TOL (curves
+   and echoes within (max scale + 1) DEC_TOL) of the chunk kernel's
+   Threefry record; (f) ``--shard-walkers`` as a process (its line, its
+   CSV bytewise the unsharded run's), ``--ensemble 4 --walker-shards 2``
+   refused with the reference's message, and mri-t2-plot on a curve, a
+   dispersion table, a scene archive and a spectrum where matplotlib is
+   installed;
 17. the kernels line (every entry and mode, with its launches in the
    run of its path, its time beside its plain version's and its bound,
    its layout, registers and spills),
@@ -191,7 +218,9 @@ measured, and any failure raises (exit code != 0, no final line):
 """
 
 import contextlib
+import functools
 import glob
+import importlib.util
 import io
 import json
 import os
@@ -233,6 +262,8 @@ from mri_nanoparticle_simulation_tpu_torch.io.writer import (  # noqa: E402
     T2CsvWriter, read_t2_csv)
 from mri_nanoparticle_simulation_tpu_torch.parallel import (  # noqa: E402
     ensemble as ens)
+from mri_nanoparticle_simulation_tpu_torch.parallel.sharding import (  # noqa
+    WALKER_AXIS)
 from mri_nanoparticle_simulation_tpu_torch.params import Params  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch.scene import (  # noqa: E402
     BacteriaBox, ClusteredBacteriaBox, FCCLatticeBox)
@@ -694,6 +725,7 @@ def main():
     durability(ctx, keep, label)
     ensembles(ctx, keep, label)
     scan_and_inverse(keep, label)
+    sharded(ctx, keep, label)
 
     t0 = phase("17 kernels")
     no_reference_imported()
@@ -2507,6 +2539,560 @@ def scan_and_inverse(keep, label):
          f"{gate:.4f}) [{label}]")
 
 
+#: phase 21: steps of the sharded runs, and the decomposition, echo
+#: pairs and grid both the one-process and the two-process runs use
+SHARD_STEPS = 200_000
+DEC21 = dict(HEADLINE, totaltime=0.2, taucp=0.05)   # 2 sprints, CP flips
+DEC21_SCALES = [0.5, 1.0, 2.0]
+DEC21_TAUCPS = [0.05, 0.1]
+DEC21_ECHOES = [(1.0, 0.05), (2.0, 0.1)]
+GRID21 = {"D": [0.5, 1.0], "taucp": [0.05, 0.1]}
+SCAN21 = ["--num-water", "4032", "--num-cells", "270", "--totaltime",
+          "0.006", "--taucp", "0.001", "--chunk-steps", "1000",
+          "--sprint-steps", "2000", "--near-k", "5", "--scene-seed", "42",
+          "--seed", "7", "--moment-scales", "0.5,1", "--echo-taucps",
+          "0.001,0.002", "--engine", "scan", "--device", "cuda"]
+
+
+def same_walkers(st, ref, what):
+    """The gathered state ``st`` bitwise ``ref``'s, escapes and coverage
+    equal."""
+    for f in ("pos", "in_cell", "phase", "phase_comp"):
+        check(torch.equal(getattr(st, f).to(getattr(ref, f).device),
+                          getattr(ref, f)), f"{what}: {f} not bitwise equal")
+    check(st.step == ref.step and int(st.escapes) == int(ref.escapes)
+          and int(st.coverage) == int(ref.coverage),
+          f"{what}: step/escapes/coverage {st.step}/{int(st.escapes)}/"
+          f"{int(st.coverage)} vs {ref.step}/{int(ref.escapes)}/"
+          f"{int(ref.coverage)}")
+
+
+def sharded_run(p, scene, rng_impl, mesh, steps, runner=None):
+    """(cos, sin, stats, state, launches) of ``steps`` steps of the
+    runner (``runner``, or a new one on ``mesh``) from the start."""
+    if runner is None:
+        runner = SimulationRunner(p, scene=scene, seed=7, device="cuda",
+                                  rng_impl=rng_impl, mesh=mesh)
+    else:
+        runner.state = init_state(scene.waters, p, runner.device)
+    reset_launches()
+    _, cos, sin, stats = runner.run(progress=False, max_steps=steps)
+    got = launches()
+    check(stats["escapes"] == 0 and stats["coverage_violations"] == 0,
+          f"escapes {stats['escapes']}, coverage "
+          f"{stats['coverage_violations']}")
+    return cos, sin, stats, runner.state, got
+
+
+def start_worker(args, log):
+    """This script as a worker process (``worker``) with its output in
+    ``log``; returns (Popen, log, start time)."""
+    out = open(log, "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--worker", *map(str, args)], cwd=ROOT,
+                            stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+    return proc, log, time.perf_counter()
+
+
+def finish_workers(started, timeout=600):
+    """Wait for every started process, killing all that remain when one
+    fails or its time is up; each must exit 0.  Returns their logs and
+    walls."""
+    res = []
+    try:
+        for proc, log, t0 in started:
+            rc = proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+            with open(log) as fh:
+                text = fh.read()
+            check(rc == 0, f"process exit {rc}:\n{text[-3000:]}")
+            res.append((text, time.perf_counter() - t0))
+    finally:
+        for proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return res
+
+
+def worker_results(mesh, what):
+    """What a worker of phase 21 (d) saves: the multi-process entry
+    points at the headline (``what`` "all"), or the walker-sharded run
+    alone ("sim")."""
+    from mri_nanoparticle_simulation_tpu_torch.parallel import distributed
+    p = Params(**HEADLINE).validate()
+    sc = BacteriaBox(p, seed=42).populate()
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    _, c, s, st = distributed.run_simulation_multihost(
+        sc, p, mesh, seed=7, max_steps=SHARD_STEPS, rng_impl="threefry")
+    walls["sim"] = time.perf_counter() - t0
+    out.update(sim_cos=c, sim_sin=s, sim_pos=st.pos.cpu().numpy(),
+               sim_phase=st.phase.cpu().numpy(),
+               sim_in_cell=st.in_cell.cpu().numpy(),
+               sim_counts=np.array([st.step, int(st.escapes),
+                                    int(st.coverage)]))
+    if what == "all":
+        pd = Params(**DEC21).validate()
+        t0 = time.perf_counter()
+        r = distributed.run_decomposition_multihost(sc, pd, mesh, seed=7,
+                                                    rng_impl="hardware")
+        walls["record"] = time.perf_counter() - t0
+        out.update(dec_A=r.A, dec_B=r.B)
+        t0 = time.perf_counter()
+        _, curves, _, echoes = distributed.run_plane_multihost(
+            sc, pd, DEC21_SCALES, DEC21_TAUCPS, mesh, seed=7,
+            rng_impl="hardware", echo_pairs=DEC21_ECHOES)
+        walls["plane"] = time.perf_counter() - t0
+        out["plane"] = curves
+        for i, e in enumerate(echoes):
+            out[f"echo{i}"] = e.cos
+        pe = Params(**ENSEMBLE).validate()
+        t0 = time.perf_counter()
+        _, c, s = distributed.run_ensemble_multihost(
+            pe, 4, base_seed=42, run_seed=7, rng_impl="threefry",
+            max_steps=SHARD_STEPS, devices=["cuda:0"])
+        walls["ensemble"] = time.perf_counter() - t0
+        out.update(ens_cos=c, ens_sin=s)
+        t0 = time.perf_counter()
+        _, g = distributed.run_parameter_grid_multihost(
+            pe, GRID21, n_trials_each=1, base_seed=42, run_seed=7,
+            rng_impl="threefry", max_steps=SHARD_STEPS, quadrature=True,
+            devices=["cuda:0"])
+        walls["grid"] = time.perf_counter() - t0
+        out["grid"] = g
+    return out, walls
+
+
+def worker(argv):
+    """Phase 21 (d)'s worker: ``--worker BACKEND RANK WORLD RDZV OUT``
+    joins a ``torch.distributed`` group (``file://RDZV``) and saves its
+    results to OUT; under gloo two ranks share the card, under NCCL one
+    rank alone (NCCL refuses two ranks on one card)."""
+    from mri_nanoparticle_simulation_tpu_torch.parallel import distributed
+    backend, rank, world, rdzv, out = argv
+    require_cuda()
+    chunk_kernel.load_library()
+    distributed.initialize(f"file://{rdzv}", int(world), int(rank),
+                           backend=backend)
+    import torch.distributed as tdist
+    check(tdist.get_backend() == backend, f"group backend "
+          f"{tdist.get_backend()}, asked for {backend}")
+    if backend == "nccl":
+        mesh = distributed.global_walker_mesh()
+        what = "sim"
+    else:
+        mesh = distributed.global_walker_mesh(["cuda:0"])
+        what = "all"
+    check(mesh.shape[WALKER_AXIS] == int(world) and mesh.group is not None,
+          f"mesh {mesh}")
+    res, walls = worker_results(mesh, what)
+    np.savez(out, **res)
+    print(json.dumps({"rank": int(rank), "walls": walls}))
+    tdist.destroy_process_group()
+    return 0
+
+
+def dispersion_table(keep, path):
+    """A --fit-r2 table of phase 15's 5c CLI run (its 16 CSVs) at
+    ``path``, written by the CLI's own writer."""
+    c5 = keep["5c"]
+    ap = sim.build_parser()
+    p = sim.params_from_args(ap, ap.parse_args(c5["argv"]))
+    scales, taucps = [0.5, 1, 2, 4], [0.05, 0.1, 0.25, 0.5]
+    curves = np.zeros((4, 4, p.t // p.pfreq, 2))
+    for si, s in enumerate(scales):
+        for ti, t in enumerate(taucps):
+            rows = np.loadtxt(io.StringIO(
+                c5["csvs"][f"t2_mscale={s:g}_taucp={t:g}.csv"]),
+                delimiter=",", ndmin=2)
+            curves[si, ti, :, 0] = rows[:, 1] / p.num_water
+    times = (np.arange(1, curves.shape[2] + 1) * p.pfreq) * p.tau
+    sim._write_dispersion(path, times, curves, scales, taucps, p.num_water)
+
+
+def sharded(ctx, keep, label):
+    """Phase 21: walker sharding and multi-process runs at full width,
+    the scan engine's durable writers and on-device plane, the CLI's
+    sharding flags and mri-t2-plot."""
+    from mri_nanoparticle_simulation_tpu_torch.parallel import distributed
+    from mri_nanoparticle_simulation_tpu_torch.parallel import sharding
+    t0 = phase("21 (a) sharded runs, headline and scale-up")
+    one = sharding.make_walker_mesh()
+    two = sharding.make_walker_mesh(["cuda:0", "cuda:0"])
+    check(one.shape[WALKER_AXIS] == torch.cuda.device_count(), f"{one}")
+    p = Params(**HEADLINE).validate()
+    scene = keep["scene"]
+    ref21 = {}
+    for rng_impl, mode in (("threefry", "chunk_kernel"),
+                           ("hardware", "chunk_kernel[fast]")):
+        runs = {name: sharded_run(p, scene, rng_impl, mesh, SHARD_STEPS)
+                for name, mesh in (("unsharded", None), ("1 shard", one),
+                                   ("2 shards", two))}
+        ref = runs["unsharded"]
+        ref21[rng_impl] = ref
+        n = SHARD_STEPS // p.chunk_steps
+        for name, want in (("unsharded", n), ("1 shard", n),
+                           ("2 shards", 2 * n)):
+            check(runs[name][4] == only(**{mode: want}),
+                  f"{rng_impl} {name}: launches {launched(runs[name][4])}, "
+                  f"expected {want} {mode}")
+        notes = []
+        for name in ("1 shard", "2 shards"):
+            cos, sin, stats, st, _ = runs[name]
+            same_walkers(st, ref[3], f"{rng_impl} {name}")
+            werr = max(float(np.abs(cos - ref[0]).max()),
+                       float(np.abs(sin - ref[1]).max()))
+            check(werr < WIN_TOL, f"{rng_impl} {name}: window sums differ "
+                  f"by {werr}")
+            notes.append(f"{name} {stats['walker_steps_per_s']:.4e} "
+                         f"walker-steps/s, window sums "
+                         f"{'bitwise' if werr == 0 else f'within {werr:.3e}'}")
+        print(f"  headline {rng_impl}, 2e5 steps: state bitwise on both "
+              f"meshes; unsharded {ref[2]['walker_steps_per_s']:.4e} "
+              f"walker-steps/s, {'; '.join(notes)}; launches {mode} "
+              f"{n} / {n} / {2 * n}; phase 4 (Threefry, 2e6 steps) "
+              f"{keep['t4_rate']:.4e} [{label}]", flush=True)
+    q = ctx["p"]
+    big = ctx["runner"]
+    ref = sharded_run(q, big.scene, "threefry", None, SHARD_STEPS,
+                      runner=big)
+    got = sharded_run(q, big.scene, "threefry", two, SHARD_STEPS)
+    same_walkers(got[3], ref[3], "scale-up, 2 shards")
+    werr = float(np.abs(got[0] - ref[0]).max())
+    check(werr <= 1e-6 * q.num_water, f"scale-up: window sums differ by "
+          f"{werr} (gate {1e-6 * q.num_water})")
+    n = SHARD_STEPS // q.chunk_steps
+    check(ref[4] == only(chunk_near_kernel=n, cand_model_kernel=n)
+          and got[4] == only(chunk_near_kernel=2 * n,
+                             cand_model_kernel=2 * n),
+          f"scale-up launches {launched(ref[4])} / {launched(got[4])}")
+    print(f"  scale-up 2 shards (order 5, Threefry), 2e5 steps: state "
+          f"bitwise, window sums within {werr:.3e} (gate "
+          f"{1e-6 * q.num_water:g}); unsharded "
+          f"{ref[2]['walker_steps_per_s']:.4e}, 2 shards "
+          f"{got[2]['walker_steps_per_s']:.4e} walker-steps/s (phase 7, "
+          f"2e6 steps: {ctx['rate7']:.4e}); launches {launched(ref[4])} / "
+          f"{launched(got[4])} [{label}]", flush=True)
+    q0 = q.replace(far_table_order=0)
+    steps0 = 20_000
+    ref = sharded_run(q0, big.scene, "threefry", None, steps0)
+    got = sharded_run(q0, big.scene, "threefry", two, steps0)
+    same_walkers(got[3], ref[3], "order 0, 2 shards")
+    werr = float(np.abs(got[0] - ref[0]).max())
+    check(werr <= 1e-6 * q.num_water, f"order 0: window sums differ by "
+          f"{werr}")
+    n = steps0 // q.chunk_steps
+    check(ref[4] == only(chunk_near_kernel=n, far_sums_kernel=n)
+          and got[4] == only(chunk_near_kernel=2 * n,
+                             far_sums_kernel=2 * n),
+          f"order-0 launches {launched(ref[4])} / {launched(got[4])}")
+    done(t0, f"order 0, 2 shards, 2e4 steps: state bitwise, window sums "
+         f"within {werr:.3e}; unsharded {ref[2]['walker_steps_per_s']:.4e}, "
+         f"2 shards {got[2]['walker_steps_per_s']:.4e} walker-steps/s "
+         f"(phase 8, 2e5 steps: {ctx['rate8']:.4e}); launches "
+         f"{launched(got[4])} [{label}]")
+
+    t0 = phase("21 (b) sharded decomposition and plane, headline, fast")
+    pd = Params(**DEC21).validate()
+    rec = dec.run_decomposition(scene, pd, seed=7, device="cuda",
+                                rng_impl="hardware")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        res = dec.run_decomposition_durable(
+            scene, pd, os.path.join(tmp, "a"), seed=7, scene_seed=42,
+            device="cuda", rng_impl="hardware", mesh=two,
+            checkpoint_path=os.path.join(tmp, "a.npz"))
+        got = launches()
+        n = pd.t // pd.chunk_steps
+        check(got == only(**{"chunk_kernel[fast+dec]": 2 * n}),
+              f"launches {launched(got)}, expected {2 * n} "
+              f"chunk_kernel[fast+dec]")
+        check(np.array_equal(np.asarray(res.A), rec.A)
+              and np.array_equal(np.asarray(res.B), rec.B),
+              "sharded record not bitwise the unsharded record")
+        # three sprints on 2 shards, killed before sprint 2 (the drain,
+        # one sprint deep, has committed sprint 0 and its checkpoint),
+        # then resumed with no mesh
+        p3 = pd.replace(totaltime=3 * pd.sprint_steps * pd.tau).validate()
+        rec3 = dec.run_decomposition(scene, p3, seed=7, device="cuda",
+                                     rng_impl="hardware")
+        fault = resilience.FaultInjector({2: 1})
+        with contextlib.suppress(RuntimeError):
+            dec.run_decomposition_durable(
+                scene, p3, os.path.join(tmp, "b"), seed=7, scene_seed=42,
+                device="cuda", rng_impl="hardware", mesh=two,
+                checkpoint_path=os.path.join(tmp, "b.npz"),
+                fault_hook=fault)
+        check(fault.faults_fired == 1 and checkpoint_step(
+            os.path.join(tmp, "b.npz")) == p3.sprint_steps,
+              "the faulted run left no checkpoint after sprint 0")
+        res = dec.run_decomposition_durable(
+            scene, p3, os.path.join(tmp, "b"), seed=7, scene_seed=42,
+            device="cuda", rng_impl="hardware",
+            checkpoint_path=os.path.join(tmp, "b.npz"))
+        check(res.stats["sprints"] == 2 and np.array_equal(
+            np.asarray(res.A), rec3.A) and np.array_equal(
+            np.asarray(res.B), rec3.B),
+              "resumed record not bitwise the uninterrupted one")
+    kw = dict(seed=7, rng_impl="hardware", echo_pairs=DEC21_ECHOES)
+    plane1 = dec.run_plane_on_device(scene, pd, DEC21_SCALES, DEC21_TAUCPS,
+                                     device="cuda", **kw)
+    plane2 = dec.run_plane_on_device(scene, pd, DEC21_SCALES, DEC21_TAUCPS,
+                                     mesh=two, **kw)
+    cerr = float(np.abs(plane2[1] - plane1[1]).max())
+    check(cerr <= 1e-6, f"sharded plane curves differ by {cerr}")
+    for a, b in zip(plane2[3], plane1[3]):
+        check(np.array_equal(a.cos, b.cos), "sharded echo matrix differs")
+    done(t0, f"2 shards: record bitwise ({rec.A.shape}); 3 sprints killed "
+         f"after sprint 0 and resumed unsharded: bitwise; plane curves within "
+         f"{cerr:.3e} (gate 1e-6), {len(plane1[3])} echo matrices bitwise; "
+         f"plane walls unsharded {plane1[2]['wall_s']:.3f} s, 2 shards "
+         f"{plane2[2]['wall_s']:.3f} s [{label}]")
+
+    t0 = phase("21 (c) ensemble on a 2 x 2 (trials x walkers) mesh")
+    pe = Params(**ENSEMBLE).validate()
+    mesh2d = ens.make_trial_mesh(["cuda:0"] * 4, 2)
+    reset_launches()
+    t1 = time.perf_counter()
+    _, cos, sin, st = ens.run_ensemble(pe, 4, mesh=mesh2d, walker_shards=2,
+                                       base_seed=42, run_seed=7,
+                                       rng_impl="threefry",
+                                       max_steps=SHARD_STEPS, device="cuda")
+    wall = time.perf_counter() - t1
+    got = launches()
+    n = SHARD_STEPS // pe.chunk_steps
+    check(got == only(chunk_kernel=4 * 2 * n),
+          f"launches {launched(got)}, expected {8 * n} chunk_kernel")
+    alone_cos, werr = [], 0.0
+    for i in range(4):
+        _, c1, s1, alone = cuda_engine.run_simulation(
+            BacteriaBox(pe, seed=42 + i).populate(), pe, seed=7 + i,
+            device="cuda", rng_impl="threefry", max_steps=SHARD_STEPS)
+        check_trial(st, i, alone, f"2D trial {i}")
+        werr = max(werr, float(np.abs(cos[i] - c1).max()),
+                   float(np.abs(sin[i] - s1).max()))
+        alone_cos.append((c1, s1))
+    check(werr < WIN_TOL, f"2D trials' window sums differ by {werr}")
+    done(t0, f"4 trials bitwise their standalone runs (window sums within "
+         f"{werr:.3e}); {ensemble_rate(4, pe, SHARD_STEPS, wall):.4e} "
+         f"walker-steps/s, launches {launched(got)} [{label}]")
+
+    t0 = phase("21 (d) two processes on the card (gloo), then NCCL")
+    with tempfile.TemporaryDirectory() as tmp:
+        started = [start_worker(["gloo", r, 2, os.path.join(tmp, "rdzv"),
+                                 os.path.join(tmp, f"r{r}.npz")],
+                                os.path.join(tmp, f"r{r}.log"))
+                   for r in range(2)]
+        # the one-process references while the workers start
+        grid1 = ens.run_parameter_grid(pe, GRID21, n_trials_each=1,
+                                       base_seed=42, run_seed=7,
+                                       rng_impl="threefry",
+                                       max_steps=SHARD_STEPS,
+                                       quadrature=True, device="cuda")[1]
+        logs = finish_workers(started)
+        r0, r1 = (dict(np.load(os.path.join(tmp, f"r{r}.npz")))
+                  for r in range(2))
+        check(sorted(r0) == sorted(r1) and all(
+            np.array_equal(r0[k], r1[k]) for k in r0),
+              "the two ranks returned different results")
+        c, s, _, ref_st, _ = ref21["threefry"]
+        check(np.array_equal(r0["sim_pos"], ref_st.pos.cpu().numpy())
+              and np.array_equal(r0["sim_phase"],
+                                 ref_st.phase.cpu().numpy())
+              and np.array_equal(r0["sim_in_cell"],
+                                 ref_st.in_cell.cpu().numpy()),
+              "run_simulation_multihost: state not bitwise one process's")
+        check(r0["sim_counts"].tolist() == [ref_st.step, 0, 0],
+              f"run_simulation_multihost counts {r0['sim_counts']}")
+        werr = float(np.abs(r0["sim_cos"] - c).max())
+        check(werr < WIN_TOL, f"multihost window sums differ by {werr}")
+        check(np.array_equal(r0["dec_A"], rec.A)
+              and np.array_equal(r0["dec_B"], rec.B),
+              "run_decomposition_multihost: record not bitwise")
+        perr = float(np.abs(r0["plane"] - plane1[1]).max())
+        check(perr <= 1e-6, f"run_plane_multihost curves differ by {perr}")
+        for i, e in enumerate(plane1[3]):
+            check(np.array_equal(r0[f"echo{i}"], e.cos),
+                  "run_plane_multihost echo matrix differs")
+        check(all(np.array_equal(r0["ens_cos"][i], alone_cos[i][0])
+                  and np.array_equal(r0["ens_sin"][i], alone_cos[i][1])
+                  for i in range(4)),
+              "run_ensemble_multihost: trials differ from standalone runs")
+        check(np.array_equal(r0["grid"], grid1),
+              "run_parameter_grid_multihost differs from one process")
+        walls = [json.loads(t.strip().splitlines()[-1])["walls"]
+                 for t, _ in logs]
+        print(f"  gloo, 2 ranks x 1 shard on cuda:0: both ranks equal; "
+              f"simulation state bitwise, window sums within {werr:.3e}; "
+              f"record bitwise; plane within {perr:.3e}, echoes bitwise; "
+              f"ensemble (4 trials) and grid (2 x 2) bitwise; rank walls "
+              f"{walls[0]}; processes {logs[0][1]:.1f} / {logs[1][1]:.1f} s "
+              f"[{label}]", flush=True)
+        logs = finish_workers([start_worker(
+            ["nccl", 0, 1, os.path.join(tmp, "rdzv_nccl"),
+             os.path.join(tmp, "nccl.npz")], os.path.join(tmp, "nccl.log"))])
+        rn = dict(np.load(os.path.join(tmp, "nccl.npz")))
+        check(np.array_equal(rn["sim_pos"], ref_st.pos.cpu().numpy())
+              and np.array_equal(rn["sim_phase"],
+                                 ref_st.phase.cpu().numpy()),
+              "NCCL run: state not bitwise one process's")
+        nerr = float(np.abs(rn["sim_cos"] - c).max())
+        check(nerr < WIN_TOL, f"NCCL window sums differ by {nerr}")
+        nwall = json.loads(logs[0][0].strip().splitlines()[-1])["walls"]
+    done(t0, f"NCCL, one rank: state bitwise, window sums within "
+         f"{nerr:.3e}; run {nwall['sim']:.3f} s, process "
+         f"{logs[0][1]:.1f} s [{label}]")
+
+    t0 = phase("21 (e) the scan engine's durable writers and plane (CLI)")
+    ap = sim.build_parser()
+    ps = sim.params_from_args(ap, ap.parse_args(SCAN21))
+    sc_s = BacteriaBox(ps, seed=42).populate()
+    krec = dec.run_decomposition(sc_s, ps, seed=7, device="cuda",
+                                 rng_impl="threefry")
+    scales, taucps = [0.5, 1.0], [0.001, 0.002]
+    kcurves = dec.curves_at_plane(krec.A, krec.B, scales, taucps, ps,
+                                  quadrature=True)
+    gate = (max(scales) + 1) * DEC_TOL
+
+    def curve_err(tmp, stem):
+        err = 0.0
+        for si, s_ in enumerate(scales):
+            for ti, t_ in enumerate(taucps):
+                rows = read_t2_csv(os.path.join(
+                    tmp, f"{stem}_mscale={s_:g}_taucp={t_:g}.csv"))
+                err = max(err, float(np.abs(rows[1] / ps.num_water
+                                            - kcurves[si, ti, :, 0]).max()))
+        return err
+
+    with tempfile.TemporaryDirectory() as tmp:
+        j = functools.partial(os.path.join, tmp)
+        record_argv = SCAN21 + ["--record-dir", j("rec"), "--checkpoint",
+                                j("ck.npz"), "--out", j("r.csv")]
+        plane_argv = SCAN21 + ["--plane-device", "--dump-echoes",
+                               j("e.npz"), "--fit-r2", j("r2.csv"),
+                               "--out", j("p.csv")]
+        stream_argv = SCAN21 + ["--stream-plane", "--checkpoint",
+                                j("snap.npz"), "--checkpoint-every", "1",
+                                "--out", j("s.csv")]
+        procs = [start_process("mri_nanoparticle_simulation_tpu_torch."
+                               "engine.sim", a, j(f"{n}.log"))
+                 for n, a in (("record", record_argv),
+                              ("plane", plane_argv))]
+        try:
+            step = kill_at_step(stream_argv, j("snap.npz"), ps.sprint_steps,
+                                ps.t, j("killed.log"))
+            run_process(stream_argv, j("stream.log"))
+            outs = [finish_process(pr) for pr in procs]
+        finally:
+            for pr, _, _ in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        for (rc, _, text, _), what in zip(outs, ("record", "plane")):
+            check(rc == 0, f"--engine scan {what}: exit {rc}:\n"
+                  f"{text[-2000:]}")
+        store = record_mod.RecordStore.open(j("rec"))
+        a, b = store.arrays()
+        check(store.complete and store.meta["engine"] == "scan",
+              f"record store meta {store.meta.get('engine')}")
+        aerr = max(float(np.abs(np.asarray(a) - krec.A).max()),
+                   float(np.abs(np.asarray(b) - krec.B).max()))
+        check(aerr < DEC_TOL, f"scan record vs kernel record: {aerr}")
+        check(checkpoint_step(j("ck.npz")) == ps.t,
+              "the record run's final checkpoint")
+        serr, perr = curve_err(tmp, "s"), curve_err(tmp, "p")
+        check(serr < gate and perr < gate,
+              f"scan curves vs the kernel record's: stream {serr}, plane "
+              f"{perr} (gate {gate})")
+        eerr = 0.0
+        for e in dec.load_echoes(j("e.npz")):
+            _, want = dec.echo_cos_matrix(krec.A, krec.B, ps, e.scale,
+                                          e.taucp_ms)
+            eerr = max(eerr, float(np.abs(e.cos - want).max()))
+        check(eerr < gate, f"scan echo captures vs kernel record: {eerr}")
+    done(t0, f"--record-dir: A, B within {aerr:.3e} of the chunk kernel's "
+         f"record (tol {DEC_TOL}); --stream-plane --checkpoint killed at "
+         f"step {step} and run again: curves within {serr:.3e}; "
+         f"--plane-device --dump-echoes: curves within {perr:.3e}, echoes "
+         f"within {eerr:.3e} (gate {gate:.1e}) [{label}]")
+
+    t0 = phase("21 (f) the CLI: --shard-walkers, --walker-shards, "
+               "mri-t2-plot")
+    with tempfile.TemporaryDirectory() as tmp:
+        j = functools.partial(os.path.join, tmp)
+        argv = ["--num-water", "4032", "--num-cells", "270", "--totaltime",
+                "0.2", "--chunk-steps", "4000", "--near-k", "5",
+                "--scene-seed", "42", "--seed", "7", "--rng", "threefry",
+                "--device", "cuda"]
+        shard = start_process("mri_nanoparticle_simulation_tpu_torch."
+                              "engine.sim", argv + ["--shard-walkers",
+                                                    "--out", j("a.csv")],
+                              j("shard.log"))
+        bad = start_process("mri_nanoparticle_simulation_tpu_torch."
+                            "engine.sim", argv + ["--ensemble", "4",
+                                                  "--walker-shards", "2",
+                                                  "--out", j("b.csv")],
+                            j("bad.log"))
+        try:
+            rc, _, text, swall = finish_process(shard)
+            brc, _, btext, _ = finish_process(bad)
+        finally:
+            for pr, _, _ in (shard, bad):
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        check(rc == 0 and "Sharding walkers over 1 device(s)" in text,
+              f"--shard-walkers: exit {rc}:\n{text[-2000:]}")
+        pc = sim.params_from_args(ap, ap.parse_args(argv))
+        SimulationRunner(pc, scene_seed=42, seed=7, device="cuda",
+                         rng_impl="threefry").run(csv_path=j("ref.csv"),
+                                                  progress=False)
+        with open(j("a.csv")) as fa, open(j("ref.csv")) as fr:
+            check(fa.read() == fr.read(), "--shard-walkers CSV differs")
+        want = "walker_shards (2) must divide the device count (1)"
+        check(brc != 0 and want in btext,
+              f"--ensemble 4 --walker-shards 2: exit {brc}:\n{btext[-2000:]}")
+        plots = "not run: matplotlib is not installed on this machine"
+        if importlib.util.find_spec("matplotlib") is not None:
+            with open(j("t4.csv"), "w") as fh:
+                fh.write(keep["t4_csv"])
+            dispersion_table(keep, j("r2.csv"))
+            scene_io.save_scene(scene, j("scene.npz"))
+            with contextlib.redirect_stdout(io.StringIO()):
+                analysis.main([j("t4.csv"), "--spectrum", "--out-table",
+                               j("spec.csv")])
+            started = [start_process(
+                "mri_nanoparticle_simulation_tpu_torch.plotting",
+                [*args, "--out", j(f"{name}.png")], j(f"{name}.log"))
+                for name, args in (
+                    ("curve", [j("t4.csv"), "--num-water", "4032"]),
+                    ("table", [j("r2.csv"), "--table"]),
+                    ("scene", [j("scene.npz"), "--scene"]),
+                    ("spectrum", [j("spec.csv"), "--spectrum"]))]
+            sizes = []
+            try:
+                for pr, name in zip(started, ("curve", "table", "scene",
+                                              "spectrum")):
+                    prc, _, ptext, _ = finish_process(pr)
+                    size = os.path.getsize(j(f"{name}.png")) \
+                        if os.path.exists(j(f"{name}.png")) else 0
+                    check(prc == 0 and size > 0,
+                          f"mri-t2-plot {name}: exit {prc}, {size} B:\n"
+                          f"{ptext[-2000:]}")
+                    sizes.append(f"{name} {size} B")
+            finally:
+                for pr, _, _ in started:
+                    if pr.poll() is None:
+                        pr.kill()
+                        pr.wait()
+            plots = "PNGs written: " + ", ".join(sizes)
+    done(t0, f"--shard-walkers: 'Sharding walkers over 1 device(s)', CSV "
+         f"bytewise the unsharded run's (process {swall:.1f} s); "
+         f"--ensemble 4 --walker-shards 2 refused: {want!r}; mri-t2-plot "
+         f"{plots} [{label}]")
+
+
 def launched(got):
     """The kernels and modes of a LAUNCHES dict that were launched."""
     return {k: v for k, v in got.items() if v}
@@ -2845,7 +3431,8 @@ def large_scene_phases(dev, label):
 
     ctx = dict(p=p, runner=runner, planes=planes, near=near, taylor=taylor,
                cargs=cargs, full=full, fnear=fnear, ftaylor=ftaylor,
-               fargs=fargs)
+               fargs=fargs, rate7=stats["walker_steps_per_s"],
+               rate8=stats0["walker_steps_per_s"])
     return ctx, [{
         "name": "chunk_near_kernel",
         "route": "cuda",
@@ -2898,4 +3485,6 @@ def large_scene_phases(dev, label):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker(sys.argv[2:]))
     sys.exit(main())

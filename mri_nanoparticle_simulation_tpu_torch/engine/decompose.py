@@ -69,28 +69,55 @@ def _unpack_wins(wins: np.ndarray, num_water: int):
     return wins[:, 0, :num_water], wins[:, 1, :num_water]
 
 
+def _unpack_wins_sharded(wins, local_w: int):
+    """:func:`_unpack_wins` of a sharded sprint's records, one a shard
+    (``[n_win, 2, W']``, each padded on its own): each stripped to its
+    ``local_w`` walkers, then laid side by side in shard order.  A plain
+    reshape of the shards' concatenation would put padding walkers
+    among the walker columns."""
+    return (np.concatenate([w[:, 0, :local_w] for w in wins], 1),
+            np.concatenate([w[:, 1, :local_w] for w in wins], 1))
+
+
+class _Sprints(NamedTuple):
+    """The sprint plumbing of a decomposition run
+    (:func:`_decompose_sprints`)."""
+    dev: torch.device     #: the run's device (a mesh's first)
+    step: object          #: ss -> (ss', record), see _decompose_sprints
+    state: object         #: the initial decompose state in the sprint's form
+    to_device: object     #: WalkerState -> the sprint's form
+    to_walker: object     #: the sprint's form -> WalkerState
+    unpack: object        #: host records -> ([n_win, W] A, [n_win, W] B)
+
+
 def _decompose_sprints(scene, p: Params, seed: int, device, rng_impl: str,
-                       cache=None, engine: str = "pallas"):
-    """The sprint plumbing of a decomposition run on ``device``: (device,
-    ``step(ss) -> (ss', wins)``, the initial decompose state in the
-    sprint's form).  ``wins`` is the record ``[n_win, 2, W']`` on both
-    engines.  ``engine`` "pallas" runs the chunk kernels (``ss`` their
-    planes; ``cache``, the scene cache of a scene above
-    ``REBUILD_MAX_MNPS`` dipoles, handed to each sprint), "scan" the
-    scan engine (``ss`` a WalkerState; Threefry only, as the
-    reference's).  On a card the kernels' library is built and loaded
-    first, so the build is set-up and not part of the run; a CUDA device
-    without a card raises."""
+                       cache=None, engine: str = "pallas",
+                       mesh=None) -> _Sprints:
+    """The sprint plumbing of a decomposition run on ``device``, or over
+    the walker ``mesh`` (``parallel/sharding.py``; ``device`` then
+    unused).  ``step(ss)`` returns the record ``[n_win, 2, W']`` on both
+    engines, over a mesh the tuple of each shard's, which stays on its
+    device; ``unpack`` takes the records copied to the host.  ``engine``
+    "pallas" runs the chunk kernels (``ss`` their planes; ``cache``, the
+    scene cache of a scene above ``REBUILD_MAX_MNPS`` dipoles, handed to
+    each sprint), "scan" the scan engine (``ss`` a WalkerState; Threefry
+    only, as the reference's).  On a card the kernels' library is built
+    and loaded first, so the build is set-up and not part of the run; a
+    CUDA device without a card raises."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    dev = torch.device(device)
-    if dev.type == "cuda":
+    devs = [torch.device(device)] if mesh is None else list(mesh.devices)
+    if any(d.type == "cuda" for d in devs):
         require_cuda()
         if engine == "pallas":
             chunk_kernel.load_library()
+    dev = devs[0]
+    num_water = scene.waters.shape[0]
     tbl = mnp_table(scene.mnps, torch.float32, dev)
     key = key_words(seed)
-    state = init_state(scene.waters, p, dev, decompose=True)
+    if mesh is not None:
+        return _sharded_sprints(scene, p, tbl, key, rng_impl, cache,
+                                engine, mesh)
     if engine == "scan":
         sprint = reference_engine.make_sprint_fn(p, dev, decompose=True)
 
@@ -98,84 +125,137 @@ def _decompose_sprints(scene, p: Params, seed: int, device, rng_impl: str,
             ss, wins = sprint(tbl.pos, tbl.m, key, ss)
             return ss, wins.permute(0, 2, 1).contiguous()
 
-        return dev, step, state
-    sprint = make_sprint_fn(p, scene.waters.shape[0], dev,
-                            rng_impl=rng_impl, decompose=True)
+        def to_device(state):
+            return state
 
-    def step(ss):
-        return sprint(tbl, key, ss, cache=cache)
+        to_walker = to_device
+    else:
+        sprint = make_sprint_fn(p, num_water, dev, rng_impl=rng_impl,
+                                decompose=True)
 
-    return dev, step, to_soa(state, p)
+        def step(ss):
+            return sprint(tbl, key, ss, cache=cache)
+
+        def to_device(state):
+            return to_soa(state, p)
+
+        def to_walker(ss):
+            return from_soa(ss, num_water)
+
+    def unpack(hosts):
+        return _unpack_wins(hosts[0], num_water)
+
+    return _Sprints(dev, step,
+                    to_device(init_state(scene.waters, p, dev,
+                                         decompose=True)),
+                    to_device, to_walker, unpack)
 
 
-def _walker_state(ss, num_water: int):
-    """The WalkerState of a decomposition run's sprint state (the
-    kernels' planes, or the scan engine's state as it is)."""
-    return ss if isinstance(ss, reference_engine.WalkerState) \
-        else from_soa(ss, num_water)
-
-
-def _kernels_only(engine: str, what: str) -> None:
-    """Raise for a scan-engine form of ``what``, not ported yet."""
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
+def _sharded_sprints(scene, p: Params, tbl, key, rng_impl: str, cache,
+                     engine: str, mesh) -> _Sprints:
+    """:func:`_decompose_sprints` over a walker mesh: each shard's
+    record stays with its shard; the state converts through the mesh's
+    sharding, so a checkpoint holds the gathered walker state."""
+    from ..parallel import sharding
+    num_water = scene.waters.shape[0]
+    local_w = sharding.even_split(num_water, mesh)
+    tables = sharding.replicate(tbl, mesh.devices)
     if engine == "scan":
-        raise ValueError(
-            f"{what} with engine='scan' is not ported yet (its checkpoints "
-            f"and stores would carry the scan tag and the [W, 2] state): "
-            f"ROADMAP Queue 1 item 8b; run it on engine='pallas' (Threefry "
-            f"gives the scan engine's streams), or run_decomposition("
-            f"engine='scan')")
+        sprint = sharding.make_sharded_decomp_sprint_fn(p, mesh)
+
+        def step(ss):
+            ss, recs = sprint(tables, key, ss)
+            return ss, tuple(r.permute(0, 2, 1).contiguous() for r in recs)
+
+        def to_device(state):
+            return sharding.shard_walkers(state, mesh)
+
+        def to_walker(ss):
+            return sharding.gather_walkers(ss, mesh)
+    else:
+        sprint = sharding.make_sharded_pallas_sprint_fn(
+            p, num_water, mesh, rng_impl=rng_impl, cache=cache,
+            decompose=True)
+
+        def step(ss):
+            return sprint(tables, key, ss)
+
+        def to_device(state):
+            return sharding.to_planes_sharded(state, p, mesh)
+
+        def to_walker(ss):
+            return sharding.from_planes_sharded(ss, num_water, mesh)
+
+    def unpack(hosts):
+        return _unpack_wins_sharded(hosts, local_w)
+
+    return _Sprints(mesh.devices[0], step,
+                    to_device(init_state(scene.waters, p, mesh.devices[0],
+                                         decompose=True)),
+                    to_device, to_walker, unpack)
 
 
-def _one_deep(dev, step, ss, sprints, num_water: int, commit, split,
-              fault_hook=None):
+def _one_deep(sp: _Sprints, ss, sprints, commit, split, fault_hook=None):
     """Run the sprints of the absolute indices ``sprints`` from state
     ``ss`` with a drain one sprint deep: sprint i+1 is queued before
-    sprint i's record is read.  On a card the record is copied to pinned
-    host memory on a second stream, so the copy and the host's work on
-    sprint i overlap the device's work on sprint i+1.  ``commit(a_blk,
-    b_blk, ss_i, i)`` gets, in sprint order, sprint i's record blocks
-    ``[n_win, W]`` and the state after it.  ``fault_hook(i)`` is called
-    before sprint i is queued.  ``split`` accumulates ``device_s`` (CUDA
-    events; on the CPU the sprint calls), ``copy_s`` and ``host_s`` (the
-    unpacking and ``commit``).  Returns the final state."""
-    on_card = dev.type == "cuda"
-    copy_stream = torch.cuda.Stream(dev) if on_card else None
+    sprint i's record is read.  On a card each record is copied to
+    pinned host memory on a second stream of its device, so the copy
+    and the host's work on sprint i overlap the device's work on sprint
+    i+1.  ``commit(a_blk, b_blk, ss_i, i)`` gets, in sprint order,
+    sprint i's record blocks ``[n_win, W]`` and the state after it.
+    ``fault_hook(i)`` is called before sprint i is queued.  ``split``
+    accumulates ``device_s`` (CUDA events on the run's device; on the
+    CPU the sprint calls), ``copy_s`` and ``host_s`` (the unpacking and
+    ``commit``).  Returns the final state."""
+    on_card = sp.dev.type == "cuda"
+    copy_streams = {}
 
     def launch(ss):
-        """Queue one sprint and the copy of its record; returns the new
-        state and the pending (host record, copy event, timing)."""
+        """Queue one sprint and the copies of its records; returns the
+        new state and the pending (host records, copy events, timing)."""
         if not on_card:
             t0 = time.perf_counter()
-            ss, wins = step(ss)
+            ss, wins = sp.step(ss)
             split["device_s"] += time.perf_counter() - t0
-            return ss, (wins, None, None)
+            return ss, (wins if isinstance(wins, tuple) else (wins,),
+                        None, None)
         dev0 = torch.cuda.Event(enable_timing=True)
         dev1 = torch.cuda.Event(enable_timing=True)
         dev0.record()
-        ss, wins = step(ss)
+        ss, wins = sp.step(ss)
         dev1.record()
-        host = torch.empty(wins.shape, dtype=wins.dtype, pin_memory=True)
-        cp0 = torch.cuda.Event(enable_timing=True)
-        cp1 = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(copy_stream):
-            copy_stream.wait_event(dev1)
-            wins.record_stream(copy_stream)
-            cp0.record(copy_stream)
-            host.copy_(wins, non_blocking=True)
-            cp1.record(copy_stream)
-        return ss, (host, cp1, (dev0, dev1, cp0))
+        hosts, copies = [], []
+        for w in wins if isinstance(wins, tuple) else (wins,):
+            # the stream the record was written on, taken before the
+            # copy stream becomes the current one
+            src = torch.cuda.current_stream(w.device)
+            cs = copy_streams.get(w.device)
+            if cs is None:
+                cs = copy_streams[w.device] = torch.cuda.Stream(w.device)
+            host = torch.empty(w.shape, dtype=w.dtype, pin_memory=True)
+            cp0 = torch.cuda.Event(enable_timing=True)
+            cp1 = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(cs):
+                cs.wait_stream(src)
+                w.record_stream(cs)
+                cp0.record(cs)
+                host.copy_(w, non_blocking=True)
+                cp1.record(cs)
+            hosts.append(host)
+            copies.append((cp0, cp1))
+        return ss, (hosts, copies, (dev0, dev1))
 
     def emit(item, ss_i, i):
-        host, copy_done, timing = item
+        hosts, copies, timing = item
         if on_card:
-            copy_done.synchronize()
-            dev0, dev1, cp0 = timing
+            for _, cp1 in copies:
+                cp1.synchronize()
+            dev0, dev1 = timing
             split["device_s"] += dev0.elapsed_time(dev1) / 1e3
-            split["copy_s"] += cp0.elapsed_time(copy_done) / 1e3
+            split["copy_s"] += sum(a.elapsed_time(b)
+                                   for a, b in copies) / 1e3
         t0 = time.perf_counter()
-        commit(*_unpack_wins(host.numpy(), num_water), ss_i, i)
+        commit(*sp.unpack([h.numpy() for h in hosts]), ss_i, i)
         split["host_s"] += time.perf_counter() - t0
 
     pending = None
@@ -189,7 +269,8 @@ def _one_deep(dev, step, ss, sprints, num_water: int, commit, split,
     if pending is not None:
         emit(*pending)
     if on_card:
-        torch.cuda.synchronize(dev)
+        for d in {sp.dev, *copy_streams}:
+            torch.cuda.synchronize(d)
     return ss
 
 
@@ -245,8 +326,7 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
     """
     p = params.validate()
     num_water = scene.waters.shape[0]
-    dev, step, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
-                                       cache, engine)
+    sp = _decompose_sprints(scene, p, seed, device, rng_impl, cache, engine)
     total = p.t if max_steps is None else min(p.t, max_steps)
     n_sprints = total // p.sprint_steps
     a_parts, b_parts = [], []
@@ -260,10 +340,9 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
             b_parts.append(b_blk.copy())
 
     t_start = time.perf_counter()
-    ss = _one_deep(dev, step, ss, range(n_sprints), num_water, commit,
-                   split)
+    ss = _one_deep(sp, sp.state, range(n_sprints), commit, split)
     wall = time.perf_counter() - t_start
-    final = _walker_state(ss, num_water)
+    final = sp.to_walker(ss)
 
     A = np.concatenate(a_parts) if a_parts else np.zeros((0, num_water))
     B = np.concatenate(b_parts) if b_parts else np.zeros((0, num_water))
@@ -274,15 +353,25 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
         stats=_run_stats(final, n_sprints, p, num_water, wall, split))
 
 
+def _tags(engine: str, rng_impl: str):
+    """The (engine, rng_impl) tags of a durable run's identity and
+    checkpoints: the kernels' as ``io/checkpoint.py`` says, and the scan
+    engine's "scan" with its one generator, Threefry."""
+    from ..io import checkpoint as ckpt_mod
+    if engine == "scan":
+        return "scan", ckpt_mod.rng_tag("threefry")
+    return ckpt_mod.ENGINE_TAG, ckpt_mod.rng_tag(rng_impl)
+
+
 def _resume_state(path: str, p: Params, dev, seed: int, scene_seed: int,
-                  rng_impl: str, scene_fp: str, what: str):
+                  tags, scene_fp: str, what: str):
     """The walker state of a durable run's checkpoint ``path`` (or
     snapshot, ``what``) on ``dev``, its identity checked against this
-    run's; raises unless it sits on a sprint boundary."""
+    run's (``tags`` of :func:`_tags`); raises unless it sits on a sprint
+    boundary."""
     from ..io import checkpoint as ckpt_mod
     state, ck_seed, ck_scene_seed = ckpt_mod.load_checkpoint(
-        path, p, dev, engine=ckpt_mod.ENGINE_TAG,
-        rng_impl=ckpt_mod.rng_tag(rng_impl), scene_fp=scene_fp)
+        path, p, dev, engine=tags[0], rng_impl=tags[1], scene_fp=scene_fp)
     if (ck_seed, ck_scene_seed) != (int(seed), int(scene_seed)):
         raise ValueError(
             f"{what} seeds (run={ck_seed}, scene={ck_scene_seed}) "
@@ -297,13 +386,11 @@ def _resume_state(path: str, p: Params, dev, seed: int, scene_seed: int,
     return state
 
 
-def _save_state(path: str, ss, p: Params, num_water: int, seed: int,
-                scene_seed: int, rng_impl: str, scene_fp: str,
-                extra=None) -> None:
+def _save_state(path: str, state, p: Params, seed: int, scene_seed: int,
+                tags, scene_fp: str, extra=None) -> None:
     from ..io import checkpoint as ckpt_mod
     ckpt_mod.save_checkpoint(
-        path, from_soa(ss, num_water), p, seed, scene_seed,
-        engine=ckpt_mod.ENGINE_TAG, rng_impl=ckpt_mod.rng_tag(rng_impl),
+        path, state, p, seed, scene_seed, engine=tags[0], rng_impl=tags[1],
         scene_fp=scene_fp, extra=extra)
 
 
@@ -315,7 +402,7 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
                               checkpoint_path: Optional[str] = None,
                               checkpoint_every_sprints: int = 1,
                               fault_hook=None, progress: bool = False,
-                              cache=None) -> DecompositionResult:
+                              cache=None, mesh=None) -> DecompositionResult:
     """:func:`run_decomposition` with a DISK-backed record and
     checkpoint/resume: the long-record production form (the reference's
     decompose.py:287-496).
@@ -341,6 +428,18 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
     reconstruction needs.  ``cache`` is handed to every sprint.
     ``fault_hook(sprint_index)`` is the seam of
     ``resilience.FaultInjector``, called before each sprint is queued.
+    ``engine`` "scan" runs the scan engine and tags the store and its
+    checkpoints "scan", with the walker state in its own ``[W, 2]`` (A,
+    B) layout; such a store crosses to and from the reference's
+    ``engine="scan"`` writer.
+
+    ``mesh``: an optional one-process walker mesh
+    (``parallel.sharding``, the CLI's ``--shard-walkers``; ``device`` is
+    then unused): each shard's record block is stripped of its padding
+    and laid in its walker columns, and the checkpoint holds the
+    gathered walker state, so a run saved under one mesh resumes under
+    another, or under none (global lanes: the partition changes no
+    walker).
 
     Returns a :class:`DecompositionResult` whose A/B are READ-ONLY disk
     memmaps and whose ``stats`` are the counters and, when sprints ran,
@@ -349,9 +448,22 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
     from ..io import checkpoint as ckpt_mod
     from ..io import record as record_mod
 
-    _kernels_only(engine, "run_decomposition_durable")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
     p = params.validate()
     num_water = scene.waters.shape[0]
+    if mesh is not None:
+        from ..parallel import sharding
+        n_shards = mesh.shape[sharding.WALKER_AXIS]
+        if mesh.world_size > 1:
+            raise ValueError(
+                "run_decomposition_durable writes its record and "
+                "checkpoint from one process; over several processes use "
+                "distributed.run_decomposition_multihost")
+        if num_water % n_shards != 0:
+            raise ValueError(
+                f"num_water ({num_water}) must divide evenly over "
+                f"{n_shards} walker shards")
     wps = p.sprint_steps // p.pfreq            # record rows per sprint
     total = p.t if max_steps is None else min(p.t, max_steps)
     n_sprints = total // p.sprint_steps
@@ -362,10 +474,11 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
     if checkpoint_path is not None and checkpoint_every_sprints < 1:
         raise ValueError("checkpoint_every_sprints must be >= 1")
     scene_fp = ckpt_mod.scene_fingerprint(scene)
+    tags = _tags(engine, rng_impl)
     identity = {
         "params_fp": ckpt_mod.params_fingerprint(p), "seed": int(seed),
-        "scene_seed": int(scene_seed), "engine": ckpt_mod.ENGINE_TAG,
-        "rng_impl": ckpt_mod.rng_tag(rng_impl), "scene_fp": scene_fp,
+        "scene_seed": int(scene_seed), "engine": tags[0],
+        "rng_impl": tags[1], "scene_fp": scene_fp,
         # the knobs offline reconstruction needs (record_params)
         "taucp": p.taucp, "tau": p.tau, "pfreq": p.pfreq,
         "mmoment": p.mmoment,
@@ -398,14 +511,15 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
         store = record_mod.RecordStore.create(record_path, n_windows,
                                               num_water, identity)
 
-    dev, step, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
-                                       cache)
+    sp = _decompose_sprints(scene, p, seed, device, rng_impl, cache,
+                            engine, mesh)
+    ss = sp.state
     # resume point: the checkpoint pins the walker state; the store is
     # trimmed to exactly the checkpointed sprint
     start_sprint = 0
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
-        state = _resume_state(checkpoint_path, p, dev, seed, scene_seed,
-                              rng_impl, scene_fp, "checkpoint")
+        state = _resume_state(checkpoint_path, p, sp.dev, seed, scene_seed,
+                              tags, scene_fp, "checkpoint")
         start_sprint = state.step // p.sprint_steps
         need = start_sprint * wps
         if store.rows < need:
@@ -418,13 +532,13 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
         if dropped and progress:
             print(f"  resume: trimmed {dropped} record row(s) past the "
                   f"checkpoint (sprint {start_sprint})", file=sys.stderr)
-        ss = to_soa(state, p)
+        ss = sp.to_device(state)
     else:
         store.truncate(0)   # no checkpoint: any partial rows restart
 
     def save(ss_i):
-        _save_state(checkpoint_path, ss_i, p, num_water, seed, scene_seed,
-                    rng_impl, scene_fp)
+        _save_state(checkpoint_path, sp.to_walker(ss_i), p, seed,
+                    scene_seed, tags, scene_fp)
 
     def commit(a_blk, b_blk, ss_i, i):
         """Sprint ``i``'s record rows, then (the order matters) its
@@ -438,17 +552,17 @@ def run_decomposition_durable(scene, params: Params, record_path: str,
 
     split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
     t_start = time.perf_counter()
-    ss = _one_deep(dev, step, ss, range(start_sprint, n_sprints), num_water,
-                   commit, split, fault_hook)
+    ss = _one_deep(sp, ss, range(start_sprint, n_sprints), commit, split,
+                   fault_hook)
     wall = time.perf_counter() - t_start
-    final = from_soa(ss, num_water)
+    final = sp.to_walker(ss)
     stats = _run_stats(final, n_sprints - start_sprint, p, num_water, wall,
                        split)
     if checkpoint_path is not None:
-        save(ss)
+        _save_state(checkpoint_path, final, p, seed, scene_seed, tags,
+                    scene_fp)
     store.finalize({"stats": {k: stats[k] for k in _COUNTERS}})
     return result_from(store, stats)
-
 
 
 def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
@@ -475,13 +589,16 @@ def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
     of the reference package's (Threefry) resumes here too.
 
     The plane must be fresh (or match the snapshot's configuration
-    digest).  ``cache`` is handed to every sprint.  Returns the stats
+    digest).  ``cache`` is handed to every sprint.  ``engine`` "scan"
+    runs the scan engine, its snapshots tagged "scan" with the walker
+    state in its ``[W, 2]`` layout, as the reference's.  Returns the stats
     (counters, and the split of this call's sprints); read the results
     from ``plane.result()`` / ``plane.echo_matrix()``.
     """
     from ..io import checkpoint as ckpt_mod
 
-    _kernels_only(engine, "run_streaming_durable")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
     p = params.validate()
     wps = p.sprint_steps // p.pfreq
     total = p.t if max_steps is None else min(p.t, max_steps)
@@ -495,13 +612,14 @@ def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
         raise ValueError("snapshot_every_sprints must be >= 1")
     scene_fp = ckpt_mod.scene_fingerprint(scene)
     num_water = scene.waters.shape[0]
-    dev, step, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
-                                       cache)
+    tags = _tags(engine, rng_impl)
+    sp = _decompose_sprints(scene, p, seed, device, rng_impl, cache, engine)
+    ss = sp.state
 
     start_sprint = 0
     if os.path.exists(snapshot_path):
-        state = _resume_state(snapshot_path, p, dev, seed, scene_seed,
-                              rng_impl, scene_fp, "snapshot")
+        state = _resume_state(snapshot_path, p, sp.dev, seed, scene_seed,
+                              tags, scene_fp, "snapshot")
         start_sprint = state.step // p.sprint_steps
         plane.load_state(ckpt_mod.load_extra(snapshot_path))
         if plane._r != start_sprint * wps:
@@ -513,7 +631,7 @@ def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
             print(f"  resume: sprint {start_sprint}/{n_sprints} "
                   f"({plane._r} windows already streamed)",
                   file=sys.stderr)
-        ss = to_soa(state, p)
+        ss = sp.to_device(state)
     elif plane._r != 0:
         raise ValueError("no snapshot exists but the plane has already "
                          "consumed rows; pass a fresh StreamingPlane")
@@ -521,23 +639,24 @@ def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
     def commit(a_blk, b_blk, ss_i, i):
         plane.update(a_blk, b_blk)
         if (i + 1) % snapshot_every_sprints == 0:
-            _save_state(snapshot_path, ss_i, p, num_water, seed,
-                        scene_seed, rng_impl, scene_fp,
+            _save_state(snapshot_path, sp.to_walker(ss_i), p, seed,
+                        scene_seed, tags, scene_fp,
                         extra=plane.state_dict())
         if progress:
             print(f"  sprint {i + 1}/{n_sprints}", file=sys.stderr)
 
     split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
     t_start = time.perf_counter()
-    ss = _one_deep(dev, step, ss, range(start_sprint, n_sprints), num_water,
-                   commit, split, fault_hook)
+    ss = _one_deep(sp, ss, range(start_sprint, n_sprints), commit, split,
+                   fault_hook)
     wall = time.perf_counter() - t_start
     # the final snapshot marks completion (a resume of a finished run
     # runs no sprint; the plane state is the whole stream)
-    _save_state(snapshot_path, ss, p, num_water, seed, scene_seed,
-                rng_impl, scene_fp, extra=plane.state_dict())
-    return _run_stats(from_soa(ss, num_water), n_sprints - start_sprint, p,
-                      num_water, wall, split)
+    final = sp.to_walker(ss)
+    _save_state(snapshot_path, final, p, seed, scene_seed, tags, scene_fp,
+                extra=plane.state_dict())
+    return _run_stats(final, n_sprints - start_sprint, p, num_water, wall,
+                      split)
 
 
 def make_plane_step(params: Params, num_water: int, scales, n_taucps: int,
@@ -618,6 +737,48 @@ def make_plane_step(params: Params, num_water: int, scales, n_taucps: int,
     return step
 
 
+def make_sharded_plane_step(params: Params, num_water: int, scales,
+                            n_taucps: int, mesh, echo_specs=()):
+    """:func:`make_plane_step` over a walker mesh: each shard folds its
+    own walkers' record into its own carries on its device (the
+    per-walker math is elementwise), and only the ``[S, T, wps, 2]``
+    curve block crosses the mesh: the shards' walker means added in
+    shard order on the first device (then over the processes) and
+    divided by the shard count (equal shards, so the mean of the means
+    is the mean).  The echo rows stay with their shard.
+
+    ``step(wins, carry, u_prev, g_blk, echo_rows)`` takes ``wins`` and
+    ``carry`` one a shard (a local step is built at ``local_w``, so each
+    shard strips its own padding) and the tables as ``replicate``'s
+    dicts; it returns ``(carry', block)`` (with ``echo_specs`` also each
+    shard's ``[n_specs, E_max, local_w]`` cos rows)."""
+    from ..parallel import sharding
+    local_w = sharding.even_split(num_water, mesh)
+    n_shards = mesh.shape[sharding.WALKER_AXIS]
+    steps = {d: make_plane_step(params, local_w, scales, n_taucps,
+                                echo_specs, device=d)
+             for d in sharding.distinct(mesh.devices)}
+    dev0 = mesh.devices[0]
+
+    def step(wins, carry, u_prev, g_blk, echo_rows=None):
+        outs = []
+        for dev, w, c in zip(mesh.devices, wins, carry):
+            with sharding.on_device(dev):
+                outs.append(steps[dev](
+                    w, c, u_prev[dev], g_blk[dev],
+                    None if echo_rows is None else echo_rows[dev]))
+        blk = outs[0][1].to(dev0, non_blocking=True)
+        for o in outs[1:]:
+            blk = blk + o[1].to(dev0, non_blocking=True)
+        blk = sharding.reduce_over_processes(blk, mesh) / n_shards
+        carry = tuple(o[0] for o in outs)
+        if not echo_specs:
+            return carry, blk
+        return carry, blk, tuple(o[2] for o in outs)
+
+    return step
+
+
 class EchoCapture(NamedTuple):
     scale: float            #: moment scale of this capture
     taucp_ms: float         #: echo spacing
@@ -663,7 +824,7 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
                         engine: str = "pallas",
                         rng_impl: str = "threefry",
                         max_steps: Optional[int] = None, echo_pairs=(),
-                        cache=None):
+                        cache=None, mesh=None):
     """The (moment x taucp) plane computed on the device as the
     simulation runs.
 
@@ -695,10 +856,20 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
     step, CUDA events; on the CPU the calls), ``copy_s`` (the one copy of
     curves and echoes to the host, after the last sprint has finished)
     and ``host_s`` (assembling the result on the host).
+
+    ``engine`` "scan" runs the scan engine, whose record has no padding.
+    ``mesh``: a walker mesh (``parallel.sharding``; ``device`` then
+    unused): sprints and the plane folding run sharded
+    (:func:`make_sharded_plane_step`), so nothing per walker crosses the
+    mesh; curves differ from the unsharded plane's by the grouping of
+    the mean only.  Over several processes each process fills only its
+    own walkers' columns of the echo matrices (zero elsewhere):
+    ``distributed.run_plane_multihost`` sums them.
     """
     from ..analysis import echo_indices
 
-    _kernels_only(engine, "run_plane_on_device")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
     p = params.validate()
     num_water = scene.waters.shape[0]
     wps = p.sprint_steps // p.pfreq
@@ -762,22 +933,67 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
                 places[i] = (np.asarray(src, np.int64),
                              np.asarray(dst, np.int64))
 
-    dev, sprint, ss = _decompose_sprints(scene, p, seed, device, rng_impl,
-                                         cache)
+    sp = _decompose_sprints(scene, p, seed, device, rng_impl, cache, engine,
+                            mesh)
+    dev, ss = sp.dev, sp.state
     on_card = dev.type == "cuda"
-    step = make_plane_step(p, num_water, s_arr, T, tuple(echo_specs),
-                           device=dev)
+    n_rows = sum(m["eidx"].size for m in echo_meta)
+    if mesh is None:
+        step = make_plane_step(p, num_water, s_arr, T, tuple(echo_specs),
+                               device=dev)
+
+        def put(a):
+            return torch.as_tensor(a, device=dev)
+
+        def each(x, f):
+            return f(x)
+
+        carry = (torch.zeros((T, num_water), device=dev),) * 4 \
+            + (torch.zeros(num_water, device=dev),) * 2
+        captured = torch.zeros((n_rows, num_water), device=dev)
+
+        def capture(emat, src, dst):
+            captured.index_copy_(0, dst, emat.reshape(-1, num_water)
+                                 .index_select(0, src))
+
+        def captured_host():
+            return captured.cpu().numpy()
+    else:
+        from ..parallel import sharding
+        local_w = sharding.even_split(num_water, mesh)
+        step = make_sharded_plane_step(p, num_water, s_arr, T, mesh,
+                                       tuple(echo_specs))
+
+        def put(a):
+            return sharding.replicate(torch.as_tensor(a), mesh.devices)
+
+        def each(x, f):
+            return {d: f(t) for d, t in x.items()}
+
+        carry = tuple((torch.zeros((T, local_w), device=d),) * 4
+                      + (torch.zeros(local_w, device=d),) * 2
+                      for d in mesh.devices)
+        captured = [torch.zeros((n_rows, local_w), device=d)
+                    for d in mesh.devices]
+
+        def capture(emat, src, dst):
+            for c, e, d in zip(captured, emat, mesh.devices):
+                c.index_copy_(0, dst[d], e.reshape(-1, local_w)
+                              .index_select(0, src[d]))
+
+        def captured_host():
+            # this process's walker columns; zero in other processes'
+            full = np.zeros((n_rows, num_water), np.float32)
+            lo = mesh.first_shard * local_w
+            full[:, lo:lo + len(captured) * local_w] = np.concatenate(
+                [c.cpu().numpy() for c in captured], 1)
+            return full
     # every table on the device once, sliced per sprint: the loop makes
     # no host -> device copy
-    u_dev = torch.as_tensor(u_prev, device=dev)
-    g_dev = torch.as_tensor(g_full, device=dev)
-    rows_dev = torch.as_tensor(rows, device=dev)
-    places = [pl and tuple(torch.as_tensor(a, device=dev) for a in pl)
-              for pl in places]
-    carry = (torch.zeros((T, num_water), device=dev),) * 4 \
-        + (torch.zeros(num_water, device=dev),) * 2
-    captured = torch.zeros((sum(m["eidx"].size for m in echo_meta),
-                            num_water), device=dev)
+    u_dev = put(u_prev)
+    g_dev = put(g_full)
+    rows_dev = put(rows)
+    places = [pl and tuple(put(a) for a in pl) for pl in places]
     blocks, events = [], []
     split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
 
@@ -789,27 +1005,28 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
             events[-1][0].record()
         else:
             t0 = time.perf_counter()
-        ss, wins = sprint(ss)
+        ss, wins = sp.step(ss)
         lo = i * wps
-        carry, blk, *emat = step(wins, carry, u_dev[lo:lo + wps],
-                                 g_dev[:, lo:lo + wps], rows_dev[i])
+        carry, blk, *emat = step(
+            wins, carry, each(u_dev, lambda t: t[lo:lo + wps]),
+            each(g_dev, lambda t: t[:, lo:lo + wps]),
+            each(rows_dev, lambda t: t[i]))
         blocks.append(blk)
         if places[i]:
-            src, dst = places[i]
-            captured.index_copy_(0, dst, emat[0].reshape(-1, num_water)
-                                 .index_select(0, src))
+            capture(emat[0], *places[i])
         if on_card:
             events[-1][1].record()
         else:
             split["device_s"] += time.perf_counter() - t0
     if on_card:
-        torch.cuda.synchronize(dev)
+        for d in {dev, *([] if mesh is None else mesh.devices)}:
+            torch.cuda.synchronize(d)
         split["device_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
     t0 = time.perf_counter()
     # echo-only taucp lanes are not part of the requested plane
     curves = torch.cat(blocks, dim=2)[:, :T_req].cpu().numpy()
-    captured = captured.cpu().numpy()
-    final = from_soa(ss, num_water)
+    captured = captured_host()
+    final = sp.to_walker(ss)
     t1 = time.perf_counter()
     mats = np.split(captured.astype(np.float64),
                     np.cumsum([m["eidx"].size for m in echo_meta])[:-1])

@@ -54,6 +54,7 @@ from ..fields import grid as grid_mod
 from ..io import checkpoint as ckpt_mod
 from ..io import writer as writer_mod
 from ..parallel import ensemble as ens
+from ..parallel import sharding
 from ..params import FIELD_GRID, Params, params_fingerprint
 from ..scene import BacteriaBox, ClusteredBacteriaBox, FCCLatticeBox
 from ..utils import profiling
@@ -157,12 +158,12 @@ class SimulationRunner:
     """Owns the scene, the sprint function, the large-scene cache and the
     walker state.
 
-    ``device`` has no default, and a CUDA device without a card raises:
-    the runner never moves to the CPU on its own.  ``engine`` "pallas"
-    runs the chunk kernels (``cuda_engine``), "scan" the torch-eager scan
-    engine (``reference_engine.make_sprint_fn``: every chunk size, and
-    the field modes exact and grid; it always draws Threefry, as the
-    reference's scan engine).  ``rng_impl`` defaults to the fast
+    ``device`` is required (but with a ``mesh``), and a CUDA device
+    without a card raises: the runner never moves to the CPU on its own.
+    ``engine`` "pallas" runs the chunk kernels (``cuda_engine``), "scan"
+    the torch-eager scan engine (``reference_engine.make_sprint_fn``:
+    every chunk size, and the field modes exact and grid; it always
+    draws Threefry, as the reference's scan engine).  ``rng_impl`` defaults to the fast
     generator, the reference runner's production default
     (``RNG_THREEFRY`` is the bit-reproducible validation path).
     ``cache_build_s`` is the wall time of the scene cache build (0 when
@@ -172,12 +173,20 @@ class SimulationRunner:
     ``resume(path)`` continues from a checkpoint, and ``run`` writes them
     (``checkpoint_path``); both tag it as ``io/checkpoint.py`` says, so
     a Threefry checkpoint crosses to and from the reference runner of
-    the same engine."""
+    the same engine.
+
+    ``mesh``: a walker mesh (``parallel.sharding.WalkerMesh``; ``device``
+    then defaults to its first device, where the window sums and the
+    gathered state live): the walkers shard over it on both engines, each
+    shard with its global lanes, so every walker is the unsharded run's
+    and the window sums differ by the grouping of their sum only.
+    Checkpoints hold the gathered walker state: a run saved under one
+    mesh resumes under another, or under none."""
 
     def __init__(self, params: Params, scene_seed: int = 0, seed: int = 0,
-                 *, device, engine: str = "pallas",
+                 *, device=None, engine: str = "pallas",
                  rng_impl: str = cuda_engine.RNG_HARDWARE,
-                 check_coverage: bool = True, scene=None):
+                 check_coverage: bool = True, scene=None, mesh=None):
         self.params = params.validate()
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; use one of "
@@ -189,9 +198,17 @@ class SimulationRunner:
                 "engine's fused kernel always uses the local expansion, "
                 "which is both faster and more accurate); use "
                 "engine='scan'")
+        if device is None:
+            if mesh is None:
+                raise ValueError("SimulationRunner needs a device "
+                                 "(device='cuda' or 'cpu') or a mesh")
+            device = mesh.devices[0]
         self.device = torch.device(device)
         self.engine = engine
-        if self.device.type == "cuda":
+        self.mesh = mesh
+        if self.device.type == "cuda" or (
+                mesh is not None
+                and any(d.type == "cuda" for d in mesh.devices)):
             require_cuda()
             if engine == "pallas":
                 chunk_kernel.load_library()   # the build is set-up, not run
@@ -253,6 +270,34 @@ class SimulationRunner:
                 params, self.device, field_grid=self.field_grid)
         self.key = key_words(seed)
         self.state = init_state(self.scene.waters, params, self.device)
+        if mesh is not None:
+            self._use_mesh(mesh)
+
+    def _use_mesh(self, mesh) -> None:
+        """Shard the walkers over ``mesh``: the sharded sprint and the
+        state's conversions take the place of the single-device ones, so
+        the sprint loop tests for no mesh."""
+        p = self.params
+        tables = sharding.replicate(self.mnp_tbl, mesh.devices)
+        if self.engine == "pallas":
+            sprint = sharding.make_sharded_pallas_sprint_fn(
+                p, p.num_water, mesh, rng_impl=self.rng_impl,
+                cache=self.cache)
+            self._to_device_state = lambda st: sharding.to_planes_sharded(
+                st, p, mesh)
+            self._from_device_state = \
+                lambda ss: sharding.from_planes_sharded(ss, p.num_water,
+                                                        mesh)
+        else:
+            if self.field_grid is not None:
+                raise ValueError("sharded grid-mode runs are not wired "
+                                 "up; use field_mode='expansion'")
+            sprint = sharding.make_sharded_sprint_fn(p, mesh)
+            self._to_device_state = lambda st: sharding.shard_walkers(
+                st, mesh)
+            self._from_device_state = lambda ss: sharding.gather_walkers(
+                ss, mesh)
+        self._run_sprint = lambda ss: sprint(tables, self.key, ss)
 
     @property
     def _engine_tag(self) -> str:
@@ -264,6 +309,11 @@ class SimulationRunner:
         state itself on the scan engine."""
         return cuda_engine.to_soa(state, self.params) \
             if self.engine == "pallas" else state
+
+    def _from_device_state(self, ss):
+        """The WalkerState of the sprint's form of the state."""
+        return cuda_engine.from_soa(ss, self.params.num_water) \
+            if self.engine == "pallas" else ss
 
     def _run_sprint(self, ss):
         if self.engine == "pallas":
@@ -378,8 +428,7 @@ class SimulationRunner:
     def _sync_and_save(self, ss, checkpoint_path) -> None:
         """The walker state from the sprint's form, then its checkpoint
         when ``checkpoint_path`` is set."""
-        self.state = cuda_engine.from_soa(ss, self.params.num_water) \
-            if self.engine == "pallas" else ss
+        self.state = self._from_device_state(ss)
         if checkpoint_path:
             self._save_checkpoint(checkpoint_path)
 
@@ -449,6 +498,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "reference's correctness anchor: every chunk "
                          "size and the exact and grid field modes, "
                          "Threefry only)")
+    ap.add_argument("--walker-shards", type=int, default=1,
+                    metavar="N",
+                    help="with --ensemble/--sweep: shard each trial's "
+                         "walkers over N devices on a 2D "
+                         "(trials x walkers) mesh (single runs use "
+                         "--shard-walkers)")
+    ap.add_argument("--shard-walkers", action="store_true",
+                    help="shard walkers over ALL local devices (every "
+                         "card for --device cuda; window sums added over "
+                         "the shards): every walker bitwise the "
+                         "single-device run's, for multi-card hosts")
     ap.add_argument("--chunk-steps", type=int, default=4000,
                     help="field-model rebuild interval (auto-shrunk for "
                          "short runs)")
@@ -780,11 +840,17 @@ def main(argv=None):
         return _run_decomposition_cli(ap, args, params, csv_path,
                                       build_scene)
 
+    mesh = None
+    if args.shard_walkers:
+        mesh = sharding.make_walker_mesh(sharding.local_devices(args.device))
+        print(f"Sharding walkers over {mesh.shape[sharding.WALKER_AXIS]} "
+              f"device(s)", file=sys.stderr)
+
     def make_runner():
         return SimulationRunner(params, scene_seed=args.scene_seed,
                                 seed=args.seed, device=args.device,
                                 engine=args.engine, rng_impl=args.rng,
-                                scene=build_scene())
+                                scene=build_scene(), mesh=mesh)
 
     if args.max_retries:
         with profiling.device_trace(args.trace, args.device):
@@ -910,6 +976,11 @@ def _check_flags(ap, args) -> None:
     if decomp_mode and (sweepish or args.ensemble > 1):
         ap.error("--moment-scales/--echo-taucps are themselves sweeps "
                  "over the (moment, taucp) plane; drop --sweep/--ensemble")
+    if decomp_mode and args.shard_walkers and not args.plane_device:
+        ap.error("--moment-scales/--echo-taucps record per-walker phase "
+                 "components on one device; drop --shard-walkers (or add "
+                 "--plane-device, whose sharded plane folding keeps the "
+                 "record distributed with its walkers)")
     if args.fit_r2 and not args.echo_taucps:
         ap.error("--fit-r2 is the dispersion over the --echo-taucps "
                  "grid; pass the echo spacings to fit")
@@ -971,6 +1042,16 @@ def _check_flags(ap, args) -> None:
                  "continued): the default output filename embeds a "
                  "timestamp, so the resumed rows would land in a NEW "
                  "file while the original keeps its untrimmed overhang")
+    if args.shard_walkers and (sweepish or args.ensemble > 1):
+        ap.error("--shard-walkers shards ONE population; for "
+                 "ensembles/sweeps use --walker-shards N (the 2D "
+                 "trials x walkers mesh)")
+    if args.walker_shards != 1:
+        if args.walker_shards < 1:
+            ap.error("--walker-shards must be >= 1")
+        if not (sweepish or args.ensemble > 1):
+            ap.error("--walker-shards is the ensemble/sweep 2D-mesh "
+                     "knob; single runs shard with --shard-walkers")
     if (args.scene_family != "bacteria" or args.scene_file
             or args.save_scene) and (sweepish or args.ensemble > 1):
         ap.error("--scene-family/--scene-file/--save-scene are "
@@ -1063,7 +1144,8 @@ def _run_grid_cli(ap, args, params: Params, csv_path: str) -> int:
             params, axes, n_trials_each=args.trials_per_value,
             base_seed=args.scene_seed, run_seed=args.seed + 1000,
             engine=args.engine, rng_impl=args.rng, paired=args.paired,
-            quadrature=args.quadrature, device=args.device)
+            walker_shards=args.walker_shards, quadrature=args.quadrature,
+            device=args.device)
     wall = time.perf_counter() - t0
     names = list(axes)
     flat = curves.reshape((-1, args.trials_per_value)
@@ -1098,7 +1180,8 @@ def _run_sweep_cli(ap, args, params: Params, csv_path: str) -> int:
             params, name, values, n_trials_each=args.trials_per_value,
             base_seed=args.scene_seed, run_seed=args.seed + 1000,
             engine=args.engine, rng_impl=args.rng, paired=args.paired,
-            quadrature=args.quadrature, device=args.device)
+            walker_shards=args.walker_shards, quadrature=args.quadrature,
+            device=args.device)
     wall = time.perf_counter() - t0
     _emit_sweep_outputs(
         csv_path, times, [name], [(v,) for v in values], curves,
@@ -1121,7 +1204,7 @@ def _run_ensemble_cli(args, params: Params, csv_path: str) -> int:
         times, cos, sin, _ = ens.run_ensemble(
             params, n_trials=args.ensemble, base_seed=args.scene_seed,
             run_seed=args.seed + 1000, engine=args.engine,
-            rng_impl=args.rng,
+            rng_impl=args.rng, walker_shards=args.walker_shards,
             device=args.device)
     wall = time.perf_counter() - t0
     with writer_mod.T2CsvWriter(csv_path, params, args.quadrature) as w:
@@ -1192,10 +1275,17 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
     with profiling.device_trace(args.trace, args.device):
         t_rec = None
         if args.plane_device:
+            plane_mesh = None
+            if args.shard_walkers:
+                plane_mesh = sharding.make_walker_mesh(
+                    sharding.local_devices(args.device))
+                print(f"Sharding walkers + plane folding over "
+                      f"{plane_mesh.shape[sharding.WALKER_AXIS]} device(s)",
+                      file=sys.stderr)
             times, curves, stats, echoes = dec.run_plane_on_device(
                 sc, params, scales, taucps, seed=args.seed, device=device,
                 engine=args.engine, rng_impl=args.rng,
-                echo_pairs=echo_pairs, cache=cache)
+                echo_pairs=echo_pairs, cache=cache, mesh=plane_mesh)
             res = dec.DecompositionResult(
                 times_ms=times, A=np.zeros((0, params.num_water)),
                 B=np.zeros((0, params.num_water)), stats=stats)

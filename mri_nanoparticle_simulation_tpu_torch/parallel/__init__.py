@@ -1,11 +1,15 @@
-"""Ensembles and parameter sweeps on one device (``ensemble.py``).  The
-reference's walker sharding and multi-host runs (``sharding.py``,
-``distributed.py``) are not ported yet: ROADMAP Queue 1 item 11."""
+"""Ensembles and parameter sweeps (``ensemble.py``), walker sharding
+(``sharding.py``) and runs over several processes
+(``distributed.py``)."""
 
 from .ensemble import (SCALAR_AXES, build_trial_scenes, run_ensemble,
                        run_parameter_grid, run_parameter_sweep)
+from .sharding import (WALKER_AXIS, make_sharded_sprint_fn, make_walker_mesh,
+                       run_simulation_sharded)
 
 __all__ = [
     "SCALAR_AXES", "build_trial_scenes", "run_ensemble",
     "run_parameter_grid", "run_parameter_sweep",
+    "WALKER_AXIS", "make_sharded_sprint_fn", "make_walker_mesh",
+    "run_simulation_sharded",
 ]

@@ -1,8 +1,8 @@
 """Multi-trial ensembles and parameter sweeps.
 
-Counterpart of the reference's ``parallel/ensemble.py`` on one device.
-An ensemble is T independent trials, each its own scene and Threefry
-key; a sweep gives each trial its own value of a knob.  The trials run
+Counterpart of the reference's ``parallel/ensemble.py``.  An ensemble
+is T independent trials, each its own scene and Threefry key; a sweep
+gives each trial its own value of a knob.  The trials of a device run
 one after another through ONE sprint function
 (``cuda_engine.make_sprint_fn``), as the reference's Pallas ensemble
 scans them through one compiled chunk kernel
@@ -10,6 +10,15 @@ scans them through one compiled chunk kernel
 own dipole table, key and launch scalars (tcp, cell_r, d_scale,
 reflect), with ``lane_offset`` 0, so a trial is bitwise its standalone
 run.
+
+A trial mesh (``TrialMesh``, the reference's ``trials`` axis) spreads
+the trials over devices in contiguous blocks, right-sized as the
+reference's ``_trial_mesh`` does; on one card the trials run one after
+another as above.  With ``walker_shards`` > 1 each trial slot is a row
+of devices and each trial's walkers shard over its row
+(``sharding.make_sharded_pallas_sprint_fn``, global lanes), so a trial
+stays bitwise its standalone run but for the grouping of its window
+sums.
 
 Scenes differ per trial (other cell throws and/or a swept moment), so
 the per-trial dipole arrays are padded to the largest dipole count with
@@ -27,13 +36,13 @@ scan engine, its CLI passes ``"pallas"``): on Threefry the two engines
 give the same trials to f32 rounding, and on the card the default is
 the production engine.
 
-Not ported: walker shards or a trial mesh over several devices (ROADMAP
-Queue 1 item 11); each raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -46,6 +55,10 @@ from ..fields import expansion
 from ..params import FIELD_EXPANSION, Params
 from ..scene import BacteriaBox
 from ..utils.device import require_cuda
+from . import sharding
+from .sharding import WALKER_AXIS
+
+TRIAL_AXIS = "trials"
 
 
 def window_times(params: Params, n_windows: int) -> np.ndarray:
@@ -104,16 +117,153 @@ def trial_table(pos: np.ndarray, mom: np.ndarray, dtype,
     return mnp_table(rows, dtype, device)
 
 
-def _check_port_options(engine: str, walker_shards: int, mesh) -> None:
-    """Raise for the options of the reference that the port does not
-    run: nothing runs something else in their place."""
-    if engine not in reference_engine.ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
-    if walker_shards > 1 or mesh is not None:
+@dataclasses.dataclass(frozen=True)
+class TrialMesh:
+    """Devices laid out as trial slots: ``devices[s]`` is slot ``s``'s
+    row of devices, one device each on a ``(trials,)`` mesh, the walker
+    shards of each trial on a ``(trials, walkers)`` mesh.  Trials fill
+    the slots in contiguous blocks, and a slot runs its block one trial
+    after another."""
+    devices: tuple
+    axis_names: tuple = (TRIAL_AXIS,)
+
+    @property
+    def shape(self) -> dict:
+        s = {TRIAL_AXIS: len(self.devices)}
+        if WALKER_AXIS in self.axis_names:
+            s[WALKER_AXIS] = len(self.devices[0])
+        return s
+
+
+def make_trial_mesh(devices, walker_shards: int = 0) -> TrialMesh:
+    """A ``(trials,)`` mesh of one slot a device, or with
+    ``walker_shards`` a ``(trials, walkers)`` mesh of rows of that many
+    devices.  A device may appear more than once (its slots or shards
+    then run one after another on it)."""
+    devs = [sharding.resolve_device(d) for d in devices]
+    if not walker_shards:
+        return TrialMesh(tuple((d,) for d in devs))
+    if not devs or len(devs) % walker_shards:
+        raise ValueError(f"{len(devs)} devices do not make rows of "
+                         f"{walker_shards} walker shards")
+    return TrialMesh(tuple(tuple(devs[i:i + walker_shards])
+                           for i in range(0, len(devs), walker_shards)),
+                     (TRIAL_AXIS, WALKER_AXIS))
+
+
+def right_sized(n_trials: int, n_slots: int):
+    """(slots used, rounds) of ``n_trials`` over at most ``n_slots``:
+    rounds = ceil(n_trials / n_slots) is the fastest any schedule
+    finishes, and the fewest slots that keep it waste the fewest
+    padding trials."""
+    rounds = -(-n_trials // n_slots)
+    return -(-n_trials // rounds), rounds
+
+
+def _trial_mesh(n_trials: int, mesh: Optional[TrialMesh], devices):
+    """Pick a trial mesh over ``devices``; returns (mesh,
+    padded_n_trials), as the reference's ``_trial_mesh``.
+
+    The mesh chosen here is right-sized: rounds r = ceil(n_trials /
+    n_devices) is the fastest any schedule can finish, and the smallest
+    device count d with r*d >= n_trials keeps that wall-clock while
+    running at most r-1 padding trials.  A caller's mesh is honored as
+    it is (trials then pad up to a multiple of its trial slots, with a
+    warning)."""
+    if mesh is not None:
+        n_dev = mesh.shape[TRIAL_AXIS]
+        pad = (-n_trials) % n_dev
+        if pad:
+            warnings.warn(
+                f"n_trials={n_trials} does not divide over the given "
+                f"{n_dev}-device mesh; running {pad} extra padding "
+                f"trial(s) (their results are discarded). Use a multiple "
+                f"of the mesh size, or drop the mesh argument to get a "
+                f"right-sized one.", stacklevel=3)
+        return mesh, n_trials + pad
+    d, rounds = right_sized(n_trials, len(devices))
+    mesh = make_trial_mesh(devices[:d])
+    pad = rounds * d - n_trials
+    if pad:
+        warnings.warn(
+            f"n_trials={n_trials} pads to {rounds * d} on a right-sized "
+            f"{d}-device mesh ({pad} discarded padding trial(s) — the "
+            f"minimum at this wall-clock).", stacklevel=3)
+    return mesh, rounds * d
+
+
+def _trial_mesh_2d(n_trials: int, walker_shards: int,
+                   mesh: Optional[TrialMesh], devices):
+    """A (trials x walkers) mesh; the right-sizing of
+    :func:`_trial_mesh` on the trial axis, with len(devices) //
+    walker_shards slots (the reference's ``_trial_mesh_2d``)."""
+    if mesh is not None:
+        if set(mesh.axis_names) != {TRIAL_AXIS, WALKER_AXIS}:
+            raise ValueError(
+                f"a walker-sharded ensemble mesh needs axes "
+                f"({TRIAL_AXIS!r}, {WALKER_AXIS!r}); got "
+                f"{mesh.axis_names}")
+        if mesh.shape[WALKER_AXIS] != walker_shards:
+            # the lane offsets follow the mesh's walker axis: a mismatch
+            # would give walkers other streams
+            raise ValueError(
+                f"mesh walker axis ({mesh.shape[WALKER_AXIS]}) "
+                f"must equal walker_shards ({walker_shards})")
+        n_dev = mesh.shape[TRIAL_AXIS]
+        pad = (-n_trials) % n_dev
+        if pad:
+            warnings.warn(
+                f"n_trials={n_trials} does not divide over the given "
+                f"{n_dev}-trial-slot mesh; running {pad} extra padding "
+                f"trial(s).", stacklevel=3)
+        return mesh, n_trials + pad
+    if len(devices) % walker_shards != 0 or walker_shards > len(devices):
         raise ValueError(
-            "walker shards and trial meshes over several devices are not "
-            "ported yet: ROADMAP Queue 1 item 11; the port runs every "
-            "trial on one device (walker_shards=1, mesh=None)")
+            f"walker_shards ({walker_shards}) must divide the device "
+            f"count ({len(devices)})")
+    d, rounds = right_sized(n_trials, len(devices) // walker_shards)
+    mesh = make_trial_mesh(devices[:d * walker_shards], walker_shards)
+    pad = rounds * d - n_trials
+    if pad:
+        warnings.warn(
+            f"n_trials={n_trials} pads to {rounds * d} on a right-sized "
+            f"{d}x{walker_shards} mesh ({pad} discarded padding "
+            f"trial(s)).", stacklevel=3)
+    return mesh, rounds * d
+
+
+def _slot_sprint(params: Params, row: tuple, engine: str, dtype,
+                 rng_impl: str, walker_shards: int):
+    """One trial slot's sprint, ``sprint(tbl, key, state, **scalars)``,
+    with its state's conversions ``(to_device, to_walker)``: the
+    single-device sprint with lane offset 0, or over the row's walker
+    shards."""
+    if walker_shards > 1:
+        wm = sharding.WalkerMesh(row)
+        if engine == "pallas":
+            return (sharding.make_sharded_pallas_sprint_fn(
+                        params, params.num_water, wm, dtype, rng_impl),
+                    lambda st: sharding.to_planes_sharded(st, params, wm),
+                    lambda ss: sharding.from_planes_sharded(
+                        ss, params.num_water, wm))
+        return (sharding.make_sharded_sprint_fn(params, wm, dtype),
+                lambda st: sharding.shard_walkers(st, wm),
+                lambda ss: sharding.gather_walkers(ss, wm))
+    if engine == "pallas":
+        base = cuda_engine.make_sprint_fn(params, params.num_water, row[0],
+                                          dtype, rng_impl)
+
+        def sprint(tbl, key, state, **scalars):
+            return base(tbl, key, state, 0, **scalars)
+
+        return (sprint, lambda st: cuda_engine.to_soa(st, params),
+                lambda ss: cuda_engine.from_soa(ss, params.num_water))
+    scan = reference_engine.make_sprint_fn(params, row[0], dtype=dtype)
+
+    def sprint(tbl, key, state, **scalars):
+        return scan(tbl.pos, tbl.m, key, state, 0, **scalars)
+
+    return sprint, (lambda st: st), (lambda ss: ss)
 
 
 def run_ensemble(params: Params, n_trials: int, mesh=None,
@@ -130,11 +280,20 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
                  max_steps: Optional[int] = None, engine: str = "pallas",
                  rng_impl: str = cuda_engine.RNG_THREEFRY,
                  check_coverage: bool = True, *, device):
-    """Run T independent trials on ``device``; returns (times_ms,
-    sum_cos [T, n], sum_sin [T, n], state).  Average over axis 0 for the
-    ensemble curve.  ``state`` is a ``WalkerState`` with the trial axis
-    leading (pos [T, W, 3], escapes and coverage [T]; ``step`` the
-    steps every trial ran).
+    """Run T independent trials; returns (times_ms, sum_cos [T, n],
+    sum_sin [T, n], state).  Average over axis 0 for the ensemble curve.
+    ``state`` is a ``WalkerState`` with the trial axis leading (pos [T,
+    W, 3], escapes and coverage [T]; ``step`` the steps every trial
+    ran), on the mesh's first device.
+
+    ``mesh``: a ``TrialMesh``; by default one right-sized over the
+    devices ``device`` names (``sharding.local_devices``: every card for
+    "cuda", one device otherwise), so on one device the trials run one
+    after another.  ``walker_shards`` > 1 shards each trial's walkers
+    over a row of that many devices of a (trials, walkers) mesh
+    (global lanes: every walker as in the standalone run).  Trials that
+    do not fill the mesh pad with discarded trials, with the
+    reference's warnings.
 
     ``mmoments`` / ``taucps`` (ms) / ``cell_rs`` (µm) / ``d_scales``
     (scales D_cell and D_extra together) / ``permeabilities`` (µm/ms,
@@ -159,9 +318,8 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
     the reference's function defaults to its scan engine, and on
     Threefry the two give the same trials to f32 rounding), or
     ``"scan"``, the scan engine (Threefry whatever ``rng_impl`` says, as
-    the reference's).  ``walker_shards`` > 1 and ``mesh`` raise.
-    ``check_coverage`` validates near_k against every distinct (scene,
-    effective params) once."""
+    the reference's).  ``check_coverage`` validates near_k against every
+    distinct (scene, effective params) once."""
     params.validate()
     for name, vals in (("scene_seeds", scene_seeds),
                        ("run_seeds", run_seeds)):
@@ -203,20 +361,44 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
             f"ensembles run the expansion field backend; field_mode="
             f"{params.field_mode!r} is only wired into single-scene "
             f"SimulationRunner/scan runs")
-    _check_port_options(engine, walker_shards, mesh)
-    device = torch.device(device)
-    if device.type == "cuda":
+    if engine not in reference_engine.ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    if mesh is not None and not isinstance(mesh, TrialMesh):
+        raise ValueError(f"mesh must be a TrialMesh (make_trial_mesh); "
+                         f"got {type(mesh).__name__}")
+    devices = sharding.local_devices(device)
+    if walker_shards > 1:
+        mesh, n_padded = _trial_mesh_2d(n_trials, walker_shards, mesh,
+                                        devices)
+        if params.num_water % walker_shards != 0:
+            raise ValueError(
+                f"num_water ({params.num_water}) must divide evenly over "
+                f"{walker_shards} walker shards")
+    else:
+        mesh, n_padded = _trial_mesh(n_trials, mesh, devices)
+    slots = mesh.devices
+    if any(d.type == "cuda" for row in slots for d in row):
         require_cuda()
         if engine == "pallas":
             chunk_kernel.load_library()   # the build is set-up, not run
 
+    def pad_vals(vals):
+        if vals is not None and n_padded > n_trials:
+            return list(vals) + [vals[-1]] * (n_padded - n_trials)
+        return vals
+
+    mmoments, taucps, cell_rs = (pad_vals(mmoments), pad_vals(taucps),
+                                 pad_vals(cell_rs))
+    run_cell_rs, d_scales = pad_vals(run_cell_rs), pad_vals(d_scales)
+    permeabilities = pad_vals(permeabilities)
+    scene_seeds, run_seeds = pad_vals(scene_seeds), pad_vals(run_seeds)
     mnp_pos, mnp_M, waters, scenes = build_trial_scenes(
-        params, n_trials, base_seed, mmoments, cell_rs,
+        params, n_padded, base_seed, mmoments, cell_rs,
         scene_seeds=scene_seeds)
     if check_coverage:
         validated = {}    # (scene, effective params) -> worst count;
         # paired sweeps repeat both, so each distinct case runs once
-        for i, s in enumerate(scenes):
+        for i, s in enumerate(scenes[:n_trials]):
             p_i = params if cell_rs is None \
                 else params.replace(cell_r=float(cell_rs[i]))
             if run_cell_rs is not None:
@@ -240,59 +422,64 @@ def run_ensemble(params: Params, n_trials: int, mesh=None,
                     f"near_k >= {worst} (configured {params.near_k}); "
                     f"raise near_k or lower chunk_steps")
 
-    if engine == "pallas":
-        sprint = cuda_engine.make_sprint_fn(params, params.num_water,
-                                            device, dtype, rng_impl)
-    else:
-        scan = reference_engine.make_sprint_fn(params, device, dtype=dtype)
-
-        def sprint(tbl, key, state, lane_offset, **scalars):
-            return scan(tbl.pos, tbl.m, key, state, lane_offset, **scalars)
+    # one sprint function a distinct slot row; trial i runs in slot
+    # i // rounds (contiguous blocks, as the reference shards them)
+    per_row = {row: _slot_sprint(params, row, engine, dtype, rng_impl,
+                                 walker_shards)
+               for row in dict.fromkeys(slots)}
+    rounds = n_padded // len(slots)
     run_crs = run_cell_rs if run_cell_rs is not None else cell_rs
-    trials = []
-    for i in range(n_trials):
+    trials, states = [], []
+    for i in range(n_padded):
+        row = slots[i // rounds]
+        sprint, to_device, to_walker = per_row[row]
+        tbl = trial_table(mnp_pos[i], mnp_M[i], dtype, row[0])
         trials.append(dict(
-            tbl=trial_table(mnp_pos[i], mnp_M[i], dtype, device),
+            sprint=sprint, to_walker=to_walker,
+            tbl=tbl if walker_shards == 1
+            else sharding.replicate(tbl, row),
             key=key_words(run_seed + i if run_seeds is None
                           else int(run_seeds[i])),
-            tcp=(params.tcp if taucps is None
-                 else int(round(taucps[i] / params.tau))),
-            cell_r=(params.cell_r if run_crs is None
-                    else float(run_crs[i])),
-            d_scale=1.0 if d_scales is None else float(d_scales[i]),
-            reflect=(None if permeabilities is None
-                     else params.reflect_pair(float(permeabilities[i])))))
-    states = [init_state(waters[i], params, device, dtype)
-              for i in range(n_trials)]
-    if engine == "pallas":
-        states = [cuda_engine.to_soa(st, params) for st in states]
+            scalars=dict(
+                tcp=(params.tcp if taucps is None
+                     else int(round(taucps[i] / params.tau))),
+                cell_r=(params.cell_r if run_crs is None
+                        else float(run_crs[i])),
+                d_scale=1.0 if d_scales is None else float(d_scales[i]),
+                reflect=(None if permeabilities is None
+                         else params.reflect_pair(
+                             float(permeabilities[i]))))))
+        states.append(to_device(init_state(waters[i], params, row[0],
+                                           dtype)))
 
     total = params.t if max_steps is None else min(params.t, max_steps)
-    outs = [[] for _ in range(n_trials)]
+    outs = [[] for _ in range(n_padded)]
+    # each round queues one trial on every slot before the next round
+    order = [s * rounds + r for r in range(rounds)
+             for s in range(len(slots))]
     for _ in range(total // params.sprint_steps):
-        # sprint-major, trials one after another, as the reference scans
-        # them inside each sprint; lane_offset 0 keeps every trial its
-        # standalone run
-        for i, tr in enumerate(trials):
-            states[i], wins = sprint(tr["tbl"], tr["key"], states[i], 0,
-                                     tcp=tr["tcp"], cell_r=tr["cell_r"],
-                                     d_scale=tr["d_scale"],
-                                     reflect=tr["reflect"])
+        # sprint-major, a slot's trials one after another, as the
+        # reference scans them inside each sprint
+        for i in order:
+            tr = trials[i]
+            states[i], wins = tr["sprint"](tr["tbl"], tr["key"], states[i],
+                                           **tr["scalars"])
             outs[i].append(wins)
+    dev0 = slots[0][0]
     if outs[0]:
-        wins = torch.stack([torch.cat(o) for o in outs]).cpu().numpy()
+        wins = torch.stack([torch.cat(o).to(dev0)
+                            for o in outs[:n_trials]]).cpu().numpy()
     else:
         wins = np.zeros((n_trials, 0, 2), np.float32)
-    walkers = [cuda_engine.from_soa(ss, params.num_water)
-               if engine == "pallas" else ss for ss in states]
+    walkers = [trials[i]["to_walker"](states[i]) for i in range(n_trials)]
+
+    def stack(f):
+        return torch.stack([getattr(w, f).to(dev0) for w in walkers])
+
     state = WalkerState(
-        pos=torch.stack([w.pos for w in walkers]),
-        in_cell=torch.stack([w.in_cell for w in walkers]),
-        phase=torch.stack([w.phase for w in walkers]),
-        phase_comp=torch.stack([w.phase_comp for w in walkers]),
-        step=states[0].step,
-        escapes=torch.stack([w.escapes for w in walkers]),
-        coverage=torch.stack([w.coverage for w in walkers]))
+        pos=stack("pos"), in_cell=stack("in_cell"), phase=stack("phase"),
+        phase_comp=stack("phase_comp"), step=states[0].step,
+        escapes=stack("escapes"), coverage=stack("coverage"))
     times = window_times(params, wins.shape[1])
     return times, wins[..., 0], wins[..., 1], state
 
@@ -370,6 +557,9 @@ def run_parameter_grid(base_params: Params, axes: dict,
     ``paired=True`` gives trial k of every grid point the same scene
     and stream (common random numbers across the whole surface).
 
+    ``walker_shards`` and ``mesh`` lay the trials out as
+    :func:`run_ensemble`'s do.
+
     Returns ``(times_ms, curves)`` with curves shaped
     ``[n1, n2, ..., n_trials_each, n_windows]``, one leading axis per
     key of ``axes`` in iteration order; ``quadrature=True`` appends a
@@ -399,7 +589,7 @@ def run_parameter_sweep(base_params: Params, name: str, values,
                         max_steps=None, engine: str = "pallas",
                         rng_impl: str = cuda_engine.RNG_THREEFRY,
                         paired: bool = False, walker_shards: int = 1,
-                        quadrature: bool = False, *, device):
+                        mesh=None, quadrature: bool = False, *, device):
     """Sweep any Params field (e.g. cell_r, taucp, mmoment) across runs.
 
     ``mmoment``, ``taucp``, ``cell_r``, ``D`` and ``P`` sweeps are one
@@ -417,6 +607,9 @@ def run_parameter_sweep(base_params: Params, name: str, values,
     random numbers along the sweep axis, so the Monte-Carlo noise
     cancels in contrasts.  Otherwise the values of a non-scalar knob use
     run seeds ``run_seed + i * 10000``.
+
+    ``walker_shards`` and ``mesh`` lay the trials out as
+    :func:`run_ensemble`'s do.
 
     Returns (times_ms, curves [len(values), n_trials_each, n_windows]);
     ``quadrature=True`` appends a trailing (cos, sin) component axis."""
@@ -436,7 +629,8 @@ def run_parameter_sweep(base_params: Params, name: str, values,
             base_params, n_trials=len(values) * n_trials_each,
             base_seed=base_seed, run_seed=run_seed, **per_trial,
             dtype=dtype, max_steps=max_steps, engine=engine,
-            rng_impl=rng_impl, walker_shards=walker_shards, device=device)
+            rng_impl=rng_impl, walker_shards=walker_shards, mesh=mesh,
+            device=device)
         flat = np.stack([cos, sin], -1) if quadrature else cos
         shape = (len(values), n_trials_each, -1) + \
             ((2,) if quadrature else ())
@@ -450,6 +644,7 @@ def run_parameter_sweep(base_params: Params, name: str, values,
             p, n_trials=n_trials_each, base_seed=base_seed,
             run_seed=run_seed if paired else run_seed + i * 10000,
             dtype=dtype, max_steps=max_steps, engine=engine,
-            rng_impl=rng_impl, walker_shards=walker_shards, device=device)
+            rng_impl=rng_impl, walker_shards=walker_shards, mesh=mesh,
+            device=device)
         curves.append(np.stack([cos, sin], -1) if quadrature else cos)
     return times, np.stack(curves)

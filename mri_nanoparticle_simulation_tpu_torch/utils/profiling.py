@@ -52,11 +52,13 @@ def walker_steps_per_sec(num_water: int, steps: int, wall_s: float) -> float:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: Optional[str], device="cpu"):
+def device_trace(log_dir: Optional[str], device):
     """``torch.profiler`` trace around a block, exported as a Chrome
     trace (``log_dir/trace.json``, viewable in chrome://tracing or
     Perfetto); a no-op when ``log_dir`` is None.  The host's activity is
-    always traced, the card's too when ``device`` is a CUDA device: a
+    always traced, the card's too when ``device`` is a CUDA device (it
+    has no default, so no caller on the card leaves the card out of its
+    trace by omission): a
     trace of such a block that holds no kernel on the card (a card whose
     profiler, CUPTI, is unavailable) raises after writing it, rather
     than pass for a trace of the device."""

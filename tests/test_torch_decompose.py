@@ -613,6 +613,30 @@ ERRORS = {
     "grid_n_below_two": ["--field-mode", "grid", "--grid-n", "1"],
     "grid_field_in_a_decomposition": ["--field-mode", "grid",
                                       "--moment-scales", "1,2"],
+    # walker sharding (the reference CLI's sim.py:948-952, 1016-1025)
+    "shard_walkers_in_an_ensemble": ["--shard-walkers", "--ensemble", "2"],
+    "shard_walkers_in_a_sweep": ["--shard-walkers", "--sweep", "D",
+                                 "--sweep-values", "1"],
+    "shard_walkers_in_a_record_decomposition": ["--moment-scales", "1",
+                                                "--shard-walkers"],
+    "walker_shards_below_one": ["--walker-shards", "0", "--ensemble", "2"],
+    "walker_shards_on_a_single_run": ["--walker-shards", "2"],
+    # the durable and plane flags on the scan engine (sim.py:925-980)
+    "scan_record_dir_and_dump_record": ["--engine", "scan",
+                                        "--moment-scales", "1",
+                                        "--record-dir", "rec",
+                                        "--dump-record", "r.npz"],
+    "scan_record_dir_and_resume": ["--engine", "scan", "--moment-scales",
+                                   "1", "--record-dir", "rec", "--resume",
+                                   "c.npz"],
+    "scan_stream_plane_and_record_dir": ["--engine", "scan",
+                                         "--echo-taucps", "0.001",
+                                         "--stream-plane", "--record-dir",
+                                         "rec"],
+    "scan_plane_device_and_checkpoint": ["--engine", "scan",
+                                         "--moment-scales", "1",
+                                         "--plane-device", "--checkpoint",
+                                         "c.npz"],
 }
 
 

@@ -453,3 +453,187 @@ def test_fast_generator_stores_refused_both_ways(tmp_path):
     with pytest.raises(ValueError, match="rng_impl='hardware'"):
         dec.run_decomposition_durable(sc, tp, dj, seed=5, device="cpu",
                                       rng_impl="hardware")
+
+
+# -- over a walker mesh ----------------------------------------------------------
+
+def _mesh(n):
+    from mri_nanoparticle_simulation_tpu_torch.parallel import sharding
+    return sharding.make_walker_mesh(["cpu"] * n)
+
+
+class TestShardedDurable:
+    """``run_decomposition_durable(mesh=...)`` (tests/test_record_store.py's
+    sharded cases): 64 walkers over 4 shards of 16 (each shard padded on
+    its own), the record bitwise the unsharded run's on both engines and
+    both generators; the checkpoint holds the gathered state, so a run
+    killed under one mesh resumes under another or under none."""
+
+    @pytest.mark.parametrize("engine,rng_impl", [("pallas", "threefry"),
+                                                 ("pallas", "hardware"),
+                                                 ("scan", "threefry")])
+    def test_sharded_record_bitwise(self, setup, tmp_path, engine,
+                                    rng_impl):
+        p, sc = setup
+        ref = plain(sc, p, engine=engine, rng_impl=rng_impl)
+        res = durable(sc, p, str(tmp_path / "rec"), engine=engine,
+                      rng_impl=rng_impl, mesh=_mesh(4))
+        np.testing.assert_array_equal(np.asarray(res.A), ref.A)
+        np.testing.assert_array_equal(np.asarray(res.B), ref.B)
+        assert _counters(res.stats) == _counters(ref.stats)
+
+    @pytest.mark.parametrize("engine", ["pallas", "scan"])
+    def test_killed_under_one_mesh_resumed_under_another(self, setup,
+                                                         tmp_path, engine):
+        p, sc = setup
+        ref = plain(sc, p, engine=engine)
+        d, ckpt = str(tmp_path / "rec"), str(tmp_path / "ck.npz")
+        with pytest.raises(RuntimeError, match="injected fault"):
+            durable(sc, p, d, engine=engine, checkpoint_path=ckpt,
+                    fault_hook=FaultInjector({3: 1}), mesh=_mesh(4))
+        with np.load(ckpt) as z:
+            assert z["pos"].shape == (64, 3)          # the gathered state
+        with pytest.raises(RuntimeError, match="injected fault"):
+            durable(sc, p, d, engine=engine, checkpoint_path=ckpt,
+                    fault_hook=FaultInjector({5: 1}), mesh=_mesh(2))
+        res = durable(sc, p, d, engine=engine, checkpoint_path=ckpt)
+        np.testing.assert_array_equal(np.asarray(res.A), ref.A)
+        np.testing.assert_array_equal(np.asarray(res.B), ref.B)
+        assert _counters(res.stats) == _counters(ref.stats)
+
+    def test_mesh_refusals(self, setup, tmp_path):
+        from mri_nanoparticle_simulation_tpu_torch.parallel import sharding
+        p, sc = setup
+        with pytest.raises(ValueError, match="must divide evenly over 3 "
+                                             "walker shards"):
+            durable(sc, p, str(tmp_path / "a"), mesh=_mesh(3))
+        two = sharding.WalkerMesh((torch.device("cpu"),), rank=0,
+                                  world_size=2)
+        with pytest.raises(ValueError, match="run_decomposition_multihost"):
+            durable(sc, p, str(tmp_path / "b"), mesh=two)
+
+
+# -- the scan engine's writers across the packages -------------------------------
+
+@pytest.fixture(scope="module")
+def jax_scan_record():
+    jp, _, sc = _cross()
+    return jdec.run_decomposition(sc, jp, seed=5, engine="scan")
+
+
+def test_scan_durable_matches_jax_scan_durable(tmp_path, jax_scan_record):
+    """The store of ``engine="scan"`` against JAX's scan writer's: the
+    same identity ("scan", Threefry), A and B within the decompose
+    bounds, the same counters."""
+    jp, tp, sc = _cross()
+    jd, td = str(tmp_path / "jax"), str(tmp_path / "port")
+    jdec.run_decomposition_durable(sc, jp, jd, seed=5, scene_seed=3,
+                                   engine="scan")
+    res = dec.run_decomposition_durable(sc, tp, td, seed=5, scene_seed=3,
+                                        engine="scan", device="cpu")
+    jm = record_mod.RecordStore.open(jd).meta
+    tm = record_mod.RecordStore.open(td).meta
+    for k in ("params_fp", "engine", "rng_impl", "scene_fp", "seed"):
+        assert tm[k] == jm[k], k
+    np.testing.assert_allclose(np.asarray(res.A), jax_scan_record.A,
+                               rtol=0, atol=A_TOL)
+    np.testing.assert_allclose(np.asarray(res.B), jax_scan_record.B,
+                               **B_TOL)
+    for k in COUNTERS:
+        assert res.stats[k] == jax_scan_record.stats[k], k
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_scan_store_crosses_the_packages(tmp_path, jax_scan_record, first):
+    """A scan store (and its "scan" checkpoint, the [W, 2] layout) killed
+    in one package is finished by the other."""
+    jp, tp, sc = _cross()
+    d, ckpt = str(tmp_path / "rec"), str(tmp_path / "ck.npz")
+    with pytest.raises(RuntimeError, match="injected fault"):
+        if first == "jax":
+            jdec.run_decomposition_durable(
+                sc, jp, d, seed=5, scene_seed=3, engine="scan",
+                checkpoint_path=ckpt, fault_hook=JFaultInjector({3: 1}))
+        else:
+            dec.run_decomposition_durable(
+                sc, tp, d, seed=5, scene_seed=3, engine="scan",
+                device="cpu", checkpoint_path=ckpt,
+                fault_hook=FaultInjector({3: 1}))
+    with np.load(ckpt) as z:
+        assert str(z["engine"]) == "scan" and z["phase"].shape == (64, 2)
+    if first == "jax":
+        res = dec.run_decomposition_durable(
+            sc, tp, d, seed=5, scene_seed=3, engine="scan", device="cpu",
+            checkpoint_path=ckpt)
+    else:
+        res = jdec.run_decomposition_durable(
+            sc, jp, d, seed=5, scene_seed=3, engine="scan",
+            checkpoint_path=ckpt)
+    assert record_mod.RecordStore.open(d).complete
+    np.testing.assert_allclose(np.asarray(res.A), jax_scan_record.A,
+                               rtol=0, atol=A_TOL)
+    np.testing.assert_allclose(np.asarray(res.B), jax_scan_record.B,
+                               **B_TOL)
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_scan_stream_snapshot_crosses_the_packages(tmp_path, first):
+    jp, tp, sc = _cross()
+    scales, echoes = [0.5, 1.0], [(1.0, jp.taucp)]
+
+    def plane(mod, p):
+        return mod.StreamingPlane(p, p.t // p.pfreq, scales,
+                                  quadrature=True, echo_pairs=echoes)
+
+    ref = plane(jdec, jp)
+    jdec.run_decomposition(sc, jp, seed=5, engine="scan", consumer=ref)
+    snap = str(tmp_path / "snap.npz")
+    with pytest.raises(RuntimeError, match="injected fault"):
+        if first == "jax":
+            jdec.run_streaming_durable(sc, jp, plane(jdec, jp), snap,
+                                       seed=5, scene_seed=3, engine="scan",
+                                       fault_hook=JFaultInjector({2: 1}))
+        else:
+            dec.run_streaming_durable(sc, tp, plane(dec, tp), snap, seed=5,
+                                      scene_seed=3, engine="scan",
+                                      device="cpu",
+                                      fault_hook=FaultInjector({2: 1}))
+    if first == "jax":
+        got = plane(dec, tp)
+        dec.run_streaming_durable(sc, tp, got, snap, seed=5, scene_seed=3,
+                                  engine="scan", device="cpu")
+    else:
+        got = plane(jdec, jp)
+        jdec.run_streaming_durable(sc, jp, got, snap, seed=5, scene_seed=3,
+                                   engine="scan")
+    np.testing.assert_allclose(got.result(), ref.result(), rtol=0,
+                               atol=CURVE_TOL)
+    np.testing.assert_allclose(got.echo_matrix()[1], ref.echo_matrix()[1],
+                               rtol=0, atol=CURVE_TOL)
+
+
+def test_scan_crash_resume_bitwise(setup, tmp_path):
+    """The port's scan store and snapshot, killed and run again: bitwise
+    the uninterrupted run (as TestDurableRun / TestStreamingDurable for
+    the kernels)."""
+    p, sc = setup
+    ref = plain(sc, p, engine="scan")
+    d, ckpt = str(tmp_path / "rec"), str(tmp_path / "ck.npz")
+    with pytest.raises(RuntimeError, match="injected fault"):
+        durable(sc, p, d, engine="scan", checkpoint_path=ckpt,
+                checkpoint_every_sprints=2, fault_hook=FaultInjector({4: 1}))
+    res = durable(sc, p, d, engine="scan", checkpoint_path=ckpt,
+                  checkpoint_every_sprints=2)
+    np.testing.assert_array_equal(np.asarray(res.A), ref.A)
+    np.testing.assert_array_equal(np.asarray(res.B), ref.B)
+    snap = str(tmp_path / "snap.npz")
+    planes = [dec.StreamingPlane(p, p.t // p.pfreq, [0.5, 1.0], None,
+                                 quadrature=True) for _ in range(3)]
+    plain(sc, p, engine="scan", consumer=planes[0])
+    with pytest.raises(RuntimeError, match="injected fault"):
+        dec.run_streaming_durable(sc, p, planes[1], snap, seed=5,
+                                  device="cpu", engine="scan",
+                                  fault_hook=FaultInjector({3: 1}))
+    dec.run_streaming_durable(sc, p, planes[2], snap, seed=5, device="cpu",
+                              engine="scan")
+    np.testing.assert_array_equal(planes[2].result(), planes[0].result())

@@ -391,7 +391,8 @@ def test_package_imports_without_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('parallel', 'parallel.ensemble', 'utils.profiling',\n"
-        "          'fields.grid', 'inverse'):\n"
+        "          'fields.grid', 'inverse', 'parallel.sharding',\n"
+        "          'parallel.distributed', 'plotting'):\n"
         "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m, v in sys.modules.items()\n"
         "       if v is not None and m.split('.')[0] in ('jax', 'jaxlib',\n"

@@ -384,25 +384,37 @@ def test_run_ensemble_errors_match_jax(name):
     assert str(t.value) == str(j.value)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(engine="scan", walker_shards=2),
-                                      "item 11"),
-                                     (dict(walker_shards=2), "item 11"),
-                                     (dict(mesh=ONE), "item 11"),
-                                     (dict(engine="eager"), "unknown")])
+#: options the port ran on no mesh before ROADMAP item 11 and raised
+#: for; now they raise only where the reference does (the ids are kept)
+UNRUNNABLE = [
+    pytest.param(dict(engine="scan", walker_shards=2),
+                 r"must divide the device count \(1\)", id="kw0-item 11"),
+    pytest.param(dict(walker_shards=2), r"must divide the device count "
+                 r"\(1\)", id="kw1-item 11"),
+    pytest.param(dict(mesh=ONE), "must be a TrialMesh", id="kw2-item 11"),
+    pytest.param(dict(engine="eager"), "unknown", id="kw3-unknown"),
+]
+
+
+@pytest.mark.parametrize("kw,item", UNRUNNABLE)
 def test_unported_options_raise(kw, item):
+    """Two walker shards on the one CPU device: the reference's rule
+    (walker_shards must divide the device count); a JAX mesh is not a
+    port mesh; an unknown engine."""
     p = _tp(JP.small_test_params(**SMALL))
     with pytest.raises(ValueError, match=item):
         tens.run_ensemble(p, 2, device="cpu", **kw)
 
 
 def test_sweeps_raise_for_the_scan_engine():
-    """The scan engine's sweeps run (tests/test_torch_scan.py); on walker
-    shards they raise as the kernels' do."""
+    """The sweeps carry walker_shards to run_ensemble: two shards on the
+    one CPU device raise as the reference's rule says, on both engines
+    (tests/test_torch_sharding.py runs them on a mesh)."""
     p = _tp(JP.small_test_params(**SMALL))
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="must divide the device count"):
         tens.run_parameter_sweep(p, "num_cells", [10], engine="scan",
                                  walker_shards=2, device="cpu")
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="must divide the device count"):
         tens.run_parameter_grid(p, {"D": [1.0]}, walker_shards=2,
                                 device="cpu")
 
@@ -521,7 +533,7 @@ def test_cli_trace_writes_a_trace(branch, tmp_path):
 
 
 def test_device_trace_off_is_a_no_op(tmp_path):
-    with profiling.device_trace(None):
+    with profiling.device_trace(None, "cpu"):
         x = torch.ones(3).sum()
     assert float(x) == 3.0
     assert profiling.walker_steps_per_sec(4032, 1000, 2.0) == 2016000.0

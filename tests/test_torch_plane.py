@@ -416,3 +416,124 @@ def test_cli_dump_echoes_notes_skipped_points(tmp_path, capsys):
     assert "Spin-echo capture written" in err
     assert "on-device plane run:" in err
     assert len(tdec.load_echoes(str(tmp_path / "e.npz"))) == 1
+
+
+# -- the scan engine and walker meshes -------------------------------------------
+
+def test_scan_plane_matches_jax_scan_plane():
+    """``run_plane_on_device(engine="scan")``, the scan record (no
+    padding), against JAX's scan plane: curves and echo captures within
+    PLANE_TOL."""
+    p = JP.small_test_params(num_water=64, mmoment=2e-14,
+                             avoid_intracellular_throw=False)
+    tp = _tp(p)
+    tsc = TBox(tp, seed=3).populate()
+    tt, tc, ts, te = tdec.run_plane_on_device(
+        tsc, tp, SCALES, [p.taucp, 0.001], seed=5, device="cpu",
+        engine="scan", echo_pairs=PAIRS)
+    jt, jc, js, je = _runs()[1]
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_allclose(tc, jc, rtol=0, atol=PLANE_TOL)
+    for a, b in zip(te, je):
+        np.testing.assert_allclose(a.cos, b.cos, rtol=0, atol=PLANE_TOL)
+    for k in ("steps", "escapes", "coverage_violations"):
+        assert ts[k] == js[k], k
+
+
+def _mesh(n):
+    from mri_nanoparticle_simulation_tpu_torch.parallel import sharding
+    return sharding.make_walker_mesh(["cpu"] * n)
+
+
+@pytest.mark.parametrize("engine,n", [("pallas", 4), ("pallas", 2),
+                                      ("scan", 4)])
+def test_sharded_plane_equals_unsharded(setup, engine, n):
+    """``run_plane_on_device(mesh=...)``: per-shard carries and one sum
+    of the shards' walker means a sprint; curves within 1e-6 of the
+    unsharded plane (the grouping of the mean), echo matrices and the
+    counters bitwise."""
+    _, _, tp, tsc = setup
+    kw = dict(seed=5, engine=engine, echo_pairs=PAIRS)
+    t0, c0, s0, e0 = tdec.run_plane_on_device(tsc, tp, SCALES,
+                                              [0.0005, 0.001],
+                                              device="cpu", **kw)
+    t1, c1, s1, e1 = tdec.run_plane_on_device(tsc, tp, SCALES,
+                                              [0.0005, 0.001],
+                                              mesh=_mesh(n), **kw)
+    np.testing.assert_array_equal(t1, t0)
+    np.testing.assert_allclose(c1, c0, rtol=0, atol=STEP_TOL)
+    for a, b in zip(e1, e0):
+        np.testing.assert_array_equal(a.cos, b.cos)
+    for k in ("steps", "escapes", "coverage_violations"):
+        assert s1[k] == s0[k], k
+
+
+def test_sharded_plane_step_equals_plane_step():
+    """``make_sharded_plane_step`` over 4 shards of 25 walkers (each
+    record padded to 32 with garbage) against ``make_plane_step`` on the
+    unpadded record: carries and echo rows bitwise, blocks within
+    1e-6."""
+    from mri_nanoparticle_simulation_tpu_torch.parallel import sharding
+    rec, u, gb, rows, wps, w = _step_inputs()
+    tp = _tp(JP.small_test_params())
+    specs = ((1.0, 0), (0.5, 1))
+    mesh = _mesh(4)
+    whole = tdec.make_plane_step(tp, w, SCALES, 2, specs, device="cpu")
+    shard = tdec.make_sharded_plane_step(tp, w, SCALES, 2, mesh, specs)
+    lw = w // 4
+    carry = (torch.zeros((2, w)),) * 4 + (torch.zeros(w),) * 2
+    carries = tuple((torch.zeros((2, lw)),) * 4 + (torch.zeros(lw),) * 2
+                    for _ in range(4))
+    rep = functools.partial(sharding.replicate, devices=mesh.devices)
+    for i in range(3):
+        blk = torch.as_tensor(rec[i * wps:(i + 1) * wps])
+        parts = []
+        for s in range(4):
+            pad = torch.full((wps, 2, 32), 1e3)
+            pad[:, :, :lw] = blk[:, :, s * lw:(s + 1) * lw]
+            parts.append(pad)
+        ub = torch.as_tensor(u[i * wps:(i + 1) * wps])
+        gbb = torch.as_tensor(gb[:, i * wps:(i + 1) * wps])
+        rr = torch.as_tensor(rows)
+        carry, b0, e0 = whole(blk, carry, ub, gbb, rr)
+        carries, b1, e1 = shard(tuple(parts), carries, rep(ub), rep(gbb),
+                                rep(rr))
+        np.testing.assert_allclose(b1.numpy(), b0.numpy(), rtol=0,
+                                   atol=STEP_TOL)
+        np.testing.assert_array_equal(torch.cat(e1, -1).numpy(),
+                                      e0.numpy())
+        for k in range(6):
+            np.testing.assert_array_equal(
+                torch.cat([c[k] for c in carries], -1).numpy(),
+                carry[k].numpy())
+
+
+def test_cli_plane_device_shard_walkers_and_scan(tmp_path, capsys):
+    """``--plane-device --shard-walkers`` (one CPU shard: the line the
+    reference CLI prints, the CSVs of the plain run), and ``--engine
+    scan --plane-device`` against the JAX CLI's."""
+    from mri_nanoparticle_simulation_tpu.utils import cache as jcache
+    base = CLI + GRID + ["--plane-device"]
+    assert sim.main(base + ["--device", "cpu", "--out",
+                            str(tmp_path / "a.csv")]) == 0
+    capsys.readouterr()
+    assert sim.main(base + ["--device", "cpu", "--shard-walkers", "--out",
+                            str(tmp_path / "b.csv")]) == 0
+    assert "Sharding walkers + plane folding over 1 device(s)" in \
+        capsys.readouterr().err
+    assert sim.main(base + ["--device", "cpu", "--engine", "scan", "--out",
+                            str(tmp_path / "s.csv")]) == 0
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(jcache, "enable_compile_cache", lambda *a: None)
+        assert jsim.main(base + ["--engine", "scan", "--out",
+                                 str(tmp_path / "j.csv")]) == 0
+    finally:
+        mp.undo()
+    for tag in TAGS:
+        a = (tmp_path / ("a" + tag)).read_bytes()
+        assert (tmp_path / ("b" + tag)).read_bytes() == a
+        s = writer.read_t2_csv(str(tmp_path / ("s" + tag)))
+        j = writer.read_t2_csv(str(tmp_path / ("j" + tag)))
+        np.testing.assert_array_equal(s[0], j[0])
+        np.testing.assert_allclose(s[1], j[1], rtol=0, atol=32 * PLANE_TOL)

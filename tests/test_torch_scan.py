@@ -436,14 +436,31 @@ def test_run_decomposition_scan_matches_jax():
                                 "run_streaming_durable",
                                 "run_plane_on_device"])
 def test_durable_and_plane_writers_raise_for_scan(fn, tmp_path):
+    """The durable writers and the on-device plane run the scan engine
+    (they raised for it before it was ported): each gives the record of
+    ``run_decomposition(engine="scan")``, bitwise, or its plane; an
+    unknown engine still raises."""
     p = _tp(P.small_test_params(**RUNNER))
     sc = TBox(p, seed=3).populate()
+    ref = tdec.run_decomposition(sc, p, seed=0, engine="scan", device="cpu")
+    plane = tdec.StreamingPlane(p, p.t // p.pfreq, [1.0], None,
+                                quadrature=True)
     args = {"run_decomposition_durable": (str(tmp_path / "r"),),
-            "run_streaming_durable": (tdec.StreamingPlane(
-                p, p.t // p.pfreq, [1.0], None), str(tmp_path / "s.npz")),
+            "run_streaming_durable": (plane, str(tmp_path / "s.npz")),
             "run_plane_on_device": ([1.0],)}[fn]
-    with pytest.raises(ValueError, match="item 8b"):
-        getattr(tdec, fn)(sc, p, *args, engine="scan", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        getattr(tdec, fn)(sc, p, *args, engine="eager", device="cpu")
+    out = getattr(tdec, fn)(sc, p, *args, engine="scan", device="cpu")
+    if fn == "run_decomposition_durable":
+        np.testing.assert_array_equal(np.asarray(out.A), ref.A)
+        np.testing.assert_array_equal(np.asarray(out.B), ref.B)
+        return
+    want = tdec.curves_at_plane(ref.A, ref.B, [1.0], [p.taucp], p,
+                                quadrature=True)
+    got = plane.result() if fn == "run_streaming_durable" else out[1]
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    stats = out if fn == "run_streaming_durable" else out[2]
+    assert stats["steps"] == ref.stats["steps"]
 
 
 def test_ensemble_scan_matches_jax():

@@ -309,7 +309,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for mod in ("io/checkpoint.py", "engine/resilience.py", "scene/io.py",
                 "fields/debug.py", "parallel/__init__.py",
                 "parallel/ensemble.py", "utils/profiling.py",
-                "fields/grid.py", "inverse.py"):
+                "fields/grid.py", "inverse.py", "parallel/sharding.py",
+                "parallel/distributed.py", "plotting.py"):
         assert os.path.join(PORT, mod) in files, mod
     bad = []
     for path in files:
