@@ -12,7 +12,9 @@ measured, and any failure raises (exit code != 0, no final line):
 2. build: compile every csrc/*.cu with nvcc (one process per source, in
    parallel), print seconds and registers/spills of every entry and
    chunk-kernel mode (Threefry or fast generator, default physics or
-   variants), each for K = 1..16;
+   variants), each for K = 1..16; then csrc/math_check.cu: the kernels'
+   sqrt_fast and rsqrt_ftz bitwise sqrtf's and rsqrtf's over every
+   float input each can see;
 3. rebuild kernel vs plain version (engine/cuda_engine.chunk_reference)
    on the same CUDA inputs at the main path's shapes, 50 and 4032
    walkers, in the split layout (128 blocks of one walker warp and three
@@ -54,16 +56,21 @@ measured, and any failure raises (exit code != 0, no final line):
    memory) and its SASS instructions a pair;
 8b. the layout of every mode of both entries at its path's width:
    blocks, threads, generator warps, dynamic shared memory, resident
-   blocks per SM, waves, registers and spills; and of the candidate-model
-   kernel at the scale-up width (one wave: 6 or more blocks per SM, at
-   most 80 registers, no spill);
+   blocks per SM, waves, registers and spills; the near entry's two
+   default modes with no local memory (Threefry: its slots in shared
+   memory, one wave), and their SASS step loop (instructions a step,
+   beside ``step_ops``); and the
+   candidate-model kernel at the scale-up width (one wave: 6 or more
+   blocks per SM, at most 80 registers, no spill);
 9. (a) the fast and variant modes against their plain versions: the
    rebuild kernel on the headline scene at 50 and 4032 walkers, fast
    with the default physics, Threefry with every variant on (intended
    kick, sphere directions, permeable membranes, a z gradient) and fast
    with every variant on; the near/taylor kernel in the same three
-   modes on the scale-up scene's first 4096 waters; the gates of phases
-   3 and 6, two kernel runs bitwise equal; times of both;
+   modes on the scale-up scene's first 4096 waters and at full width on
+   phase 7's final walkers (100096, the state bitwise equal); the gates
+   of phases 3 and 6, two kernel runs bitwise equal; times of both (the
+   near entry's at full width);
 10. (b) the headline through the runner on its default, the fast
    generator: 2e6 steps, 0 escapes, 0 coverage violations, 500
    chunk_kernel[fast] launches; its curve within 5 sqrt(2/W) of phase
@@ -241,7 +248,8 @@ import torch  # noqa: E402
 from mri_nanoparticle_simulation_tpu_torch import (  # noqa: E402
     analysis, golden, inverse)
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (  # noqa: E402
-    FAR_SUMS_K10, SCALEUP, all_variants, sass_loop, time_on_device)
+    FAR_SUMS_K10, NEAR_K10, SCALEUP, all_variants, sass_loop,
+    time_on_device)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
     chunk_kernel, cuda_engine, reference_engine, resilience, sim)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
@@ -525,10 +533,11 @@ def only(**want):
 
 def entry_label(name, flags):
     """The label of a kernel instantiation from its template flags:
-    chunk kernels (<K, fast generator, variants, decompose>) by mode, as
-    their LAUNCHES keys; the candidate-model kernel (<K, high>) with
-    "[order 8]" for its high-order twin; the others (<K>) by name."""
-    if len(flags) == 3:
+    chunk kernels (<K, fast generator, variants, decompose>, the near
+    entry with its layout's flag after them) by mode, as their LAUNCHES
+    keys; the candidate-model kernel (<K, high>) with "[order 8]" for
+    its high-order twin; the others (<K>) by name."""
+    if len(flags) >= 3:
         return chunk_kernel.chunk_mode(name, SimpleNamespace(
             fast_rng=flags[0] == "1", variants=flags[1] == "1"),
             flags[2] == "1")
@@ -607,6 +616,10 @@ def main():
     secs = compile_seconds(chunk_kernel.build_log())
     print("  nvcc seconds by source: " + ", ".join(
         f"{s} {t:.1f}" for s, t in sorted(secs.items(), key=lambda x: -x[1])))
+    bad = chunk_kernel.math_check(dev)
+    for what, n in bad.items():
+        print(f"  math check: {what}: {n} inputs differ", flush=True)
+    check(set(bad.values()) == {0}, f"math check: {bad}")
     done(t0, f"built {chunk_kernel.library_path().name} ({len(res)} "
          f"entries) in {build_s:.2f} s with "
          f"{' '.join(chunk_kernel.NVCC_FLAGS)}")
@@ -833,9 +846,8 @@ def layout_report(dev, hp, n_pad, sp, res, label):
             if entry == "chunk_kernel":
                 check(lay.split and lay.blocks >= 120 and lay.waves == 1,
                       f"{key}: headline layout {lay}")
-            if key == "chunk_near_kernel":   # compiled for one wave
-                check(lay.blocks_per_sm >= 6 and lay.waves == 1,
-                      f"{key}: scale-up layout {lay}")
+            if key in ("chunk_near_kernel", "chunk_near_kernel[fast]"):
+                out[key].update(near_step_sass(phys, lay, dev, label))
     # the candidate-model kernel at the scale-up width, as the runtime
     # reports it; its last launch (phase 7, full width) took the same
     w_pad = cuda_engine.pad_count(sp.num_water)
@@ -861,6 +873,37 @@ def layout_report(dev, hp, n_pad, sp, res, label):
           f"{spill}, {info.local_bytes} B local memory")
     done(t0, f"[{label}]")
     return out
+
+
+def near_step_sass(phys, lay, dev, label):
+    """The near entry's default mode of ``phys`` at the scale-up width:
+    no local memory, and on Threefry its slots in shared memory and one
+    wave (checked; the fast generator keeps them in registers, in two
+    waves: PERF.md section 6, ``benchmark.py --near-layouts``); and its
+    SASS step loop (``sass_loop``: a step, or a step pair on the fast
+    generator) against ``step_ops``; returns its kernels-line fields."""
+    info = chunk_kernel.kernel_info("chunk_near_kernel", phys, device=dev)
+    check(info.local_bytes == 0 and (phys.fast_rng or (
+        lay.waves == 1 and lay.smem == info.smem > 0)),
+          f"near entry{' [fast]' if phys.fast_rng else ''}: scale-up "
+          f"layout {lay}, {info.local_bytes} B local memory")
+    # the copy of the step loop that the runs take: on Threefry the one
+    # with the rounds of Threefry-20 unrolled, the larger of the two
+    copies = sass_loop(chunk_kernel, NEAR_K10[phys.fast_rng])["copies"]
+    sass = max(copies, key=lambda c: c["instructions"])
+    steps = 2 if phys.fast_rng else 1
+    f, i = step_ops(phys, phys.near_k)
+    per_step = sass["instructions"] / steps
+    print(f"    SASS step loop: {sass['instructions']} instructions for "
+          f"{steps} step(s), {sass['rsqrt']} MUFU.RSQ, nested loops "
+          f"{sass['inner']}: {per_step:.1f} a step against step_ops "
+          f"{f:.1f} float + {i:.1f} integer = {f + i:.1f} (every copy: "
+          f"{[c['instructions'] for c in copies]}); {lay.smem} B shared "
+          f"memory a block, {info.local_bytes} B local memory [{label}]",
+          flush=True)
+    return {"sass_per_step": per_step, "sass_step_loop": sass,
+            "step_ops": [f, i], "smem_per_block": lay.smem,
+            "local_bytes": info.local_bytes}
 
 
 def mode_phases(dev, label, p, sc, ctx):
@@ -896,17 +939,22 @@ def mode_phases(dev, label, p, sc, ctx):
         cargs = dict(ctx["cargs"], phys=cuda_engine.chunk_physics(
             physics(big), rng_impl))
         near, taylor, planes = ctx["near"], ctx["taylor"], ctx["planes"]
-        pos_err, win_err, plain = compare_near_chunk(planes, near, taylor,
-                                                     cargs)
+        pos_err, win_err, _ = compare_near_chunk(planes, near, taylor, cargs)
+        # and at the width of its path, on phase 7's final walkers
+        full, fnear, ftaylor = ctx["full"], ctx["fnear"], ctx["ftaylor"]
+        fargs = dict(ctx["fargs"], phys=cargs["phys"])
+        pos_full, win_full, plain = compare_near_chunk(full, fnear, ftaylor,
+                                                       fargs)
         ms = time_chunk(lambda: chunk_kernel.run_chunk_near(
-            planes, near, taylor, **cargs), 3)
+            full, fnear, ftaylor, **fargs), 3)
         key = chunk_kernel.chunk_mode("chunk_near_kernel", cargs["phys"])
-        print(f"  {key}: one chunk ({cargs['num_water']} walkers, K="
+        print(f"  {key}: one chunk ({fargs['num_water']} walkers, K="
               f"{big.near_k}) kernel {ms:.3f} ms, plain version "
               f"{plain:.1f} ms [{label}]", flush=True)
-        out[key] = dict(pos_err=pos_err, win_err=win_err, k=big.near_k,
+        out[key] = dict(pos_err=max(pos_err, pos_full),
+                        win_err=max(win_err, win_full), k=big.near_k,
                         ms=ms, plain_ms=plain, bound=chunk_bound(
-                            cargs["num_water"], cargs["phys"]))
+                            fargs["num_water"], fargs["phys"]))
     done(t0, f"{len(out)} modes [{label}]")
     return out
 
@@ -3436,7 +3484,7 @@ def large_scene_phases(dev, label):
     return ctx, [{
         "name": "chunk_near_kernel",
         "route": "cuda",
-        "source": PKG + "chunk_kernel.cu",
+        "source": PKG + "chunk_near_kernel.cu",
         "replaces": REPLACES,
         "launches": big_launches["chunk_near_kernel"],
         "max_abs_err": max(pos_err, pos_full),

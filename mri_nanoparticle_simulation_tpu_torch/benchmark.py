@@ -20,7 +20,7 @@ The headline value and ``detail.scaleup`` run Threefry, the generator
 of the port's earlier figures; ``detail.fast_rng`` holds both runs on
 the fast generator (the runner's default).  Without a card it raises.
 
-Two further modes print one JSON line each:
+Three further modes print one JSON line each:
 
 * ``--profile [--far-table-order N]``: the scale-up path's device time
   per kernel over 20 chunks (torch.profiler), and its device idle share
@@ -38,7 +38,8 @@ Two further modes print one JSON line each:
   the chunk kernel's ms per chunk in every mode of both entries: the
   rebuild entry at the headline shape (4032 walkers, K 5) and the near
   entry at the scale-up width (100096 walkers, K 10), 4000 steps, 7 rounds
-  of 10 launches, with the layout each launch took; then the rebuild
+  of 10 launches, with the layout each launch took (and the near entry's
+  SASS step loop in its two default modes, ``sass_loop``); then the rebuild
   entry on the headline's scene at the widths of ``REBUILD_WIDTHS`` (both
   sides of the split layout's threshold, up to a 100k-walker small scene)
   in both its layouts.  Each round runs between two CUDA events behind a
@@ -48,13 +49,21 @@ Two further modes print one JSON line each:
   timed in turns on the same inputs: DIR, this, this, DIR (DIR, flat,
   split, split, flat, DIR at the widths).
 
+* ``--near-layouts``: the near entry's layout alternatives
+  (``NEAR_LAYOUTS_SRC``: the slots in shared memory or in registers, at
+  4, 6 and 8 blocks per SM, each mode at K 10) beside the kernel it
+  launches, each held bitwise against it and timed in turns at 100096
+  walkers, with the runtime's registers, residency and local memory.
+
     python -m mri_nanoparticle_simulation_tpu_torch.benchmark [--profile
-        [--far-table-order N] | --rebuild-ms [DIR]]
+        [--far-table-order N] | --rebuild-ms [DIR] | --near-layouts]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import importlib
 import importlib.util
 import json
@@ -64,6 +73,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import torch
@@ -113,6 +123,11 @@ REBUILD_WIDTHS = (8576, 16896, 33792, 50688, 67584, 100000)
 #: the mangled name of the far-sums kernel at the scale-up's K, whose
 #: SASS pair loop ``sass_loop`` reads
 FAR_SUMS_K10 = "far_sums_kernelILi10E"
+#: the mangled names of the near entry's K-10 kernels with the default
+#: physics, by generator (fast_rng), whose SASS step loop ``sass_loop``
+#: reads (a step pair on the fast generator)
+NEAR_K10 = {False: "chunk_near_kernelILi10ELb0ELb0ELb0E",
+            True: "chunk_near_kernelILi10ELb1ELb0ELb0E"}
 _GENERATOR = {cuda_engine.RNG_THREEFRY: "Threefry-20",
               cuda_engine.RNG_HARDWARE: "fast generator (Philox4x32-10)"}
 
@@ -330,10 +345,11 @@ def sass_loop(ck, kernel: str) -> dict:
     """The innermost loop that holds a reciprocal square root (MUFU.RSQ)
     in the SASS (``cuobjdump -sass`` beside nvcc) of the entry whose
     mangled name holds ``kernel``, in the library of ``ck`` (a tree's
-    ``engine.chunk_kernel``, built here if it is not): its instructions
-    and its MUFU.RSQ.  In the far-sums kernel that loop is the pair loop,
-    one MUFU.RSQ a (walker, dipole) pair; in a chunk kernel the step
-    loop."""
+    ``engine.chunk_kernel``, built here if it is not): ``rsqrt_loop`` of
+    its text.  In the far-sums kernel that loop is the pair loop, one
+    MUFU.RSQ a (walker, dipole) pair; in a chunk kernel the step loop
+    (the near entry: a step on Threefry, a step pair on the fast
+    generator)."""
     ck.build()
     name = re.search(r"Compiling entry function '(\w*" + kernel + r"\w*)'",
                      ck.build_log()).group(1)
@@ -341,19 +357,43 @@ def sass_loop(ck, kernel: str) -> dict:
     sass = subprocess.run([str(tool), "-sass", "-fun", name,
                            str(ck.library_path())], capture_output=True,
                           text=True, check=True).stdout
+    try:
+        return rsqrt_loop(sass)
+    except ValueError as e:
+        raise RuntimeError(f"{e} in the SASS of {name}") from None
+
+
+def rsqrt_loop(sass: str) -> dict:
+    """The innermost loop (a backward branch and the instructions from
+    its target to it) that holds a MUFU.RSQ in the SASS text ``sass``:
+    its instructions (as written, each once: a loop nested in it counts
+    once, and a branch never taken counts too), its MUFU.RSQ, and the
+    instructions of each loop nested in it (``inner``); the smallest such
+    loop where there are several, and every one of them, in address
+    order, as ``copies`` (the near entry's Threefry kernel holds two
+    copies of its step loop: the rounds of Threefry-20 unrolled, and the
+    rounds as a loop for any other count)."""
     ins = [(int(a, 16), op) for a, op in
            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
-    best = None
+    loops = []
     for addr, op in ins:
         m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
         if m and int(m.group(1), 16) < addr:
-            body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
-            rsq = sum("MUFU.RSQ" in o for o in body)
-            if rsq and (best is None or len(body) < best[0]):
-                best = (len(body), rsq)
-    if best is None:
-        raise RuntimeError(f"no loop with a MUFU.RSQ in the SASS of {name}")
-    return {"instructions": best[0], "rsqrt": best[1]}
+            lo = int(m.group(1), 16)
+            body = [o for a, o in ins if lo <= a <= addr]
+            loops.append((lo, addr, len(body),
+                          sum("MUFU.RSQ" in o for o in body)))
+
+    def within(inner, outer):
+        return inner != outer and outer[0] <= inner[0] and inner[1] <= outer[1]
+    rsq = [lp for lp in loops if lp[3]]
+    copies = [{"instructions": lp[2], "rsqrt": lp[3],
+               "inner": [n[2] for n in loops if within(n, lp)]}
+              for lp in sorted(rsq) if not any(within(n, lp) for n in rsq)]
+    if not copies:
+        raise ValueError("no loop with a MUFU.RSQ")
+    best = min(copies, key=lambda c: c["instructions"])
+    return {**best, "copies": copies}
 
 
 def time_on_device(fn, n: int) -> float:
@@ -525,6 +565,11 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
         out.append({"kernel": mode,
                     "layout": chunk_kernel.LAYOUTS[mode]._asdict(),
                     "runs": runs})
+        fast = "fast" in mode
+        if mode in ("chunk_near_kernel", "chunk_near_kernel[fast]"):
+            out[-1]["sass_step_loop"] = {
+                tree: sass_loop(ck, NEAR_K10[fast]) for tree, ck in
+                (("this", chunk_kernel), (other, that)) if ck is not None}
     widths = []
     for mode, n, call, forced in _width_cases(dev):
         timers = {f"this, {kind} layout": _chunk_timer(
@@ -550,6 +595,121 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
                       f"{REBUILD_WIDTHS} walkers",
             "label": card_label(), "models": models, "order0": order0,
             "cases": out, "widths": widths}
+
+
+#: the near entry's layout alternatives, built apart from the kernel
+#: library by ``--near-layouts``, once per generator
+NEAR_LAYOUTS_SRC = chunk_kernel.CSRC / "probes" / "near_layouts.cu"
+
+
+def _near_layout_libs() -> dict:
+    """``NEAR_LAYOUTS_SRC`` built (once, into the library's build
+    directory, named by a hash of the sources and flags; both generators
+    in parallel) and loaded: {fast_rng: ctypes.CDLL}."""
+    ck = chunk_kernel
+    h = hashlib.sha256(" ".join(ck.NVCC_FLAGS).encode())
+    for src in (NEAR_LAYOUTS_SRC, *ck._sources()):
+        h.update(src.read_bytes())
+    ck.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {fast: ck.BUILD_DIR / f"libnear_layouts{int(fast)}-"
+             f"{h.hexdigest()[:16]}.so" for fast in (False, True)}
+    todo = [fast for fast, so in paths.items() if not so.exists()]
+    cmds = [[ck._nvcc(), *ck.NVCC_FLAGS, *ck.LINK_FLAGS,
+             f"-DNEAR_FAST={int(fast)}", "-o", str(paths[fast]),
+             str(NEAR_LAYOUTS_SRC)] for fast in todo]
+    with ThreadPoolExecutor(max(1, len(cmds))) as pool:
+        for cmd, (proc, _) in zip(cmds, pool.map(ck._compile, cmds)):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{proc.stderr}")
+    libs = {}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fast, so in paths.items():
+        lib = ctypes.CDLL(str(so))
+        lib.near_layout_info.argtypes = [i, p]
+        lib.near_layout_launch.argtypes = [
+            i, i, p, p, p, p, p, p, p, p, i, ctypes.POINTER(ck.Launch)]
+        libs[fast] = lib
+    return libs
+
+
+def _near_inputs(call) -> dict:
+    """The inputs a ``_chunk_cases`` near-entry call hands the wrapper:
+    {planes, near, taylor, args}."""
+    got = {}
+
+    def run_chunk_near(planes, near, taylor, **args):
+        got.update(planes=planes, near=near, taylor=taylor, args=args)
+    call(SimpleNamespace(run_chunk_near=run_chunk_near))
+    return got
+
+
+def near_layouts(rounds: int = 7, launches: int = 10) -> dict:
+    """Every layout alternative of the near entry (``NEAR_LAYOUTS_SRC``:
+    each mode at K 10 with its slots in shared memory or in registers, at
+    4, 6 and 8 blocks per SM) beside the kernel the library launches for
+    that mode, on the inputs of ``_chunk_cases`` (100096 walkers, 4000
+    steps), in turns (the library's kernel, each alternative, then the
+    reverse order), ``rounds`` rounds of ``launches``: each with the
+    runtime's registers, residency, shared and local memory, its waves,
+    and whether its outputs are bitwise the library kernel's."""
+    dev = require_cuda()
+    ck = chunk_kernel
+    ck.load_library()
+    libs = _near_layout_libs()
+    cases = _chunk_cases(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    modes = {}
+    for lib in libs.values():
+        for i in range(lib.near_layout_count()):
+            out = (ctypes.c_int * 10)()
+            ck._raise_rc(lib.near_layout_info(i, out), "near layout query")
+            fast, variants, dec, smem_slots, min_blocks = out[:5]
+            info = ck.KernelInfo(*out[5:])
+            mode = ck.chunk_mode("chunk_near_kernel", SimpleNamespace(
+                fast_rng=fast, variants=variants), bool(dec))
+            modes.setdefault(mode, []).append(
+                (lib, i, bool(smem_slots), min_blocks, info))
+    result = []
+    for mode, alts in modes.items():
+        inp = _near_inputs(cases[mode])
+        args = dict(inp["args"])
+        dec = args.pop("decompose")
+        launch = ck._launch(**args)
+        pl = inp["planes"]
+        want = cases[mode](ck)
+        lay = ck.LAYOUTS[mode]
+        timers = {"library": _chunk_timer(ck, cases[mode], rounds,
+                                          launches)}
+        rows = []
+        for lib, i, smem_slots, min_blocks, info in alts:
+            outs = ck._chunk_outputs(pl, args["phys"], dec)
+
+            def call(_=None, lib=lib, i=i, outs=outs):
+                ck._raise_rc(lib.near_layout_launch(
+                    i, *ck._stream(pl), pl.data_ptr(),
+                    *(t.data_ptr() for t in outs), inp["near"].data_ptr(),
+                    inp["taylor"].data_ptr(), pl.shape[1],
+                    ctypes.byref(launch)), "near layout")
+                return outs
+            got = call()
+            torch.cuda.synchronize()
+            name = (f"slots in {'shared memory' if smem_slots else 'registers'}"
+                    f", {min_blocks} blocks per SM")
+            rows.append({
+                "layout": name, "smem_slots": smem_slots,
+                "min_blocks": min_blocks, **info._asdict(),
+                "waves": ck._layout("flat", pl.shape[1] // info.threads, sms,
+                                    info).waves,
+                "bitwise": all(torch.equal(a, b) for a, b in zip(got, want))})
+            timers[name] = _chunk_timer(None, call, rounds, launches)
+        result.append({"kernel": mode, "library_layout": lay._asdict(),
+                       "alternatives": rows,
+                       "runs": _turns(timers, list(timers))})
+    return {"config": "near entry: 100096 walkers (100000 real), K 10, "
+                      "4000 steps; every variant on in the variant modes; "
+                      f"{rounds} rounds x {launches} launches",
+            "label": card_label(), "modes": result}
 
 
 def _headline_run(rng_impl: str) -> dict:
@@ -612,6 +772,9 @@ def main(argv=None):
     ap.add_argument("--far-table-order", type=int, default=5,
                     help="with --profile: the scale-up path's far-table "
                          "order (0: the exact far sums every chunk)")
+    mode.add_argument("--near-layouts", action="store_true",
+                      help="the near entry's layout alternatives beside "
+                           "the ones it launches, in turns")
     mode.add_argument("--rebuild-ms", nargs="?", const="", default=None,
                       metavar="DIR",
                       help="kernel ms per launch (the candidate model and "
@@ -624,6 +787,8 @@ def main(argv=None):
         out = scaleup_profile(order=args.far_table_order)
     elif args.rebuild_ms is not None:
         out = rebuild_ms(args.rebuild_ms or None)
+    elif args.near_layouts:
+        out = near_layouts()
     else:
         out = headline_rate()
     print(json.dumps(out))

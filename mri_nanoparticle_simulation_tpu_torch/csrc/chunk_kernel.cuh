@@ -28,19 +28,43 @@
 // twins each instantiate one entry, generator and decompose flag, so the
 // kernels build in eight parallel nvcc processes.
 //
-// What bounds it on the H100: issue slots and integer ALU work.  Three
-// Threefry-2x32-20 blocks per walker-step cost about 200 integer
-// operations, against about 180 float operations of physics at K = 5,
-// and nothing goes to device memory inside a chunk.  The fast generator
-// draws two Philox-10 blocks (about 50 integer operations each) per step
-// pair, and its polynomial Box-Muller replaces logf/cosf.  The state
-// stays on chip: one walker per thread; its state, its K near dipoles
+// What bounds it on the H100: issue slots.  Three Threefry-2x32-20
+// blocks per walker-step cost about 200 integer operations, against
+// about 280 float operations of physics at K = 10 (--fmad=false: one
+// instruction each), and nothing goes to device memory inside a chunk.
+// The fast generator draws two Philox-10 blocks (about 50 integer
+// operations each) per step pair, and its polynomial Box-Muller replaces
+// logf/cosf.  The state stays on chip: one walker per thread; its state
 // and its 10 far-Taylor sums stay in registers for the whole chunk (the
-// kernels are templated on K so the slot arrays unroll into registers);
-// in rebuild mode the dipole table, read by every thread at the same
-// address, sits in shared memory.  Device memory is touched once at
-// chunk start and once at chunk end, and in decompose mode once per
-// window for the record (8 bytes per walker and window, coalesced).
+// kernels are templated on K so the slot arrays unroll); in rebuild mode
+// the dipole table, read by every thread at the same address, sits in
+// shared memory.  Device memory is touched once at chunk start and once
+// at chunk end, and in decompose mode once per window for the record (8
+// bytes per walker and window, coalesced).
+//
+// The step's instructions (field_math.cuh): each slot's rsqrt is one
+// MUFU.RSQ (rsqrt_ftz, where rsqrtf adds four instructions of subnormal
+// scaling) and its mask one predicated add (add_where_greater, where a
+// select and an add were two); the normals' sqrtf is its own fast path
+// without the branch (sqrt_fast).  All three give the plain version's
+// bits: csrc/math_check.cu proves it over every input they can see.
+//
+// The near entry (its step loop on the H100, PERF.md section 6): at
+// 100096 walkers the work fills ~6 blocks of 128 per SM, so it cannot
+// hide its chain behind more warps; it gives each thread more
+// independent work instead.  The next step's words (Threefry: the three
+// blocks fused and their 20 rounds unrolled, kUnrolledRounds; fast: the
+// next step pair's Philox blocks) are computed after this step's draw is
+// formed and before its field, one stretch of code without a branch, so
+// the integer chains of the words and the float chain of the field
+// interleave (run_steps' kDrawAhead).  On Threefry the K slots live in
+// shared memory (float4 [K][128], the thread's own column, read with
+// LDS.128: no bank conflict, 20 KB a block at K = 10), which frees 40
+// registers: 8 blocks per SM fit (64 registers), no local memory, one
+// wave.  On the fast generator the pair loop keeps both steps' slots,
+// words and state in ~120 registers; the slots stay there and it runs 4
+// blocks per SM, two waves at 100096 walkers, faster than any one-wave
+// build that squeezed it into 80 (near_min_blocks).
 //
 // Arithmetic follows the reference kernel operation by operation (build
 // with --fmad=false so no multiply-add is contracted): the Threefry
@@ -57,15 +81,10 @@
 // width):
 //
 // * flat: w_pad / 128 blocks of 128 threads, one walker per thread, each
-//   drawing its own words.  The near entry; the rebuild entry above
-//   chunk_kernel.split_threshold (where it measured faster).  The near
-//   entry's Threefry kernel with the default physics (not decompose) is
-//   compiled for kWaveBlocks = 6 resident blocks per SM (at most 80
-//   registers), so the 100096-walker scale-up is one wave, with a step's
-//   Threefry blocks fused into one loop (threefry_words); that measured
-//   faster than the uncapped kernel, while on the fast generator the cap
-//   measured slower (PERF.md section 6), so near_min_blocks picks it by
-//   template.
+//   drawing its own words.  The near entry (its slots and residency by
+//   generator, near_min_blocks); the rebuild entry above
+//   chunk_kernel.split_threshold (where it measured faster), its draws
+//   inline (kDrawInline).
 // * split (rebuild entry, chunk_split_kernel): w_pad / 32 blocks of one
 //   walker warp and kGenWarps generator warps (field_math.cuh: G = 3,
 //   the ring of kRingSteps = 64 steps).  At the headline width (4096
@@ -96,28 +115,32 @@ constexpr int kMaxMnps = 2048;
 // The launch layouts (the C entry points' `layout` argument).
 constexpr int kLayoutFlat = 0, kLayoutSplit = 1;
 
-// Resident 128-thread blocks per SM the near entry's kernel is compiled
-// for (__launch_bounds__' second argument).  Threefry with the default
-// physics, not in decompose mode: kWaveBlocks = 6 (at most 80 registers),
-// so 100096 walkers, 782 blocks, are one wave on 132 SMs (in decompose
-// mode 80 registers spill).  The fast generator with the variants: 4 (128
-// registers), which ran faster than its 152-156 uncapped (3 per SM).  The
-// other modes ran fastest uncapped (PERF.md section 6).
-constexpr int kWaveBlocks = 6;
-
+// The near entry's layout, by generator (PERF.md section 6, each chosen
+// from `benchmark.py --near-layouts`, which times the alternatives of
+// csrc/probes/near_layouts.cu on the H100).  Threefry: the K near slots
+// in shared memory (SmemSlots, a
+// float4 [K][kBlock] array) and __launch_bounds__ of 8 blocks per SM (at
+// most 64 registers; 6 with the variants in decompose mode, where 64
+// spill): no local memory, one wave at 100096 walkers.  The fast
+// generator: the slots in registers (RegSlots) and 4 blocks per SM (at
+// most 128 registers; its step-pair loop holds both steps' slots, words
+// and state): two waves at 100096 walkers, which ran faster than every
+// one-wave build (slots and far sums in shared memory at 80 registers:
+// spills).  Both draw a step (pair) ahead, kDrawAhead.
 template <bool kFast, bool kVariants, bool kDecompose>
 __host__ __device__ constexpr int near_min_blocks() {
-  return !kFast && !kVariants && !kDecompose ? kWaveBlocks
-         : kFast && kVariants                ? 4
-                                             : 1;
+  return kFast ? 4 : kVariants && kDecompose ? 6 : 8;
 }
 
-// The one-wave kernel fuses a step's Threefry blocks into one loop so
-// their chains overlap (at 6 per SM there are few warps to hide them).
-template <bool kFast, bool kVariants, bool kDecompose>
-__host__ __device__ constexpr bool near_fuse() {
-  return near_min_blocks<kFast, kVariants, kDecompose>() == kWaveBlocks;
+// Dynamic shared memory of one near block at K slots: float4 [K][kBlock]
+// with the slots in shared memory, else none.
+__host__ __device__ constexpr int near_smem_bytes(bool smem_slots, int k) {
+  return smem_slots ? k * kBlock * 16 : 0;
 }
+
+// The Threefry rounds the near entry unrolls (the reference's
+// Threefry-20; other counts run the rounds as a loop).
+constexpr int kUnrolledRounds = 20;
 
 // Chunk start of the flat rebuild entry and then the steps, for the
 // walker `gid` of this thread: wrap (the anchor is the wrapped
@@ -176,9 +199,9 @@ __device__ __forceinline__ void rebuild_and_run(
     add_unselected<K>(t, sid, j, ax, ay, az, sx[j], sy[j], sz[j], sm[j]);
   }
 
-  run_steps<K, kFast, kVariants, kDecompose, false>(
-      nx, ny, nz, nm, t, ax, ay, az, phase, comp, phase_b, comp_b, valid,
-      lane, a, nullptr, wins, state_out, esc, w_pad, gid);
+  run_steps<K, kFast, kVariants, kDecompose, kDrawInline>(
+      RegSlots<K>{nx, ny, nz, nm}, t, ax, ay, az, phase, comp, phase_b,
+      comp_b, valid, lane, a, nullptr, wins, state_out, esc, w_pad, gid);
 }
 
 template <int K, bool kFast, bool kVariants, bool kDecompose>
@@ -385,22 +408,31 @@ chunk_split_kernel(const float* __restrict__ state_in,
     if (tt + 2 < n_tiles) bar_arrive(kBarPartEmpty + b, kSplitThreads);
   }
 
-  run_steps<K, kFast, kVariants, kDecompose, true>(
-      nx, ny, nz, nm, t, ax, ay, az, state_in[4 * w_pad + gid],
+  run_steps<K, kFast, kVariants, kDecompose, kDrawRing>(
+      RegSlots<K>{nx, ny, nz, nm}, t, ax, ay, az, state_in[4 * w_pad + gid],
       state_in[5 * w_pad + gid],
       kDecompose ? state_in[6 * w_pad + gid] : 0.f,
       kDecompose ? state_in[7 * w_pad + gid] : 0.f, valid, lane, a, ring,
       wins, state_out, esc, w_pad, gid);
 }
 
-// The near entry's walker of this thread: the model from the inputs, then
-// the steps (kFuse: run_steps' fused Threefry blocks).
-template <int K, bool kFast, bool kVariants, bool kDecompose, bool kFuse>
-__device__ __forceinline__ void near_walker(
-    const float* __restrict__ state_in, float* __restrict__ state_out,
-    float* __restrict__ esc, float* __restrict__ cov,
-    float* __restrict__ wins, const float* __restrict__ near,
-    const float* __restrict__ taylor, int w_pad, const Launch& a) {
+// The near entry: one walker a thread, its model from the inputs (the
+// near slots into shared memory, each thread its own column, on
+// Threefry, into registers on the fast generator; the far sums into
+// registers), then the steps, each step's (pair's) words drawn beside
+// the step before.
+// kSmemSlots and kMinBlocks are the layout (the defaults above; other
+// values only for csrc/probes/near_layouts.cu).
+template <int K, bool kFast, bool kVariants, bool kDecompose,
+          bool kSmemSlots = !kFast,
+          int kMinBlocks = near_min_blocks<kFast, kVariants, kDecompose>()>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+chunk_near_kernel(const float* __restrict__ state_in,
+                  float* __restrict__ state_out, float* __restrict__ esc,
+                  float* __restrict__ cov, float* __restrict__ wins,
+                  const float* __restrict__ near,
+                  const float* __restrict__ taylor, int w_pad, Launch a) {
+  extern __shared__ float4 s_slots[];
   const int tid = threadIdx.x;
   const int gid = blockIdx.x * kBlock + tid;
   const bool valid = static_cast<unsigned>(gid) < a.num_water;
@@ -414,37 +446,46 @@ __device__ __forceinline__ void near_walker(
   const float comp = state_in[5 * w_pad + gid];
   const float phase_b = kDecompose ? state_in[6 * w_pad + gid] : 0.f;
   const float comp_b = kDecompose ? state_in[7 * w_pad + gid] : 0.f;
+  if ((tid & (kWarp - 1)) == 0) cov[gid / kWarp] = 0.f;
 
   // the model: near [4, K, w_pad] (x, y, z, M * FIELD_SCALE) and taylor
   // [10, w_pad], each row read coalesced
   float nx[K], ny[K], nz[K], nm[K], t[10];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    nx[s] = near[(0 * K + s) * w_pad + gid];
-    ny[s] = near[(1 * K + s) * w_pad + gid];
-    nz[s] = near[(2 * K + s) * w_pad + gid];
-    nm[s] = near[(3 * K + s) * w_pad + gid];
+    const float* row = near + s * w_pad + gid;   // x of slot s
+    if constexpr (!kSmemSlots) {
+      nx[s] = row[0];
+      ny[s] = row[K * w_pad];
+      nz[s] = row[2 * K * w_pad];
+      nm[s] = row[3 * K * w_pad];
+    } else {
+      s_slots[s * kBlock + tid] = make_float4(
+          row[0], row[K * w_pad], row[2 * K * w_pad], row[3 * K * w_pad]);
+    }
   }
 #pragma unroll
   for (int c = 0; c < 10; ++c) t[c] = taylor[c * w_pad + gid];
-  if ((tid & (kWarp - 1)) == 0) cov[gid / kWarp] = 0.f;
 
-  run_steps<K, kFast, kVariants, kDecompose, false, kFuse>(
-      nx, ny, nz, nm, t, ax, ay, az, phase, comp, phase_b, comp_b, valid,
-      lane, a, nullptr, wins, state_out, esc, w_pad, gid);
-}
-
-template <int K, bool kFast, bool kVariants, bool kDecompose>
-__global__ void __launch_bounds__(
-    kBlock, (near_min_blocks<kFast, kVariants, kDecompose>()))
-chunk_near_kernel(const float* __restrict__ state_in,
-                  float* __restrict__ state_out, float* __restrict__ esc,
-                  float* __restrict__ cov, float* __restrict__ wins,
-                  const float* __restrict__ near,
-                  const float* __restrict__ taylor, int w_pad, Launch a) {
-  near_walker<K, kFast, kVariants, kDecompose,
-              near_fuse<kFast, kVariants, kDecompose>()>(
-      state_in, state_out, esc, cov, wins, near, taylor, w_pad, a);
+  auto run = [&](const auto& slots) {
+    if constexpr (!kFast) {
+      if (a.rounds == kUnrolledRounds) {
+        run_steps<K, kFast, kVariants, kDecompose, kDrawAhead,
+                  kUnrolledRounds>(slots, t, ax, ay, az, phase, comp,
+                                   phase_b, comp_b, valid, lane, a, nullptr,
+                                   wins, state_out, esc, w_pad, gid);
+        return;
+      }
+    }
+    run_steps<K, kFast, kVariants, kDecompose, kDrawAhead>(
+        slots, t, ax, ay, az, phase, comp, phase_b, comp_b, valid, lane, a,
+        nullptr, wins, state_out, esc, w_pad, gid);
+  };
+  if constexpr (kSmemSlots) {
+    run(SmemSlots{s_slots + tid});
+  } else {
+    run(RegSlots<K>{nx, ny, nz, nm});
+  }
 }
 
 // The rebuild entry's kernel for `near_k`, the variants flag and the
@@ -478,17 +519,42 @@ bool rebuild_kernel(int near_k, bool variants, bool split, int n_pad,
   });
 }
 
-// The near entry's kernel for `near_k` and the variants flag; false for
-// a K it is not instantiated for.
+// The near entry's kernel for `near_k` and the variants flag, with its
+// dynamic shared-memory bytes; false for a K it is not instantiated for.
 template <bool kFast, bool kDecompose>
-bool near_kernel(int near_k, bool variants, const void*& fn) {
+bool near_kernel(int near_k, bool variants, const void*& fn, int& smem) {
   return dispatch_k(near_k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     fn = variants ? reinterpret_cast<const void*>(
                         chunk_near_kernel<K, kFast, true, kDecompose>)
                   : reinterpret_cast<const void*>(
                         chunk_near_kernel<K, kFast, false, kDecompose>);
+    smem = near_smem_bytes(!kFast, K);
   });
+}
+
+// Launch near kernel `fn` with `smem` dynamic shared-memory bytes, one
+// walker a thread; returns a cudaError_t.
+inline int launch_near_fn(const void* fn, int smem, int device, void* stream,
+                          const float* state_in, float* state_out,
+                          float* esc, float* cov, float* wins,
+                          const float* near, const float* taylor, int w_pad,
+                          const Launch* a) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  Launch la = *a;
+  void* args[] = {&state_in, &state_out, &esc, &cov, &wins, &near, &taylor,
+                  &w_pad, &la};
+  err = cudaLaunchKernel(fn, dim3(w_pad / kBlock), dim3(kBlock), args,
+                         static_cast<size_t>(smem),
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch one rebuild-mode chunk on `stream` of device `device` in the
@@ -539,22 +605,16 @@ int launch_chunk_near(int device, void* stream, const float* state_in,
                       const float* near, const float* taylor, int w_pad,
                       int near_k, const Launch* a, int layout) {
   const void* fn = nullptr;
+  int smem = 0;
   if (a == nullptr || near == nullptr || taylor == nullptr ||
       bad_chunk_args(w_pad, near_k, a->chunk_steps, a->pfreq, a->tcp,
                      a->rounds) ||
       layout != kLayoutFlat ||
-      !near_kernel<kFast, kDecompose>(near_k, a->flags != 0, fn)) {
+      !near_kernel<kFast, kDecompose>(near_k, a->flags != 0, fn, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Launch la = *a;
-  void* args[] = {&state_in, &state_out, &esc, &cov, &wins, &near, &taylor,
-                  &w_pad, &la};
-  err = cudaLaunchKernel(fn, dim3(w_pad / kBlock), dim3(kBlock), args, 0,
-                         static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_near_fn(fn, smem, device, stream, state_in, state_out, esc,
+                        cov, wins, near, taylor, w_pad, a);
 }
 
 // kernel_info of the rebuild entry's kernel in `layout` (flat or split)
@@ -579,11 +639,12 @@ int info_chunk_near(int near_k, int variants, int layout, int n_pad,
                     int* out) {
   (void)n_pad;
   const void* fn = nullptr;
+  int smem = 0;
   if (out == nullptr || layout != kLayoutFlat ||
-      !near_kernel<kFast, kDecompose>(near_k, variants != 0, fn)) {
+      !near_kernel<kFast, kDecompose>(near_k, variants != 0, fn, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return kernel_info(fn, kBlock, 0, out);
+  return kernel_info(fn, kBlock, smem, out);
 }
 
 }  // namespace

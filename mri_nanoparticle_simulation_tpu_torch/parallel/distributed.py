@@ -78,15 +78,14 @@ def initialize(coordinator_address: Optional[str] = None,
 
 def _local_devices() -> list:
     """This process's devices by default: its card under NCCL (local
-    rank), every local card under gloo when there is one, else the
-    CPU."""
+    rank), else every local card; raises without a card
+    (``utils.device.require_cuda``).  The CPU is never a default: a CPU
+    run names its devices."""
     if dist.is_initialized() and dist.get_backend() == "nccl":
         n = torch.cuda.device_count()
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank() % n))
         return [torch.device("cuda", local)]
-    if torch.cuda.is_available():
-        return sharding.local_devices("cuda")
-    return [torch.device("cpu")]
+    return sharding.local_devices("cuda")
 
 
 def _world() -> WalkerMesh:

@@ -14,7 +14,8 @@ operations in the same order), the window sums within 0.05 (the warp's
 shuffle tree adds in another order than torch) -- the rebuild entry in
 its split layout at 50 and 4032 walkers (and in two waves on Threefry)
 and in its flat layout above the threshold, the near entry at 4096 and
-100096 walkers (its Threefry kernel in one wave).  That holds in every
+100096 walkers (its Threefry kernel in one wave), at K 1, 5, 10 and 16
+on a ragged count, and in two waves.  That holds in every
 mode: the Threefry and the fast generator, each with the default
 physics and with every variant on.  The candidate-model
 kernel, K 1-16 and far-table orders 1, 5 and 8: near slots equal (ties
@@ -27,7 +28,9 @@ the scale-up width with no local memory.  The decompose mode of both
 chunk-kernel entries, in every generator and physics mode: positions
 within 1e-4, the state's A and B and the per-walker record within 1e-5
 (both expected bitwise), escapes and coverage equal; a decomposition run
-on the card reconstructs the run on the CPU.
+on the card reconstructs the run on the CPU.  The math the kernels
+write in place of the compiler's (csrc/math_check.cu) is bitwise the
+compiler's over every float input it can see.
 """
 
 import numpy as np
@@ -678,9 +681,9 @@ def test_split_layout_in_two_waves_bitwise(dev, mode):
 
 
 @pytest.fixture(scope="module")
-def scaleup(dev):
-    """The scale-up scene (100000 waters, 2000 cells, K 10) with its
-    model at the initial walkers, wrapped, on the card."""
+def scaleup_scene(dev):
+    """The scale-up scene (100000 waters, 2000 cells, K 10): its Params,
+    its initial walkers wrapped on the card, and its scene cache."""
     from mri_nanoparticle_simulation_tpu_torch.benchmark import SCALEUP
     p = P.Params(**SCALEUP).replace(chunk_steps=2000).validate()
     sc = BacteriaBox(p, seed=42).populate()
@@ -688,23 +691,24 @@ def scaleup(dev):
     cache = expansion.build_cache(tbl.pos, tbl.m, p)
     planes = cuda_engine.to_soa(init_state(sc.waters, p, dev), p).planes
     planes = torch.cat([cuda_engine._wrap(planes[:3], p.bound), planes[3:]])
+    return p, planes, cache
+
+
+@pytest.fixture(scope="module")
+def scaleup(scaleup_scene):
+    """The scale-up scene's model at its initial walkers."""
+    p, planes, cache = scaleup_scene
     near, taylor, _ = expansion.build_planes(
         planes[:3].contiguous(), p, cache,
         reach2=expansion.coverage_reach2(p))
     return p, planes, near, taylor
 
 
-@pytest.mark.parametrize("n", [4096, 100000])
-@pytest.mark.parametrize("mode", sorted(ALL_MODES))
-def test_near_entry_bitwise(scaleup, mode, n):
-    """The near entry in every mode on the scale-up scene's model, on its
-    first 4096 walkers and at its full width (100096 padded)."""
-    p, planes, near, taylor = scaleup
+def _check_near(p, planes, near, taylor, mode, n):
+    """One near-entry chunk of the first ``n`` walkers of ``planes`` in
+    ``mode``, twice, against its plain version (``_assert_bitwise``);
+    returns the layout it took."""
     rng_impl, physics, dec = ALL_MODES[mode]
-    w = cuda_engine.pad_count(n)
-    planes = planes[:, :w].contiguous()
-    near = near[..., :w].contiguous()
-    taylor = taylor[:, :w].contiguous()
     if dec:
         planes = _dec_planes(planes)
     pm = physics(p).validate()
@@ -723,27 +727,117 @@ def test_near_entry_bitwise(scaleup, mode, n):
     torch.cuda.synchronize()
     _assert_bitwise(got, again, ref, dec)
     lay = chunk_kernel.LAYOUTS[key]
-    assert not lay.split and lay.blocks == w // 128
+    assert not lay.split and lay.blocks == planes.shape[1] // 128
+    return lay
+
+
+@pytest.mark.parametrize("n", [4096, 100000])
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_near_entry_bitwise(scaleup, mode, n):
+    """The near entry in every mode on the scale-up scene's model, on its
+    first 4096 walkers and at its full width (100096 padded)."""
+    p, planes, near, taylor = scaleup
+    w = cuda_engine.pad_count(n)
+    _check_near(p, planes[:, :w].contiguous(), near[..., :w].contiguous(),
+                taylor[:, :w].contiguous(), mode, n)
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_near_entry_bitwise_at_every_k(scaleup_scene, mode, k):
+    """The near entry with 1, 5, 10 and 16 slots on a ragged count, 3000
+    of 3072 padded walkers, in every mode; its dynamic shared memory is
+    the slots' on Threefry (a float4 each) and none on the fast
+    generator (registers)."""
+    p, planes, cache = scaleup_scene
+    p = p.replace(near_k=k).validate()
+    w = cuda_engine.pad_count(3000)
+    planes = planes[:, :w].contiguous()
+    near, taylor, _ = expansion.build_planes(
+        planes[:3].contiguous(), p, cache,
+        reach2=expansion.coverage_reach2(p))
+    lay = _check_near(p, planes, near, taylor, mode, 3000)
+    slots = 0 if "fast" in mode else 16 * k * chunk_kernel.BLOCK
+    assert lay.smem == slots and lay.waves == 1
+
+
+@pytest.mark.parametrize("pfreq", [100, 50, 125])
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_near_entry_bitwise_at_every_pfreq(scaleup_scene, mode, pfreq):
+    """Windows of pfreq % 4 == 0, even and odd (the fast generator's
+    pairs, and a last single step whose words the next window's first
+    pair draws again after it) and a Carr-Purcell flip every window, in
+    every mode, on the scale-up's first 1000 walkers (1024 padded)."""
+    p, planes, cache = scaleup_scene
+    p = p.replace(chunk_steps=2 * pfreq, print_interval=pfreq * p.tau,
+                  sprint_steps=4 * pfreq, taucp=pfreq * p.tau,
+                  totaltime=4 * pfreq * p.tau).validate()
+    assert (p.pfreq, p.tcp) == (pfreq, pfreq)
+    w = cuda_engine.pad_count(1000)
+    planes = planes[:, :w].contiguous()
+    near, taylor, _ = expansion.build_planes(
+        planes[:3].contiguous(), p, cache,
+        reach2=expansion.coverage_reach2(p))
+    _check_near(p, planes, near, taylor, mode, 1000)
+
+
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_near_entry_in_two_waves_bitwise(scaleup_scene, dev, mode):
+    """1000 walkers wider than one wave of the kernel (the occupancy
+    API's resident blocks on every SM): the scale-up's walkers and a
+    copy of their first ones, the model at all of them; two waves,
+    bitwise."""
+    p, planes, cache = scaleup_scene
+    rng_impl, physics, dec = ALL_MODES[mode]
+    info = chunk_kernel.kernel_info(
+        "chunk_near_kernel",
+        cuda_engine.chunk_physics(physics(p).validate(), rng_impl), dec)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = chunk_kernel.BLOCK * sms * info.blocks_per_sm + 1000
+    w = cuda_engine.pad_count(n)
+    reps = -(-w // planes.shape[1])
+    planes = torch.cat([planes] * reps, dim=1)[:, :w].contiguous()
+    near, taylor, _ = expansion.build_planes(
+        planes[:3].contiguous(), p, cache,
+        reach2=expansion.coverage_reach2(p))
+    lay = _check_near(p, planes, near, taylor, mode, n)
+    assert lay.waves == 2
 
 
 def test_near_entry_wave_layout_is_one_wave(scaleup):
-    """The near entry's default Threefry mode is compiled for one wave:
-    6 blocks per SM (at most 80 registers) hold all 782 blocks of the
-    100096-walker scale-up at once, and the chunk is bitwise its plain
-    version's.  (The fast mode measured faster uncapped, in two waves.)"""
+    """The near entry's default Threefry mode holds its slots in shared
+    memory and is compiled for 8 blocks per SM (at most 64 registers): all
+    782 blocks of the 100096-walker scale-up at once, with no local
+    memory, and the chunk is bitwise its plain version's."""
     p, planes, near, taylor = scaleup
     phys = cuda_engine.chunk_physics(p, cuda_engine.RNG_THREEFRY)
     info = chunk_kernel.kernel_info("chunk_near_kernel", phys)
-    assert info.regs <= 80 and info.blocks_per_sm >= 6
-    assert (info.threads, info.smem) == (128, 0)
-    args = dict(step0=p.chunk_steps, key=KEY, lane_offset=3,
-                num_water=p.num_water, tcp=p.tcp,
-                cell_r2=cuda_engine.cell_r2_f32(p.cell_r), dstd=1.0,
-                phys=phys)
-    got = chunk_kernel.run_chunk_near(planes, near, taylor, **args)
-    again = chunk_kernel.run_chunk_near(planes, near, taylor, **args)
-    lay = chunk_kernel.LAYOUTS["chunk_near_kernel"]
+    assert info.regs <= 64 and info.blocks_per_sm >= 6
+    assert info.local_bytes == 0
+    assert (info.threads, info.smem) == (128, 16 * p.near_k * 128)
+    lay = _check_near(p, planes, near, taylor, "", p.num_water)
     assert (lay.kind, lay.blocks, lay.waves) == ("flat", 782, 1)
-    ref = cuda_engine.chunk_near_reference(planes, near, taylor, **args)
-    torch.cuda.synchronize()
-    _assert_bitwise(got, again, ref, False)
+
+
+def test_near_entry_fast_layout_keeps_its_slots_in_registers(scaleup, dev):
+    """The near entry's default fast mode keeps its slots in registers
+    (no shared memory) at 4 blocks per SM (at most 128 registers), with
+    no local memory: two waves at the scale-up width, which ran faster
+    than the one-wave builds (``benchmark.py --near-layouts``), bitwise
+    its plain version's."""
+    p, planes, near, taylor = scaleup
+    phys = cuda_engine.chunk_physics(p, cuda_engine.RNG_HARDWARE)
+    info = chunk_kernel.kernel_info("chunk_near_kernel", phys)
+    assert info.regs <= 128 and info.blocks_per_sm >= 4
+    assert (info.threads, info.smem, info.local_bytes) == (128, 0, 0)
+    lay = _check_near(p, planes, near, taylor, "fast", p.num_water)
+    assert (lay.kind, lay.blocks) == ("flat", 782)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert lay.waves == -(-782 // (sms * info.blocks_per_sm))
+
+
+def test_math_check_finds_no_difference(dev):
+    """The chunk kernels' sqrt_fast and rsqrt_ftz are bitwise what sqrtf
+    and rsqrtf give (and eval_field's inv_r5 with either), over every
+    float input each can see (csrc/math_check.cu)."""
+    assert set(chunk_kernel.math_check(dev).values()) == {0}

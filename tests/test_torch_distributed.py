@@ -21,7 +21,8 @@ every multi-process entry point once and saves what it returned:
 
 and both ranks return the same result.  Also: ``initialize`` is a no-op
 in one process, a group asked for NCCL on a machine without it raises
-(no fallback to gloo), and unequal shard counts across processes are
+(no fallback to gloo), the default devices raise without a card (no
+fallback to the CPU), and unequal shard counts across processes are
 refused.
 """
 
@@ -217,6 +218,23 @@ def test_initialize_alone_is_a_no_op(monkeypatch):
     mesh = distributed.global_walker_mesh(["cpu", "cpu"])
     assert (mesh.world_size, mesh.rank, mesh.group) == (1, 0, None)
     assert mesh.shape[sharding.WALKER_AXIS] == 2
+
+
+def test_default_devices_raise_without_a_card(monkeypatch):
+    """No fallback to the CPU: with no card visible, the default devices
+    of the walker mesh and of the trial mesh raise
+    (``utils.device.require_cuda``), while named CPU devices still make
+    a mesh."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for default in (distributed.global_walker_mesh,
+                    lambda: distributed.local_trial_mesh(2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            default()
+    mesh = distributed.global_walker_mesh(["cpu"])
+    assert [d.type for d in mesh.devices] == ["cpu"]
+    assert mesh.shape[sharding.WALKER_AXIS] == 1
+    trials = distributed.local_trial_mesh(2, devices=["cpu"])
+    assert {d.type for row in trials.devices for d in row} == {"cpu"}
 
 
 def test_nccl_without_it_raises(tmp_path):

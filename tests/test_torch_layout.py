@@ -4,9 +4,11 @@
 launched: the rebuild entry in the split layout (one walker warp and its
 generator warps per block) up to ``split_threshold`` walkers (a number
 of its waves that depends on the generator), else in the flat layout
-(one walker per thread, 128 a block), the near entry always flat.  Each kernel's threads, dynamic shared memory and resident
-blocks per SM come from the runtime on the card (``KernelInfo``); here
-they are given as the H100 build reports them.
+(one walker per thread, 128 a block), the near entry always flat, its
+K near slots in dynamic shared memory (a float4 per slot and thread).
+Each kernel's threads, dynamic shared memory and resident blocks per SM
+come from the runtime on the card (``KernelInfo``); here they are given
+as the H100 build reports them.
 
 The split layout's chunk start selects over the table's four quarters,
 one per warp, and merges the four K-lists; ``expansion.merge_sorted``
@@ -27,6 +29,12 @@ SMS = 132
 #: dynamic shared memory of a split block at the headline (a 720-entry
 #: table, the ring, the far parts and the K-lists at K 5)
 SPLIT_SMEM = 79424
+
+
+def _near_info(bps=6, k=10):
+    """The near entry's kernel as the runtime reports it: its K slots'
+    dynamic shared memory, float4 [K][128]."""
+    return {"flat": ck.KernelInfo(80, bps, 16 * k * ck.BLOCK, ck.BLOCK)}
 
 
 def _infos(split_bps=2, flat_bps=6, split_threads=128):
@@ -56,7 +64,7 @@ def test_headline_is_128_blocks_against_32_flat():
     infos = _infos()
     split = ck.layout("chunk_kernel", 4096, SMS, infos)
     assert (split.blocks, split.blocks_per_sm) == (128, 2)
-    flat = ck.layout("chunk_near_kernel", 4096, SMS, infos)
+    flat = ck.layout("chunk_near_kernel", 4096, SMS, _near_info())
     assert flat.blocks == 32 and not flat.split
 
 
@@ -108,18 +116,31 @@ def test_threshold_at_the_measured_widths(fast_rng, w_pad, kind, waves):
 @pytest.mark.parametrize("bps, waves", [(6, 1), (5, 2), (4, 2), (1, 6)])
 def test_near_entry_waves_at_the_scale_up_width(bps, waves):
     """100096 walkers are 782 blocks: one wave needs 6 resident per SM
-    (at most 80 registers a thread)."""
-    lay = ck.layout("chunk_near_kernel", 100096, SMS,
-                    {"flat": ck.KernelInfo(80, bps, 0, ck.BLOCK)})
+    (at most 80 registers a thread and 20 KB of slots a block)."""
+    lay = ck.layout("chunk_near_kernel", 100096, SMS, _near_info(bps))
     assert (lay.blocks, lay.split, lay.waves) == (782, False, waves)
+    assert lay.smem == 20480
 
 
 def test_near_entry_is_flat_at_every_width():
     for w_pad in (128, 4096, 100096):
-        lay = ck.layout("chunk_near_kernel", w_pad, SMS, _infos(32, 4))
+        lay = ck.layout("chunk_near_kernel", w_pad, SMS, _near_info(4))
         assert lay.kind == "flat" and not lay.split
         assert lay.blocks == w_pad // 128 and lay.blocks_per_sm == 4
-        assert (lay.gen_warps, lay.smem) == (0, 0)
+        assert (lay.gen_warps, lay.smem) == (0, 20480)
+
+
+@pytest.mark.parametrize("k, bps, waves", [(1, 16, 1), (5, 8, 1),
+                                           (10, 6, 1), (16, 5, 2)])
+def test_near_entry_takes_its_shared_memory_from_the_runtime(k, bps,
+                                                             waves):
+    """The near block's dynamic shared memory (its K slots) and its
+    residency are the runtime's answer, not a copy kept here: the layout
+    carries them, and the waves at the scale-up width follow."""
+    info = _near_info(bps, k)
+    lay = ck.layout("chunk_near_kernel", 100096, SMS, info)
+    assert (lay.smem, lay.blocks_per_sm) == (info["flat"].smem, bps)
+    assert lay.waves == waves
 
 
 @pytest.mark.parametrize("threads, gen_warps", [(64, 1), (128, 3),
