@@ -879,7 +879,7 @@ def near_step_sass(phys, lay, dev, label):
     """The near entry's default mode of ``phys`` at the scale-up width:
     no local memory, and on Threefry its slots in shared memory and one
     wave (checked; the fast generator keeps them in registers, in two
-    waves: PERF.md section 6, ``benchmark.py --near-layouts``); and its
+    waves: PERF.md section 6); and its
     SASS step loop (``sass_loop``: a step, or a step pair on the fast
     generator) against ``step_ops``; returns its kernels-line fields."""
     info = chunk_kernel.kernel_info("chunk_near_kernel", phys, device=dev)

@@ -20,7 +20,7 @@ The headline value and ``detail.scaleup`` run Threefry, the generator
 of the port's earlier figures; ``detail.fast_rng`` holds both runs on
 the fast generator (the runner's default).  Without a card it raises.
 
-Three further modes print one JSON line each:
+Two further modes print one JSON line each:
 
 * ``--profile [--far-table-order N]``: the scale-up path's device time
   per kernel over 20 chunks (torch.profiler), and its device idle share
@@ -46,24 +46,17 @@ Three further modes print one JSON line each:
   sleep of the stream, so it times the device and not the host's calls.
   With DIR, the port's package of the checkout at DIR (e.g. the parent
   commit, unpacked with ``git archive``) is loaded beside this one and
-  timed in turns on the same inputs: DIR, this, this, DIR (DIR, flat,
-  split, split, flat, DIR at the widths).
-
-* ``--near-layouts``: the near entry's layout alternatives
-  (``NEAR_LAYOUTS_SRC``: the slots in shared memory or in registers, at
-  4, 6 and 8 blocks per SM, each mode at K 10) beside the kernel it
-  launches, each held bitwise against it and timed in turns at 100096
-  walkers, with the runtime's registers, residency and local memory.
+  timed in turns on the same inputs: DIR, this, this, DIR (at the
+  widths each tree in both layouts: DIR flat, this flat, this split, DIR
+  split, and back).
 
     python -m mri_nanoparticle_simulation_tpu_torch.benchmark [--profile
-        [--far-table-order N] | --rebuild-ms [DIR] | --near-layouts]
+        [--far-table-order N] | --rebuild-ms [DIR]]
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import importlib
 import importlib.util
 import json
@@ -73,7 +66,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import torch
@@ -513,8 +505,8 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
     (``_order0_timer``), in turns ``ORDER0_TURNS`` times; every mode of the chunk kernel's rebuild entry at
     the headline shape and of its near entry at the scale-up width, with
     this tree's layout of each; then the rebuild entry at
-    ``REBUILD_WIDTHS`` in both its layouts, in turns: other, flat,
-    split, split, flat, other."""
+    ``REBUILD_WIDTHS`` in both its layouts, each tree's, in turns: other
+    flat, flat, split, other split, and back."""
     dev = require_cuda()
     that = None
     here = SimpleNamespace(ck=chunk_kernel, exp=expansion, ce=cuda_engine,
@@ -572,13 +564,15 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
                 (("this", chunk_kernel), (other, that)) if ck is not None}
     widths = []
     for mode, n, call, forced in _width_cases(dev):
-        timers = {f"this, {kind} layout": _chunk_timer(
-            chunk_kernel, forced(kind), rounds, launches)
-            for kind in ("flat", "split")}
-        names = list(timers)
+        trees = {"this": chunk_kernel}
+        names = ["this, flat layout", "this, split layout"]
         if that is not None:
-            timers[other] = _chunk_timer(that, call, rounds, launches)
-            names.insert(0, other)
+            trees[other] = that
+            names = [f"{other}, flat layout", *names,
+                     f"{other}, split layout"]
+        timers = {f"{tree}, {kind} layout": _chunk_timer(
+            ck, forced(kind), rounds, launches)
+            for tree, ck in trees.items() for kind in ("flat", "split")}
         runs = _turns(timers, names)
         call(chunk_kernel)
         widths.append({"kernel": mode, "walkers": n,
@@ -595,121 +589,6 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
                       f"{REBUILD_WIDTHS} walkers",
             "label": card_label(), "models": models, "order0": order0,
             "cases": out, "widths": widths}
-
-
-#: the near entry's layout alternatives, built apart from the kernel
-#: library by ``--near-layouts``, once per generator
-NEAR_LAYOUTS_SRC = chunk_kernel.CSRC / "probes" / "near_layouts.cu"
-
-
-def _near_layout_libs() -> dict:
-    """``NEAR_LAYOUTS_SRC`` built (once, into the library's build
-    directory, named by a hash of the sources and flags; both generators
-    in parallel) and loaded: {fast_rng: ctypes.CDLL}."""
-    ck = chunk_kernel
-    h = hashlib.sha256(" ".join(ck.NVCC_FLAGS).encode())
-    for src in (NEAR_LAYOUTS_SRC, *ck._sources()):
-        h.update(src.read_bytes())
-    ck.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {fast: ck.BUILD_DIR / f"libnear_layouts{int(fast)}-"
-             f"{h.hexdigest()[:16]}.so" for fast in (False, True)}
-    todo = [fast for fast, so in paths.items() if not so.exists()]
-    cmds = [[ck._nvcc(), *ck.NVCC_FLAGS, *ck.LINK_FLAGS,
-             f"-DNEAR_FAST={int(fast)}", "-o", str(paths[fast]),
-             str(NEAR_LAYOUTS_SRC)] for fast in todo]
-    with ThreadPoolExecutor(max(1, len(cmds))) as pool:
-        for cmd, (proc, _) in zip(cmds, pool.map(ck._compile, cmds)):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{proc.stderr}")
-    libs = {}
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fast, so in paths.items():
-        lib = ctypes.CDLL(str(so))
-        lib.near_layout_info.argtypes = [i, p]
-        lib.near_layout_launch.argtypes = [
-            i, i, p, p, p, p, p, p, p, p, i, ctypes.POINTER(ck.Launch)]
-        libs[fast] = lib
-    return libs
-
-
-def _near_inputs(call) -> dict:
-    """The inputs a ``_chunk_cases`` near-entry call hands the wrapper:
-    {planes, near, taylor, args}."""
-    got = {}
-
-    def run_chunk_near(planes, near, taylor, **args):
-        got.update(planes=planes, near=near, taylor=taylor, args=args)
-    call(SimpleNamespace(run_chunk_near=run_chunk_near))
-    return got
-
-
-def near_layouts(rounds: int = 7, launches: int = 10) -> dict:
-    """Every layout alternative of the near entry (``NEAR_LAYOUTS_SRC``:
-    each mode at K 10 with its slots in shared memory or in registers, at
-    4, 6 and 8 blocks per SM) beside the kernel the library launches for
-    that mode, on the inputs of ``_chunk_cases`` (100096 walkers, 4000
-    steps), in turns (the library's kernel, each alternative, then the
-    reverse order), ``rounds`` rounds of ``launches``: each with the
-    runtime's registers, residency, shared and local memory, its waves,
-    and whether its outputs are bitwise the library kernel's."""
-    dev = require_cuda()
-    ck = chunk_kernel
-    ck.load_library()
-    libs = _near_layout_libs()
-    cases = _chunk_cases(dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    modes = {}
-    for lib in libs.values():
-        for i in range(lib.near_layout_count()):
-            out = (ctypes.c_int * 10)()
-            ck._raise_rc(lib.near_layout_info(i, out), "near layout query")
-            fast, variants, dec, smem_slots, min_blocks = out[:5]
-            info = ck.KernelInfo(*out[5:])
-            mode = ck.chunk_mode("chunk_near_kernel", SimpleNamespace(
-                fast_rng=fast, variants=variants), bool(dec))
-            modes.setdefault(mode, []).append(
-                (lib, i, bool(smem_slots), min_blocks, info))
-    result = []
-    for mode, alts in modes.items():
-        inp = _near_inputs(cases[mode])
-        args = dict(inp["args"])
-        dec = args.pop("decompose")
-        launch = ck._launch(**args)
-        pl = inp["planes"]
-        want = cases[mode](ck)
-        lay = ck.LAYOUTS[mode]
-        timers = {"library": _chunk_timer(ck, cases[mode], rounds,
-                                          launches)}
-        rows = []
-        for lib, i, smem_slots, min_blocks, info in alts:
-            outs = ck._chunk_outputs(pl, args["phys"], dec)
-
-            def call(_=None, lib=lib, i=i, outs=outs):
-                ck._raise_rc(lib.near_layout_launch(
-                    i, *ck._stream(pl), pl.data_ptr(),
-                    *(t.data_ptr() for t in outs), inp["near"].data_ptr(),
-                    inp["taylor"].data_ptr(), pl.shape[1],
-                    ctypes.byref(launch)), "near layout")
-                return outs
-            got = call()
-            torch.cuda.synchronize()
-            name = (f"slots in {'shared memory' if smem_slots else 'registers'}"
-                    f", {min_blocks} blocks per SM")
-            rows.append({
-                "layout": name, "smem_slots": smem_slots,
-                "min_blocks": min_blocks, **info._asdict(),
-                "waves": ck._layout("flat", pl.shape[1] // info.threads, sms,
-                                    info).waves,
-                "bitwise": all(torch.equal(a, b) for a, b in zip(got, want))})
-            timers[name] = _chunk_timer(None, call, rounds, launches)
-        result.append({"kernel": mode, "library_layout": lay._asdict(),
-                       "alternatives": rows,
-                       "runs": _turns(timers, list(timers))})
-    return {"config": "near entry: 100096 walkers (100000 real), K 10, "
-                      "4000 steps; every variant on in the variant modes; "
-                      f"{rounds} rounds x {launches} launches",
-            "label": card_label(), "modes": result}
 
 
 def _headline_run(rng_impl: str) -> dict:
@@ -772,9 +651,6 @@ def main(argv=None):
     ap.add_argument("--far-table-order", type=int, default=5,
                     help="with --profile: the scale-up path's far-table "
                          "order (0: the exact far sums every chunk)")
-    mode.add_argument("--near-layouts", action="store_true",
-                      help="the near entry's layout alternatives beside "
-                           "the ones it launches, in turns")
     mode.add_argument("--rebuild-ms", nargs="?", const="", default=None,
                       metavar="DIR",
                       help="kernel ms per launch (the candidate model and "
@@ -787,8 +663,6 @@ def main(argv=None):
         out = scaleup_profile(order=args.far_table_order)
     elif args.rebuild_ms is not None:
         out = rebuild_ms(args.rebuild_ms or None)
-    elif args.near_layouts:
-        out = near_layouts()
     else:
         out = headline_rate()
     print(json.dumps(out))

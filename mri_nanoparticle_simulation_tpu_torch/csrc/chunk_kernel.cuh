@@ -57,7 +57,8 @@
 // next step pair's Philox blocks) are computed after this step's draw is
 // formed and before its field, one stretch of code without a branch, so
 // the integer chains of the words and the float chain of the field
-// interleave (run_steps' kDrawAhead).  On Threefry the K slots live in
+// interleave (run_steps_ahead, the flat rebuild entry's step loop too).
+// On Threefry the K slots live in
 // shared memory (float4 [K][128], the thread's own column, read with
 // LDS.128: no bank conflict, 20 KB a block at K = 10), which frees 40
 // registers: 8 blocks per SM fit (64 registers), no local memory, one
@@ -81,10 +82,10 @@
 // width):
 //
 // * flat: w_pad / 128 blocks of 128 threads, one walker per thread, each
-//   drawing its own words.  The near entry (its slots and residency by
-//   generator, near_min_blocks); the rebuild entry above
-//   chunk_kernel.split_threshold (where it measured faster), its draws
-//   inline (kDrawInline).
+//   drawing its own words a step (pair) ahead (run_steps_ahead).  The
+//   near entry (its slots and residency by generator, near_min_blocks);
+//   the rebuild entry above chunk_kernel.split_threshold (where it
+//   measured faster).
 // * split (rebuild entry, chunk_split_kernel): w_pad / 32 blocks of one
 //   walker warp and kGenWarps generator warps (field_math.cuh: G = 3,
 //   the ring of kRingSteps = 64 steps).  At the headline width (4096
@@ -116,31 +117,61 @@ constexpr int kMaxMnps = 2048;
 constexpr int kLayoutFlat = 0, kLayoutSplit = 1;
 
 // The near entry's layout, by generator (PERF.md section 6, each chosen
-// from `benchmark.py --near-layouts`, which times the alternatives of
-// csrc/probes/near_layouts.cu on the H100).  Threefry: the K near slots
-// in shared memory (SmemSlots, a
-// float4 [K][kBlock] array) and __launch_bounds__ of 8 blocks per SM (at
-// most 64 registers; 6 with the variants in decompose mode, where 64
-// spill): no local memory, one wave at 100096 walkers.  The fast
-// generator: the slots in registers (RegSlots) and 4 blocks per SM (at
-// most 128 registers; its step-pair loop holds both steps' slots, words
-// and state): two waves at 100096 walkers, which ran faster than every
-// one-wave build (slots and far sums in shared memory at 80 registers:
-// spills).  Both draw a step (pair) ahead, kDrawAhead.
+// from timings of the alternatives on the H100).  Threefry: the K near
+// slots in shared memory (SmemSlots, a float4 [K][kBlock] array) and
+// __launch_bounds__ of 8 blocks per SM (at most 64 registers; 6 with the
+// variants in decompose mode, where 64 spill): no local memory, one wave
+// at 100096 walkers.  The fast generator: the slots in registers
+// (RegSlots) and 4 blocks per SM (at most 128 registers; its step-pair
+// loop holds both steps' slots, words and state): two waves at 100096
+// walkers, which ran faster than every one-wave build (slots and far sums
+// in shared memory at 80 registers: spills).  Both draw a step (pair)
+// ahead, run_steps_ahead.
 template <bool kFast, bool kVariants, bool kDecompose>
 __host__ __device__ constexpr int near_min_blocks() {
   return kFast ? 4 : kVariants && kDecompose ? 6 : 8;
 }
 
-// Dynamic shared memory of one near block at K slots: float4 [K][kBlock]
-// with the slots in shared memory, else none.
-__host__ __device__ constexpr int near_smem_bytes(bool smem_slots, int k) {
-  return smem_slots ? k * kBlock * 16 : 0;
-}
+// Whether the near entry keeps its K slots in shared memory (else in
+// registers), and its dynamic shared memory at K slots: float4
+// [K][kBlock] with the slots in shared memory, else none.
+template <bool kFast>
+constexpr bool kNearSmemSlots = !kFast;
 
-// The Threefry rounds the near entry unrolls (the reference's
+template <bool kFast>
+__host__ __device__ constexpr int near_smem_bytes(int k) {
+  return kNearSmemSlots<kFast> ? k * kBlock * 16 : 0;
+}
+static_assert(near_smem_bytes<false>(kMaxK) <= 48 * 1024,
+              "the near entry launches without opting in to more than 48 KB");
+
+// The Threefry rounds the flat layouts unroll (the reference's
 // Threefry-20; other counts run the rounds as a loop).
 constexpr int kUnrolledRounds = 20;
+
+// run_steps with each step's (pair's) words drawn beside the step before
+// (kDrawAhead), the flat layouts' step loop: on Threefry with the rounds
+// unrolled where the launch asks for kUnrolledRounds, else as a loop.
+template <int K, bool kFast, bool kVariants, bool kDecompose, class Slots>
+__device__ __forceinline__ void run_steps_ahead(
+    const Slots& slots, const float (&t)[10], float ax, float ay, float az,
+    float phase, float comp, float phase_b, float comp_b, bool valid,
+    unsigned lane, const Launch& a, float* __restrict__ wins,
+    float* __restrict__ state_out, float* __restrict__ esc, int w_pad,
+    int gid) {
+  if constexpr (!kFast) {
+    if (a.rounds == kUnrolledRounds) {
+      run_steps<K, kFast, kVariants, kDecompose, kDrawAhead,
+                kUnrolledRounds>(slots, t, ax, ay, az, phase, comp, phase_b,
+                                 comp_b, valid, lane, a, nullptr, wins,
+                                 state_out, esc, w_pad, gid);
+      return;
+    }
+  }
+  run_steps<K, kFast, kVariants, kDecompose, kDrawAhead>(
+      slots, t, ax, ay, az, phase, comp, phase_b, comp_b, valid, lane, a,
+      nullptr, wins, state_out, esc, w_pad, gid);
+}
 
 // Chunk start of the flat rebuild entry and then the steps, for the
 // walker `gid` of this thread: wrap (the anchor is the wrapped
@@ -199,9 +230,9 @@ __device__ __forceinline__ void rebuild_and_run(
     add_unselected<K>(t, sid, j, ax, ay, az, sx[j], sy[j], sz[j], sm[j]);
   }
 
-  run_steps<K, kFast, kVariants, kDecompose, kDrawInline>(
+  run_steps_ahead<K, kFast, kVariants, kDecompose>(
       RegSlots<K>{nx, ny, nz, nm}, t, ax, ay, az, phase, comp, phase_b,
-      comp_b, valid, lane, a, nullptr, wins, state_out, esc, w_pad, gid);
+      comp_b, valid, lane, a, wins, state_out, esc, w_pad, gid);
 }
 
 template <int K, bool kFast, bool kVariants, bool kDecompose>
@@ -421,12 +452,9 @@ chunk_split_kernel(const float* __restrict__ state_in,
 // Threefry, into registers on the fast generator; the far sums into
 // registers), then the steps, each step's (pair's) words drawn beside
 // the step before.
-// kSmemSlots and kMinBlocks are the layout (the defaults above; other
-// values only for csrc/probes/near_layouts.cu).
-template <int K, bool kFast, bool kVariants, bool kDecompose,
-          bool kSmemSlots = !kFast,
-          int kMinBlocks = near_min_blocks<kFast, kVariants, kDecompose>()>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+template <int K, bool kFast, bool kVariants, bool kDecompose>
+__global__ void __launch_bounds__(
+    kBlock, near_min_blocks<kFast, kVariants, kDecompose>())
 chunk_near_kernel(const float* __restrict__ state_in,
                   float* __restrict__ state_out, float* __restrict__ esc,
                   float* __restrict__ cov, float* __restrict__ wins,
@@ -454,7 +482,7 @@ chunk_near_kernel(const float* __restrict__ state_in,
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     const float* row = near + s * w_pad + gid;   // x of slot s
-    if constexpr (!kSmemSlots) {
+    if constexpr (!kNearSmemSlots<kFast>) {
       nx[s] = row[0];
       ny[s] = row[K * w_pad];
       nz[s] = row[2 * K * w_pad];
@@ -467,24 +495,14 @@ chunk_near_kernel(const float* __restrict__ state_in,
 #pragma unroll
   for (int c = 0; c < 10; ++c) t[c] = taylor[c * w_pad + gid];
 
-  auto run = [&](const auto& slots) {
-    if constexpr (!kFast) {
-      if (a.rounds == kUnrolledRounds) {
-        run_steps<K, kFast, kVariants, kDecompose, kDrawAhead,
-                  kUnrolledRounds>(slots, t, ax, ay, az, phase, comp,
-                                   phase_b, comp_b, valid, lane, a, nullptr,
-                                   wins, state_out, esc, w_pad, gid);
-        return;
-      }
-    }
-    run_steps<K, kFast, kVariants, kDecompose, kDrawAhead>(
-        slots, t, ax, ay, az, phase, comp, phase_b, comp_b, valid, lane, a,
-        nullptr, wins, state_out, esc, w_pad, gid);
-  };
-  if constexpr (kSmemSlots) {
-    run(SmemSlots{s_slots + tid});
+  if constexpr (kNearSmemSlots<kFast>) {
+    run_steps_ahead<K, kFast, kVariants, kDecompose>(
+        SmemSlots{s_slots + tid}, t, ax, ay, az, phase, comp, phase_b,
+        comp_b, valid, lane, a, wins, state_out, esc, w_pad, gid);
   } else {
-    run(RegSlots<K>{nx, ny, nz, nm});
+    run_steps_ahead<K, kFast, kVariants, kDecompose>(
+        RegSlots<K>{nx, ny, nz, nm}, t, ax, ay, az, phase, comp, phase_b,
+        comp_b, valid, lane, a, wins, state_out, esc, w_pad, gid);
   }
 }
 
@@ -529,32 +547,8 @@ bool near_kernel(int near_k, bool variants, const void*& fn, int& smem) {
                         chunk_near_kernel<K, kFast, true, kDecompose>)
                   : reinterpret_cast<const void*>(
                         chunk_near_kernel<K, kFast, false, kDecompose>);
-    smem = near_smem_bytes(!kFast, K);
+    smem = near_smem_bytes<kFast>(K);
   });
-}
-
-// Launch near kernel `fn` with `smem` dynamic shared-memory bytes, one
-// walker a thread; returns a cudaError_t.
-inline int launch_near_fn(const void* fn, int smem, int device, void* stream,
-                          const float* state_in, float* state_out,
-                          float* esc, float* cov, float* wins,
-                          const float* near, const float* taylor, int w_pad,
-                          const Launch* a) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  Launch la = *a;
-  void* args[] = {&state_in, &state_out, &esc, &cov, &wins, &near, &taylor,
-                  &w_pad, &la};
-  err = cudaLaunchKernel(fn, dim3(w_pad / kBlock), dim3(kBlock), args,
-                         static_cast<size_t>(smem),
-                         static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch one rebuild-mode chunk on `stream` of device `device` in the
@@ -613,8 +607,16 @@ int launch_chunk_near(int device, void* stream, const float* state_in,
       !near_kernel<kFast, kDecompose>(near_k, a->flags != 0, fn, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_near_fn(fn, smem, device, stream, state_in, state_out, esc,
-                        cov, wins, near, taylor, w_pad, a);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Launch la = *a;
+  void* args[] = {&state_in, &state_out, &esc, &cov, &wins, &near, &taylor,
+                  &w_pad, &la};
+  err = cudaLaunchKernel(fn, dim3(w_pad / kBlock), dim3(kBlock), args,
+                         static_cast<size_t>(smem),
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // kernel_info of the rebuild entry's kernel in `layout` (flat or split)

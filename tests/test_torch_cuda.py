@@ -640,10 +640,10 @@ def test_split_layout_bitwise(headline, dev, mode, n):
         assert lay.blocks >= 120
 
 
-@pytest.mark.parametrize("mode", sorted(ALL_MODES))
-def test_flat_layout_above_threshold_bitwise(dev, mode):
-    """Wider than the split layout's threshold the rebuild entry takes
-    the flat layout (one walker per thread), in every mode."""
+def _check_flat_above_threshold(dev, mode, rounds=20):
+    """The rebuild entry in ``mode`` on 100 walkers more than the split
+    layout's threshold, with ``rounds`` Threefry rounds: the flat layout,
+    bitwise its plain version's."""
     rng_impl, physics, dec = ALL_MODES[mode]
     phys = cuda_engine.chunk_physics(physics(P.Params(
         chunk_steps=1000, near_k=5)).validate(), rng_impl)
@@ -651,14 +651,31 @@ def test_flat_layout_above_threshold_bitwise(dev, mode):
     edge = chunk_kernel.split_threshold(sms, {
         "split": chunk_kernel.kernel_info("chunk_kernel", phys, dec, "split",
                                           720)}, phys.fast_rng)
-    p = P.Params(chunk_steps=1000, near_k=5,
-                 num_water=edge + 100).validate()
+    p = P.Params(chunk_steps=1000, near_k=5, num_water=edge + 100,
+                 rng_rounds=rounds).validate()
     sc = BacteriaBox(p, seed=42).populate()
     planes, tbl, args, dec = _rebuild_case(p, sc, dev, mode, p.num_water)
-    assert tbl.shape[1] == 720
+    assert tbl.shape[1] == 720 and args["phys"].rounds == rounds
     lay = _check_rebuild(planes, tbl, args, dec, mode)
     assert not lay.split and lay.threads == 128
     assert planes.shape[1] > edge
+
+
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_flat_layout_above_threshold_bitwise(dev, mode):
+    """Wider than the split layout's threshold the rebuild entry takes
+    the flat layout (one walker per thread), in every mode."""
+    _check_flat_above_threshold(dev, mode)
+
+
+@pytest.mark.parametrize("mode", sorted(m for m in ALL_MODES
+                                        if "fast" not in m))
+def test_flat_layout_bitwise_at_other_rounds(dev, mode):
+    """Threefry with 12 rounds (``rng_rounds``: any positive multiple of
+    4) in the rebuild entry's flat layout: the copy of its step loop that
+    runs the rounds as a loop (20 runs them unrolled), bitwise, in every
+    Threefry mode."""
+    _check_flat_above_threshold(dev, mode, rounds=12)
 
 
 @pytest.mark.parametrize("mode", sorted(m for m in ALL_MODES
@@ -781,6 +798,26 @@ def test_near_entry_bitwise_at_every_pfreq(scaleup_scene, mode, pfreq):
     _check_near(p, planes, near, taylor, mode, 1000)
 
 
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("mode", sorted(m for m in ALL_MODES
+                                        if "fast" not in m))
+def test_near_entry_bitwise_at_other_rounds(scaleup_scene, mode, k):
+    """Threefry with 12 rounds (``rng_rounds``: any positive multiple of
+    4): the near entry's copy of its step loop that runs the rounds as a
+    loop (20 runs them unrolled), bitwise, in every Threefry mode at K 1
+    and 10 on a ragged count, 3000 of 3072 padded walkers."""
+    p, planes, cache = scaleup_scene
+    p = p.replace(near_k=k, rng_rounds=12).validate()
+    w = cuda_engine.pad_count(3000)
+    planes = planes[:, :w].contiguous()
+    near, taylor, _ = expansion.build_planes(
+        planes[:3].contiguous(), p, cache,
+        reach2=expansion.coverage_reach2(p))
+    assert all(cuda_engine.chunk_physics(physics(p).validate(), rng).rounds
+               == 12 for rng, physics, _ in ALL_MODES.values())
+    _check_near(p, planes, near, taylor, mode, 3000)
+
+
 @pytest.mark.parametrize("mode", sorted(ALL_MODES))
 def test_near_entry_in_two_waves_bitwise(scaleup_scene, dev, mode):
     """1000 walkers wider than one wave of the kernel (the occupancy
@@ -823,7 +860,7 @@ def test_near_entry_fast_layout_keeps_its_slots_in_registers(scaleup, dev):
     """The near entry's default fast mode keeps its slots in registers
     (no shared memory) at 4 blocks per SM (at most 128 registers), with
     no local memory: two waves at the scale-up width, which ran faster
-    than the one-wave builds (``benchmark.py --near-layouts``), bitwise
+    than the one-wave builds (PERF.md section 6), bitwise
     its plain version's."""
     p, planes, near, taylor = scaleup
     phys = cuda_engine.chunk_physics(p, cuda_engine.RNG_HARDWARE)

@@ -94,21 +94,21 @@ def test_threshold_both_sides(sms, split_bps, fast_rng):
 
 
 def test_split_threshold_follows_the_occupancy():
-    assert ck.SPLIT_WAVES == {False: 4, True: 1}
+    assert ck.SPLIT_WAVES == {False: 2, True: 1}
     assert ck.split_threshold(132, _infos(1), True) == 4224
     assert ck.split_threshold(132, _infos(2), True) == 8448
     assert ck.split_threshold(100, _infos(4), True) == 12800
-    assert ck.split_threshold(132, _infos(2), False) == 33792
+    assert ck.split_threshold(132, _infos(2), False) == 16896
 
 
 @pytest.mark.parametrize("fast_rng, w_pad, kind, waves", [
     (False, 8576, "split", 2), (False, 16896, "split", 2),
-    (False, 33792, "split", 4), (False, 50688, "flat", 1),
+    (False, 33792, "flat", 1), (False, 50688, "flat", 1),
     (True, 8576, "flat", 1), (True, 4096, "split", 1)])
 def test_threshold_at_the_measured_widths(fast_rng, w_pad, kind, waves):
     """The widths ``benchmark.py --rebuild-ms`` timed on the H100 (132
     SMs, 2 split blocks per SM): Threefry keeps the split layout up to
-    33792 walkers, the fast generator only within one wave."""
+    16896 walkers, the fast generator only within one wave."""
     lay = ck.layout("chunk_kernel", w_pad, SMS, _infos(), fast_rng)
     assert (lay.kind, lay.waves) == (kind, waves)
 
