@@ -25,7 +25,7 @@ Two further modes print one JSON line each:
 * ``--profile [--far-table-order N]``: the scale-up path's device time
   per kernel over 20 chunks (torch.profiler), and its device idle share
   (one minus the traced device time over the wall time of the same
-  chunks untraced); at order 0 the path of the exact far sums;
+  traced chunks); at order 0 the path of the exact far sums;
 * ``--rebuild-ms [DIR]``: the ms per launch of the candidate-model
   kernel (``build_planes``: K 10, C 32, far-table order 5; the walkers
   in the scene's order and shuffled) and of the far-sums kernel (5256
@@ -191,22 +191,20 @@ def scaleup_rate(rng_impl: str = cuda_engine.RNG_THREEFRY) -> dict:
 def scaleup_profile(top: int = 12, order: int = 5) -> dict:
     """Device time per kernel of the scale-up path at far-table order
     ``order`` (torch.profiler over ``N_PROFILE_SPRINTS`` sprints), and
-    the device idle share against the wall time of as many untraced
-    sprints.  At order 0 every chunk runs the cube selection of the near
-    ids in torch, the far-sums kernel and the near entry."""
+    the device idle share against the wall time of those same traced
+    sprints, which ends in a device sync.  At order 0 every chunk runs
+    the cube selection of the near ids in torch, the far-sums kernel and
+    the near entry."""
     from torch.profiler import ProfilerActivity, profile
 
     p, _, tbl, cache, _, key, sprint, ss = _scaleup_setup(order=order)
-    t0 = time.perf_counter()
-    for _ in range(N_PROFILE_SPRINTS):
-        ss, _ = sprint(tbl, key, ss, cache=cache)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(N_PROFILE_SPRINTS):
             ss, _ = sprint(tbl, key, ss, cache=cache)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     # the kernels themselves: the CPU-side ops that launched them carry
     # the same device time again
     rows = [e for e in prof.key_averages()
@@ -221,7 +219,7 @@ def scaleup_profile(top: int = 12, order: int = 5) -> dict:
                   f"{order}, Threefry",
         "label": card_label(),
         "chunks": N_PROFILE_SPRINTS * p.sprint_steps // p.chunk_steps,
-        "untraced_wall_s": wall,
+        "traced_wall_s": wall,
         "device_us": device_us,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "kernels": [{"name": e.key[:100], "calls": e.count,

@@ -60,6 +60,7 @@ from .. import rng
 from ..fields import expansion
 from ..fields.dipole import FIELD_SCALE
 from ..params import DIRECTION_SPHERE, KICK_INTENDED, Params
+from ..utils import profiling
 from . import chunk_kernel
 from .reference_engine import (WalkerState, cauchy_kick_sd, check_overrides,
                                constant_kick, intracellular_kick)
@@ -586,6 +587,7 @@ def make_sprint_fn(params: Params, num_water: int, device,
         taylor = torch.cat([nf.b0[None], nf.grad.T, nf.hess.T])
         return near.contiguous(), taylor.contiguous(), nf.n_reach
 
+    @profiling.spanned("sprint_loop.sprint")
     def sprint(mnp_tbl: MnpTable, key, state: SoAState, lane_offset=0,
                cache=None, tcp=None, cell_r=None, d_scale=None,
                reflect=None):
@@ -626,11 +628,12 @@ def make_sprint_fn(params: Params, num_water: int, device,
                     planes, mnp_tbl.tbl, step0=step & rng.MASK,
                     decompose=decompose, **args)
             else:
-                planes = torch.cat([_wrap(planes[:3], phys.bound),
-                                    planes[3:]])
-                near, taylor, n_reach = large_model(planes, mnp_tbl, cache,
-                                                    reach2)
-                coverage = coverage + ((n_reach > k) & valid).sum()
+                with profiling.span("sprint_loop.model", device):
+                    planes = torch.cat([_wrap(planes[:3], phys.bound),
+                                        planes[3:]])
+                    near, taylor, n_reach = large_model(planes, mnp_tbl,
+                                                        cache, reach2)
+                    coverage = coverage + ((n_reach > k) & valid).sum()
                 planes, esc, cov, wins = chunk_kernel.run_chunk_near(
                     planes, near, taylor, step0=step & rng.MASK,
                     decompose=decompose, **args)

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..params import Params
+from ..utils import profiling
 from ..utils.device import require_cuda
 from . import chunk_kernel, reference_engine
 from .convert import key_words, mnp_table
@@ -819,6 +820,7 @@ def load_echoes(path: str):
                 for i in range(int(z["n_pairs"]))]
 
 
+@profiling.spanned("plane.run")
 def run_plane_on_device(scene, params: Params, scales, taucps=None,
                         seed: int = 0, *, device="cuda",
                         engine: str = "pallas",
@@ -868,134 +870,135 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
     """
     from ..analysis import echo_indices
 
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
-    p = params.validate()
-    num_water = scene.waters.shape[0]
-    wps = p.sprint_steps // p.pfreq
-    total = p.t if max_steps is None else min(p.t, max_steps)
-    n_sprints = total // p.sprint_steps
-    n = n_sprints * wps
-    if n == 0:
-        raise ValueError("run_plane_on_device needs at least one full "
-                         "sprint of windows")
-    taucps_l = [p.taucp] if taucps is None else \
-        [float(t) for t in np.asarray(taucps, np.float64).reshape(-1)]
-    T_req = len(taucps_l)
-    s_arr = np.asarray(scales, np.float64).reshape(-1)
-    times = np.arange(1, n + 1, dtype=np.float64) * p.pfreq * p.tau
+    with profiling.span("plane.setup"):
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}")
+        p = params.validate()
+        num_water = scene.waters.shape[0]
+        wps = p.sprint_steps // p.pfreq
+        total = p.t if max_steps is None else min(p.t, max_steps)
+        n_sprints = total // p.sprint_steps
+        n = n_sprints * wps
+        if n == 0:
+            raise ValueError("run_plane_on_device needs at least one full "
+                             "sprint of windows")
+        taucps_l = [p.taucp] if taucps is None else \
+            [float(t) for t in np.asarray(taucps, np.float64).reshape(-1)]
+        T_req = len(taucps_l)
+        s_arr = np.asarray(scales, np.float64).reshape(-1)
+        times = np.arange(1, n + 1, dtype=np.float64) * p.pfreq * p.tau
 
-    # echo specs: (scale, index into the taucp table); an echo taucp not
-    # among the requested ones appends a lane sliced off the curves
-    echo_specs, echo_meta = [], []
-    for es, et in echo_pairs:
-        et = float(et)
-        if et not in taucps_l:
-            p.replace(taucp=et).validate()
-            taucps_l.append(et)
-        eidx = echo_indices(times, et)
-        if eidx.size == 0:
-            raise ValueError(
-                f"no spin echo (t = 2k*taucp = {2 * et:g} ms) falls "
-                f"inside the {times[-1]:g} ms run")
-        echo_specs.append((float(es), taucps_l.index(et)))
-        echo_meta.append({"scale": float(es), "taucp": et, "eidx": eidx})
-    tcps = [p.replace(taucp=t).validate().tcp for t in taucps_l]
-    T = len(taucps_l)
+        # echo specs: (scale, index into the taucp table); an echo taucp not
+        # among the requested ones appends a lane sliced off the curves
+        echo_specs, echo_meta = [], []
+        for es, et in echo_pairs:
+            et = float(et)
+            if et not in taucps_l:
+                p.replace(taucp=et).validate()
+                taucps_l.append(et)
+            eidx = echo_indices(times, et)
+            if eidx.size == 0:
+                raise ValueError(
+                    f"no spin echo (t = 2k*taucp = {2 * et:g} ms) falls "
+                    f"inside the {times[-1]:g} ms run")
+            echo_specs.append((float(es), taucps_l.index(et)))
+            echo_meta.append({"scale": float(es), "taucp": et, "eidx": eidx})
+        tcps = [p.replace(taucp=t).validate().tcp for t in taucps_l]
+        T = len(taucps_l)
 
-    # sign tables on the host once: u_prev[r] undoes the base flip before
-    # record row r; g[t, r] is the reconstruction parity g_{j-1} of row r
-    j = np.arange(1, n + 1, dtype=np.int64)
-    undo = np.where((j * p.pfreq) % p.tcp == 0, -1.0, 1.0)
-    u_prev = np.concatenate([[1.0], undo[:-1]]).astype(np.float32)
-    g_full = np.stack([_flip_parity(n, tcp, p.pfreq)
-                       for tcp in tcps]).astype(np.float32)
-    # per sprint: each spec's local echo rows, padded with row 0 to one
-    # width E, and where the real ones go, from the step's [n_specs * E]
-    # rows into the captures' rows laid end to end
-    n_specs = len(echo_specs)
-    rows = np.zeros((n_sprints, 1, 1), np.int64)
-    places = [None] * n_sprints
-    if n_specs:
-        sel = [[np.nonzero((m["eidx"] >= i * wps)
-                           & (m["eidx"] < (i + 1) * wps))[0]
-                for m in echo_meta] for i in range(n_sprints)]
-        e_max = max(1, max(k.size for per in sel for k in per))
-        rows = np.zeros((n_sprints, n_specs, e_max), np.int64)
-        first = np.cumsum([0] + [m["eidx"].size for m in echo_meta])
-        for i, per in enumerate(sel):
-            src, dst = [], []
-            for si, k in enumerate(per):
-                rows[i, si, :k.size] = echo_meta[si]["eidx"][k] - i * wps
-                src += [si * e_max + r for r in range(k.size)]
-                dst += list(first[si] + k)
-            if src:
-                places[i] = (np.asarray(src, np.int64),
-                             np.asarray(dst, np.int64))
+        # sign tables on the host once: u_prev[r] undoes the base flip before
+        # record row r; g[t, r] is the reconstruction parity g_{j-1} of row r
+        j = np.arange(1, n + 1, dtype=np.int64)
+        undo = np.where((j * p.pfreq) % p.tcp == 0, -1.0, 1.0)
+        u_prev = np.concatenate([[1.0], undo[:-1]]).astype(np.float32)
+        g_full = np.stack([_flip_parity(n, tcp, p.pfreq)
+                           for tcp in tcps]).astype(np.float32)
+        # per sprint: each spec's local echo rows, padded with row 0 to one
+        # width E, and where the real ones go, from the step's [n_specs * E]
+        # rows into the captures' rows laid end to end
+        n_specs = len(echo_specs)
+        rows = np.zeros((n_sprints, 1, 1), np.int64)
+        places = [None] * n_sprints
+        if n_specs:
+            sel = [[np.nonzero((m["eidx"] >= i * wps)
+                               & (m["eidx"] < (i + 1) * wps))[0]
+                    for m in echo_meta] for i in range(n_sprints)]
+            e_max = max(1, max(k.size for per in sel for k in per))
+            rows = np.zeros((n_sprints, n_specs, e_max), np.int64)
+            first = np.cumsum([0] + [m["eidx"].size for m in echo_meta])
+            for i, per in enumerate(sel):
+                src, dst = [], []
+                for si, k in enumerate(per):
+                    rows[i, si, :k.size] = echo_meta[si]["eidx"][k] - i * wps
+                    src += [si * e_max + r for r in range(k.size)]
+                    dst += list(first[si] + k)
+                if src:
+                    places[i] = (np.asarray(src, np.int64),
+                                 np.asarray(dst, np.int64))
 
-    sp = _decompose_sprints(scene, p, seed, device, rng_impl, cache, engine,
-                            mesh)
-    dev, ss = sp.dev, sp.state
-    on_card = dev.type == "cuda"
-    n_rows = sum(m["eidx"].size for m in echo_meta)
-    if mesh is None:
-        step = make_plane_step(p, num_water, s_arr, T, tuple(echo_specs),
-                               device=dev)
+        sp = _decompose_sprints(scene, p, seed, device, rng_impl, cache,
+                                engine, mesh)
+        dev, ss = sp.dev, sp.state
+        on_card = dev.type == "cuda"
+        n_rows = sum(m["eidx"].size for m in echo_meta)
+        if mesh is None:
+            step = make_plane_step(p, num_water, s_arr, T, tuple(echo_specs),
+                                   device=dev)
 
-        def put(a):
-            return torch.as_tensor(a, device=dev)
+            def put(a):
+                return torch.as_tensor(a, device=dev)
 
-        def each(x, f):
-            return f(x)
+            def each(x, f):
+                return f(x)
 
-        carry = (torch.zeros((T, num_water), device=dev),) * 4 \
-            + (torch.zeros(num_water, device=dev),) * 2
-        captured = torch.zeros((n_rows, num_water), device=dev)
+            carry = (torch.zeros((T, num_water), device=dev),) * 4 \
+                + (torch.zeros(num_water, device=dev),) * 2
+            captured = torch.zeros((n_rows, num_water), device=dev)
 
-        def capture(emat, src, dst):
-            captured.index_copy_(0, dst, emat.reshape(-1, num_water)
-                                 .index_select(0, src))
+            def capture(emat, src, dst):
+                captured.index_copy_(0, dst, emat.reshape(-1, num_water)
+                                     .index_select(0, src))
 
-        def captured_host():
-            return captured.cpu().numpy()
-    else:
-        from ..parallel import sharding
-        local_w = sharding.even_split(num_water, mesh)
-        step = make_sharded_plane_step(p, num_water, s_arr, T, mesh,
-                                       tuple(echo_specs))
+            def captured_host():
+                return captured.cpu().numpy()
+        else:
+            from ..parallel import sharding
+            local_w = sharding.even_split(num_water, mesh)
+            step = make_sharded_plane_step(p, num_water, s_arr, T, mesh,
+                                           tuple(echo_specs))
 
-        def put(a):
-            return sharding.replicate(torch.as_tensor(a), mesh.devices)
+            def put(a):
+                return sharding.replicate(torch.as_tensor(a), mesh.devices)
 
-        def each(x, f):
-            return {d: f(t) for d, t in x.items()}
+            def each(x, f):
+                return {d: f(t) for d, t in x.items()}
 
-        carry = tuple((torch.zeros((T, local_w), device=d),) * 4
-                      + (torch.zeros(local_w, device=d),) * 2
-                      for d in mesh.devices)
-        captured = [torch.zeros((n_rows, local_w), device=d)
-                    for d in mesh.devices]
+            carry = tuple((torch.zeros((T, local_w), device=d),) * 4
+                          + (torch.zeros(local_w, device=d),) * 2
+                          for d in mesh.devices)
+            captured = [torch.zeros((n_rows, local_w), device=d)
+                        for d in mesh.devices]
 
-        def capture(emat, src, dst):
-            for c, e, d in zip(captured, emat, mesh.devices):
-                c.index_copy_(0, dst[d], e.reshape(-1, local_w)
-                              .index_select(0, src[d]))
+            def capture(emat, src, dst):
+                for c, e, d in zip(captured, emat, mesh.devices):
+                    c.index_copy_(0, dst[d], e.reshape(-1, local_w)
+                                  .index_select(0, src[d]))
 
-        def captured_host():
-            # this process's walker columns; zero in other processes'
-            full = np.zeros((n_rows, num_water), np.float32)
-            lo = mesh.first_shard * local_w
-            full[:, lo:lo + len(captured) * local_w] = np.concatenate(
-                [c.cpu().numpy() for c in captured], 1)
-            return full
-    # every table on the device once, sliced per sprint: the loop makes
-    # no host -> device copy
-    u_dev = put(u_prev)
-    g_dev = put(g_full)
-    rows_dev = put(rows)
-    places = [pl and tuple(put(a) for a in pl) for pl in places]
-    blocks, events = [], []
-    split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
+            def captured_host():
+                # this process's walker columns; zero in other processes'
+                full = np.zeros((n_rows, num_water), np.float32)
+                lo = mesh.first_shard * local_w
+                full[:, lo:lo + len(captured) * local_w] = np.concatenate(
+                    [c.cpu().numpy() for c in captured], 1)
+                return full
+        # every table on the device once, sliced per sprint: the loop makes
+        # no host -> device copy
+        u_dev = put(u_prev)
+        g_dev = put(g_full)
+        rows_dev = put(rows)
+        places = [pl and tuple(put(a) for a in pl) for pl in places]
+        blocks, events = [], []
+        split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
 
     t_start = time.perf_counter()
     for i in range(n_sprints):
@@ -1007,10 +1010,11 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
             t0 = time.perf_counter()
         ss, wins = sp.step(ss)
         lo = i * wps
-        carry, blk, *emat = step(
-            wins, carry, each(u_dev, lambda t: t[lo:lo + wps]),
-            each(g_dev, lambda t: t[:, lo:lo + wps]),
-            each(rows_dev, lambda t: t[i]))
+        with profiling.span("plane.fold"):
+            carry, blk, *emat = step(
+                wins, carry, each(u_dev, lambda t: t[lo:lo + wps]),
+                each(g_dev, lambda t: t[:, lo:lo + wps]),
+                each(rows_dev, lambda t: t[i]))
         blocks.append(blk)
         if places[i]:
             capture(emat[0], *places[i])
@@ -1023,16 +1027,18 @@ def run_plane_on_device(scene, params: Params, scales, taucps=None,
             torch.cuda.synchronize(d)
         split["device_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
     t0 = time.perf_counter()
-    # echo-only taucp lanes are not part of the requested plane
-    curves = torch.cat(blocks, dim=2)[:, :T_req].cpu().numpy()
-    captured = captured_host()
-    final = sp.to_walker(ss)
+    with profiling.span("plane.copy"):
+        # echo-only taucp lanes are not part of the requested plane
+        curves = torch.cat(blocks, dim=2)[:, :T_req].cpu().numpy()
+        captured = captured_host()
+        final = sp.to_walker(ss)
     t1 = time.perf_counter()
-    mats = np.split(captured.astype(np.float64),
-                    np.cumsum([m["eidx"].size for m in echo_meta])[:-1])
-    echoes = [EchoCapture(scale=m["scale"], taucp_ms=m["taucp"],
-                          times_ms=times[m["eidx"]], cos=mat)
-              for m, mat in zip(echo_meta, mats)]
+    with profiling.span("plane.assemble"):
+        mats = np.split(captured.astype(np.float64),
+                        np.cumsum([m["eidx"].size for m in echo_meta])[:-1])
+        echoes = [EchoCapture(scale=m["scale"], taucp_ms=m["taucp"],
+                              times_ms=times[m["eidx"]], cos=mat)
+                  for m, mat in zip(echo_meta, mats)]
     wall = time.perf_counter() - t_start
     split["copy_s"], split["host_s"] = t1 - t0, wall - (t1 - t_start)
     stats = {

@@ -17,7 +17,8 @@ the host (``--stream-plane``), or from a plane folded on the device
 KNOB`` and ``--sweep-grid`` run trials per value or grid point and write
 one CSV each (``parallel/ensemble.py``), with ``--fit-t2`` the
 dispersion table over the swept axis.  ``--trace DIR`` writes a
-profiler trace of the run.
+profiler trace of the run and the tally of the port's spans
+(``utils/profiling``).
 
 Runs survive a crash: ``--checkpoint C --checkpoint-every N`` snapshots
 the walkers (``io/checkpoint.py``), ``--resume C`` continues a run, and
@@ -342,6 +343,7 @@ class SimulationRunner:
             rng_impl=ckpt_mod.rng_tag(self.rng_impl),
             scene_fp=self._scene_fp)
 
+    @profiling.spanned("runner.run")
     def run(self, csv_path: Optional[str] = None, quadrature: bool = False,
             checkpoint_path: Optional[str] = None,
             checkpoint_every_sprints: int = 0, progress: bool = True,
@@ -375,11 +377,12 @@ class SimulationRunner:
         win_per_sprint = p.sprint_steps // p.pfreq
 
         writer = None
-        if csv_path is not None:
-            writer = writer_mod.T2CsvWriter(csv_path, p, quadrature,
-                                            append=start_step > 0)
-            writer.__enter__()
-        ss = self._to_device_state(self.state)
+        with profiling.span("runner.state_in"):
+            if csv_path is not None:
+                writer = writer_mod.T2CsvWriter(csv_path, p, quadrature,
+                                                append=start_step > 0)
+                writer.__enter__()
+            ss = self._to_device_state(self.state)
         t0 = time.perf_counter()
         pending, all_wins = [], []
         try:
@@ -396,8 +399,7 @@ class SimulationRunner:
                     # the rows first: a checkpoint must never be ahead of
                     # the rows on disk
                     self._drain(pending, writer, all_wins)
-                    self._guarded(lambda: self._sync_and_save(
-                        ss, checkpoint_path))
+                    self._state_out(ss, checkpoint_path)
                 if progress and (i + 1) % max(1, n_sprints // 20) == 0:
                     rate = ((i + 1) * p.sprint_steps * p.num_water
                             / (time.perf_counter() - t0))
@@ -408,7 +410,7 @@ class SimulationRunner:
             if writer is not None:
                 writer.close()
         wall = time.perf_counter() - t0
-        self._guarded(lambda: self._sync_and_save(ss, checkpoint_path))
+        self._state_out(ss, checkpoint_path)
 
         wins = np.concatenate(all_wins, 0) if all_wins \
             else np.zeros((0, 2), np.float32)
@@ -424,6 +426,11 @@ class SimulationRunner:
             "steps": int(self.state.step),
         }
         return times, wins[:, 0], wins[:, 1], stats
+
+    def _state_out(self, ss, checkpoint_path) -> None:
+        """``_sync_and_save`` under the drain watchdog."""
+        with profiling.span("runner.state_out"):
+            self._guarded(lambda: self._sync_and_save(ss, checkpoint_path))
 
     def _sync_and_save(self, ss, checkpoint_path) -> None:
         """The walker state from the sprint's form, then its checkpoint
@@ -464,13 +471,15 @@ class SimulationRunner:
         if not pending:
             return
         first_idx = pending[0][0]
-        wins = self._guarded(
-            lambda: self._fetch_pending(pending),
-            what=f"drain of {len(pending)} pending sprint(s)")
-        pending.clear()
-        all_wins.append(wins)
-        if writer is not None:
-            writer.append_windows(first_idx, wins)
+        with profiling.span("runner.fetch"):
+            wins = self._guarded(
+                lambda: self._fetch_pending(pending),
+                what=f"drain of {len(pending)} pending sprint(s)")
+        with profiling.span("runner.csv_append"):
+            pending.clear()
+            all_wins.append(wins)
+            if writer is not None:
+                writer.append_windows(first_idx, wins)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -759,7 +768,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler device trace of the run "
                          "to DIR (DIR/trace.json, chrome://tracing- or "
-                         "Perfetto-viewable) — kernel-level "
+                         "Perfetto-viewable; the port's spans tallied in "
+                         "DIR/spans.json) — kernel-level "
                          "observability the reference's Timer never had")
     return ap
 

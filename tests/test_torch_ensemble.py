@@ -530,16 +530,17 @@ def test_cli_trace_writes_a_trace(branch, tmp_path):
         events = json.load(f)["traceEvents"]
     assert events and profiling.trace_kernels(
         str(trace / profiling.TRACE_FILE)) == []      # no card here
+    with open(trace / profiling.SPANS_FILE) as f:
+        spans = json.load(f)
+    assert spans["sprint_loop.sprint"]["calls"] > 0
+    if not branch:
+        assert spans["runner.run"]["calls"] == 1
 
 
 def test_device_trace_off_is_a_no_op(tmp_path):
     with profiling.device_trace(None, "cpu"):
         x = torch.ones(3).sum()
     assert float(x) == 3.0
-    assert profiling.walker_steps_per_sec(4032, 1000, 2.0) == 2016000.0
-    with profiling.Timer() as tm:
-        pass
-    assert tm.elapsed_ms >= 0.0
 
 
 def test_cli_p_axis_grid_writes_csvs_where_jax_raises(tmp_path,
