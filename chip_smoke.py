@@ -17,8 +17,8 @@ measured, and any failure raises (exit code != 0, no final line):
    float input each can see;
 3. rebuild kernel vs plain version (engine/cuda_engine.chunk_reference)
    on the same CUDA inputs at the main path's shapes, 50 and 4032
-   walkers, in the split layout (128 blocks of one walker warp and three
-   generator warps at 4032): the state bitwise equal, window sums within
+   walkers, in the split layout (128 blocks at 4032, each a chain warp, a
+   field warp and the generator warps): the state bitwise equal, window sums within
    0.05, escapes and coverage equal, two kernel runs bitwise equal; times
    of both; then above the split layout's threshold (walkers from the
    occupancy API and the SM count), where it takes the flat layout;
@@ -249,6 +249,7 @@ from mri_nanoparticle_simulation_tpu_torch import (  # noqa: E402
     analysis, golden, inverse)
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (  # noqa: E402
     FAR_SUMS_K10, NEAR_K10, SCALEUP, all_variants, sass_loop,
+    split_step_loops,
     time_on_device)
 from mri_nanoparticle_simulation_tpu_torch.engine import (  # noqa: E402
     chunk_kernel, cuda_engine, reference_engine, resilience, sim)
@@ -848,6 +849,8 @@ def layout_report(dev, hp, n_pad, sp, res, label):
                       f"{key}: headline layout {lay}")
             if key in ("chunk_near_kernel", "chunk_near_kernel[fast]"):
                 out[key].update(near_step_sass(phys, lay, dev, label))
+            if key in ("chunk_kernel", "chunk_kernel[fast]"):
+                out[key].update(split_step_sass(phys, lay, n_pad, dev, label))
     # the candidate-model kernel at the scale-up width, as the runtime
     # reports it; its last launch (phase 7, full width) took the same
     w_pad = cuda_engine.pad_count(sp.num_water)
@@ -904,6 +907,30 @@ def near_step_sass(phys, lay, dev, label):
     return {"sass_per_step": per_step, "sass_step_loop": sass,
             "step_ops": [f, i], "smem_per_block": lay.smem,
             "local_bytes": info.local_bytes}
+
+
+def split_step_sass(phys, lay, n_pad, dev, label):
+    """The split kernel's default mode of ``phys`` at the headline: its two
+    walker warps' SASS step loops (``split_step_loops``: the chain warp's
+    and the field warp's, each a step), beside the near entry's, with the
+    generator warps, the resident blocks (checked: two a SM, as the split
+    thresholds assume) and the local memory; returns its kernels-line
+    fields."""
+    info = chunk_kernel.kernel_info("chunk_kernel", phys, False, "split",
+                                    n_pad, dev)
+    check(lay.split and lay.blocks_per_sm == 2,
+          f"split kernel{' [fast]' if phys.fast_rng else ''}: layout {lay}")
+    loops = split_step_loops(chunk_kernel, phys.fast_rng)
+    for warp, lp in loops.items():
+        print(f"    SASS {warp} warp step loop: {lp['instructions']} "
+              f"instructions, {lp['counts']}, nested loops {lp['inner']}: "
+              f"{lp['per_step']:.1f} a step; {lay.gen_warps} generator "
+              f"warps, {lay.blocks_per_sm} resident per SM, {info.regs} "
+              f"registers, "
+              f"{info.local_bytes} B local memory [{label}]", flush=True)
+    return {"sass_split_per_step": {w: lp["per_step"]
+                                    for w, lp in loops.items()},
+            "gen_warps": lay.gen_warps, "local_bytes": info.local_bytes}
 
 
 def mode_phases(dev, label, p, sc, ctx):

@@ -38,8 +38,9 @@ Two further modes print one JSON line each:
   the chunk kernel's ms per chunk in every mode of both entries: the
   rebuild entry at the headline shape (4032 walkers, K 5) and the near
   entry at the scale-up width (100096 walkers, K 10), 4000 steps, 7 rounds
-  of 10 launches, with the layout each launch took (and the near entry's
-  SASS step loop in its two default modes, ``sass_loop``); then the rebuild
+  of 10 launches, with the layout each launch took (and the SASS step
+  loops in the two default modes: the near entry's, and the split
+  kernel's chain and field warps', ``sass_loop``); then the rebuild
   entry on the headline's scene at the widths of ``REBUILD_WIDTHS`` (both
   sides of the split layout's threshold, up to a 100k-walker small scene)
   in both its layouts.  Each round runs between two CUDA events behind a
@@ -108,10 +109,11 @@ ORDER0_TURNS = 3
 #: shorter on the card than its call on the host)
 SLEEP_CYCLES = 10_000_000
 #: walkers at which --rebuild-ms times the rebuild entry in both layouts:
-#: on a 132-SM card just above the split layout's all-resident width
-#: (8448 walkers at 2 blocks per SM), then multiples of it, up to a
-#: 100k-walker small scene
-REBUILD_WIDTHS = (8576, 16896, 33792, 50688, 67584, 100000)
+#: on a 132-SM card within the split layout's first wave (8448 walkers
+#: at two blocks per SM), just above it, between its second and third
+#: waves, just above its second, then a wider width and a 100k-walker
+#: small scene
+REBUILD_WIDTHS = (4352, 8576, 12800, 17024, 33792, 100000)
 #: the mangled name of the far-sums kernel at the scale-up's K, whose
 #: SASS pair loop ``sass_loop`` reads
 FAR_SUMS_K10 = "far_sums_kernelILi10E"
@@ -120,6 +122,16 @@ FAR_SUMS_K10 = "far_sums_kernelILi10E"
 #: reads (a step pair on the fast generator)
 NEAR_K10 = {False: "chunk_near_kernelILi10ELb0ELb0ELb0E",
             True: "chunk_near_kernelILi10ELb1ELb0ELb0E"}
+#: the same of the split kernel's K-5 kernels (the headline), whose walker
+#: warps' step loops ``sass_loop`` reads: the chain warp's, the one loop
+#: that stores the hand-off and reads the ring without an rsqrt, and the
+#: field warp's, the one that takes rsqrt of what it reads and stores
+#: nothing (the generator warps' loops read no shared memory, and the far
+#: parts' loop both takes rsqrt and stores)
+SPLIT_K5 = {False: "chunk_split_kernelILi5ELb0ELb0ELb0E",
+            True: "chunk_split_kernelILi5ELb1ELb0ELb0E"}
+CHAIN_LOOP = dict(ops=("STS", "LDS"), without=("MUFU.RSQ",))
+FIELD_LOOP = dict(ops=("MUFU.RSQ", "LDS"), without=("STS",))
 _GENERATOR = {cuda_engine.RNG_THREEFRY: "Threefry-20",
               cuda_engine.RNG_HARDWARE: "fast generator (Philox4x32-10)"}
 
@@ -331,15 +343,18 @@ def _model_cases(dev):
                                                              idx)}
 
 
-def sass_loop(ck, kernel: str) -> dict:
-    """The innermost loop that holds a reciprocal square root (MUFU.RSQ)
-    in the SASS (``cuobjdump -sass`` beside nvcc) of the entry whose
-    mangled name holds ``kernel``, in the library of ``ck`` (a tree's
-    ``engine.chunk_kernel``, built here if it is not): ``rsqrt_loop`` of
-    its text.  In the far-sums kernel that loop is the pair loop, one
-    MUFU.RSQ a (walker, dipole) pair; in a chunk kernel the step loop
-    (the near entry: a step on Threefry, a step pair on the fast
-    generator)."""
+def sass_loop(ck, kernel: str, ops=("MUFU.RSQ",), without=()) -> dict:
+    """The innermost loop that holds an instruction of each opcode of
+    ``ops`` (a reciprocal square root, MUFU.RSQ, unless asked otherwise)
+    and none of ``without``, in the SASS (``cuobjdump -sass`` beside nvcc)
+    of the entry whose mangled name holds ``kernel``, in the library of
+    ``ck`` (a tree's ``engine.chunk_kernel``, built here if it is not):
+    ``innermost_loop`` of its text.  In the far-sums kernel that loop is
+    the pair loop, one MUFU.RSQ a (walker, dipole) pair; in a chunk kernel
+    the step loop (the near entry: a step on Threefry, a step pair on the
+    fast generator; the split kernel's walker warps, ``SPLIT_K5``: the
+    chain warp's with ``CHAIN_LOOP``, the field warp's with
+    ``FIELD_LOOP``)."""
     ck.build()
     name = re.search(r"Compiling entry function '(\w*" + kernel + r"\w*)'",
                      ck.build_log()).group(1)
@@ -348,17 +363,35 @@ def sass_loop(ck, kernel: str) -> dict:
                            str(ck.library_path())], capture_output=True,
                           text=True, check=True).stdout
     try:
-        return rsqrt_loop(sass)
+        return innermost_loop(sass, ops, without)
     except ValueError as e:
         raise RuntimeError(f"{e} in the SASS of {name}") from None
 
 
-def rsqrt_loop(sass: str) -> dict:
+def split_step_loops(ck, fast: bool) -> dict:
+    """The split kernel's walker warps' step loops at K 5 in the default
+    physics (``SPLIT_K5``), in the library of ``ck``: the chain warp's and
+    the field warp's ``sass_loop``, each with its instructions a step (the
+    chain warp stores 2 K + 4 floats a step, the field warp takes K
+    rsqrt; the compiler unrolls both loops)."""
+    k = 5
+    chain = sass_loop(ck, SPLIT_K5[fast], **CHAIN_LOOP)
+    field = sass_loop(ck, SPLIT_K5[fast], **FIELD_LOOP)
+    return {"chain": {**chain, "per_step": chain["instructions"] * (2 * k + 4)
+                      / chain["counts"]["STS"]},
+            "field": {**field, "per_step": field["instructions"] * k
+                      / field["counts"]["MUFU.RSQ"]}}
+
+
+def innermost_loop(sass: str, ops=("MUFU.RSQ",), without=()) -> dict:
     """The innermost loop (a backward branch and the instructions from
-    its target to it) that holds a MUFU.RSQ in the SASS text ``sass``:
-    its instructions (as written, each once: a loop nested in it counts
-    once, and a branch never taken counts too), its MUFU.RSQ, and the
-    instructions of each loop nested in it (``inner``); the smallest such
+    its target to it) that holds, in the SASS text ``sass``, an
+    instruction whose opcode starts with each of ``ops`` and none that
+    starts with one of ``without``: its instructions (as written, each
+    once: a loop nested in it counts once, and a branch never taken counts
+    too), its MUFU.RSQ, and the instructions of each loop nested in it
+    (``inner``), with ``counts``, the instructions of each opcode of
+    ``ops``, where others than a MUFU.RSQ are asked for; the smallest such
     loop where there are several, and every one of them, in address
     order, as ``copies`` (the near entry's Threefry kernel holds two
     copies of its step loop: the rounds of Threefry-20 unrolled, and the
@@ -370,18 +403,27 @@ def rsqrt_loop(sass: str) -> dict:
         m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
         if m and int(m.group(1), 16) < addr:
             lo = int(m.group(1), 16)
-            body = [o for a, o in ins if lo <= a <= addr]
-            loops.append((lo, addr, len(body),
-                          sum("MUFU.RSQ" in o for o in body)))
+            loops.append((lo, addr, [re.sub(r"^@!?U?P[T0-9]+\s+", "",
+                                            o.strip())
+                                     for a, o in ins if lo <= a <= addr]))
 
     def within(inner, outer):
         return inner != outer and outer[0] <= inner[0] and inner[1] <= outer[1]
-    rsq = [lp for lp in loops if lp[3]]
-    copies = [{"instructions": lp[2], "rsqrt": lp[3],
-               "inner": [n[2] for n in loops if within(n, lp)]}
-              for lp in sorted(rsq) if not any(within(n, lp) for n in rsq)]
+
+    def count(lp, prefix):
+        return sum(o.startswith(prefix) for o in lp[2])
+    held = [lp for lp in loops if all(count(lp, p) for p in ops)
+            and not any(count(lp, p) for p in without)]
+    default = tuple(ops) == ("MUFU.RSQ",) and not without
+    copies = [{"instructions": len(lp[2]), "rsqrt": count(lp, "MUFU.RSQ"),
+               **({} if default else {"counts": {p: count(lp, p)
+                                                 for p in ops}}),
+               "inner": [len(n[2]) for n in loops if within(n, lp)]}
+              for lp in sorted(held, key=lambda lp: lp[:2])
+              if not any(within(n, lp) for n in held)]
     if not copies:
-        raise ValueError("no loop with a MUFU.RSQ")
+        raise ValueError("no loop with " + " and ".join(
+            f"a {p}" for p in ops) + "".join(f" and no {p}" for p in without))
     best = min(copies, key=lambda c: c["instructions"])
     return {**best, "copies": copies}
 
@@ -560,6 +602,8 @@ def rebuild_ms(other: str | None = None, rounds: int = 7,
             out[-1]["sass_step_loop"] = {
                 tree: sass_loop(ck, NEAR_K10[fast]) for tree, ck in
                 (("this", chunk_kernel), (other, that)) if ck is not None}
+        if mode in ("chunk_kernel", "chunk_kernel[fast]"):
+            out[-1]["sass_step_loops"] = split_step_loops(chunk_kernel, fast)
     widths = []
     for mode, n, call, forced in _width_cases(dev):
         trees = {"this": chunk_kernel}

@@ -76,7 +76,8 @@
 // insertion; the field masked by d2 > cell_r^2; the kick at the new
 // position with the new in-cell flag; Kahan fold, emit, then the
 // Carr-Purcell flip.  The step loop is field_math.cuh:run_steps, shared
-// by both entries.
+// by the near entry and the flat rebuild entry; the split layout's is
+// run_chain and run_field, the same arithmetic split over two warps.
 //
 // Layouts (the wrapper, engine/chunk_kernel.py:layout, picks one by
 // width):
@@ -86,24 +87,33 @@
 //   near entry (its slots and residency by generator, near_min_blocks);
 //   the rebuild entry above chunk_kernel.split_threshold (where it
 //   measured faster).
-// * split (rebuild entry, chunk_split_kernel): w_pad / 32 blocks of one
-//   walker warp and kGenWarps generator warps (field_math.cuh: G = 3,
-//   the ring of kRingSteps = 64 steps).  At the headline width (4096
-//   padded walkers) that is 128 blocks, one per SM, where the flat layout
-//   put 32 blocks on 32 SMs.  The generator warps draw everything a step
-//   needs that does not depend on the walker's position (the words, the
-//   direction and its inverse norm, the normal, the coin and the kick
-//   uniform) ahead of the walker warp into the ring; the walker warp runs
-//   only the chain move -> field -> bounce -> kicks.  The chunk start is
-//   shared: each of the four warps selects over a quarter of the table,
-//   the walker warp merges the quarters exactly, and the generator warps
-//   compute the far Taylor parts that the walker warp adds in table
-//   order (chunk_split_kernel).
+// * split (rebuild entry, chunk_split_kernel): w_pad / 32 blocks, each
+//   of two walker warps and kGenWarps generator warps (field_math.cuh:
+//   two on the fast generator, four on Threefry; the ring of kRingSteps
+//   = 32 steps).  At the headline width (4096 padded walkers) that is
+//   128 blocks, one per SM, where the flat layout put 32 blocks on 32
+//   SMs; two blocks fit an SM (split_smem_bytes).  The generator warps draw everything a step needs that does not
+//   depend on the walker's position (the step's displacement in and out
+//   of a cell, the coin and the kick uniform) ahead of the walker warps
+//   into the ring.  Each walker is held by a lane of each walker warp,
+//   which split its step by task (PERF.md section 6): the chain warp runs
+//   the move, the near distances, the in-cell test and the bounce, the
+//   chain from step to step, and hands each step's distances over through
+//   shared memory; the field warp runs the near terms, the far Taylor
+//   polynomial, the kicks and the windows.  Each walker warp so issues
+//   about half of a step's instructions, and on the fast generator each
+//   of the four warps has a scheduler to itself.  The chunk start is
+//   shared: each warp selects over a part of the table, the walker warps
+//   merge the parts exactly, and the generator warps compute the far
+//   Taylor parts that the walker warps add in table order, five
+//   coefficients each (chunk_split_kernel).
 //
-// Each warp reduces its own windows and coverage count (a shuffle tree,
-// in a fixed order) into the per-warp outputs cov[w_pad / 32] and
-// wins[w_pad / 32, n_win, 2]; the wrapper sums over warps, so the result
-// is the same from run to run and in either layout.
+// Each warp of 32 walkers (in the split layout its chain warp for the
+// coverage count, its field warp for the windows) reduces its own windows
+// and coverage count (a shuffle tree, in a fixed order) into the per-warp
+// outputs cov[w_pad / 32] and wins[w_pad / 32, n_win, 2]; the wrapper sums
+// over warps, so the result is the same from run to run and in either
+// layout.
 
 #pragma once
 
@@ -149,9 +159,9 @@ static_assert(near_smem_bytes<false>(kMaxK) <= 48 * 1024,
 // Threefry-20; other counts run the rounds as a loop).
 constexpr int kUnrolledRounds = 20;
 
-// run_steps with each step's (pair's) words drawn beside the step before
-// (kDrawAhead), the flat layouts' step loop: on Threefry with the rounds
-// unrolled where the launch asks for kUnrolledRounds, else as a loop.
+// run_steps, each step's (pair's) words drawn beside the step before, the
+// flat layouts' step loop: on Threefry with the rounds unrolled where the
+// launch asks for kUnrolledRounds, else as a loop.
 template <int K, bool kFast, bool kVariants, bool kDecompose, class Slots>
 __device__ __forceinline__ void run_steps_ahead(
     const Slots& slots, const float (&t)[10], float ax, float ay, float az,
@@ -161,16 +171,15 @@ __device__ __forceinline__ void run_steps_ahead(
     int gid) {
   if constexpr (!kFast) {
     if (a.rounds == kUnrolledRounds) {
-      run_steps<K, kFast, kVariants, kDecompose, kDrawAhead,
-                kUnrolledRounds>(slots, t, ax, ay, az, phase, comp, phase_b,
-                                 comp_b, valid, lane, a, nullptr, wins,
-                                 state_out, esc, w_pad, gid);
+      run_steps<K, kFast, kVariants, kDecompose, kUnrolledRounds>(
+          slots, t, ax, ay, az, phase, comp, phase_b, comp_b, valid, lane, a,
+          wins, state_out, esc, w_pad, gid);
       return;
     }
   }
-  run_steps<K, kFast, kVariants, kDecompose, kDrawAhead>(
+  run_steps<K, kFast, kVariants, kDecompose>(
       slots, t, ax, ay, az, phase, comp, phase_b, comp_b, valid, lane, a,
-      nullptr, wins, state_out, esc, w_pad, gid);
+      wins, state_out, esc, w_pad, gid);
 }
 
 // Chunk start of the flat rebuild entry and then the steps, for the
@@ -256,37 +265,64 @@ chunk_kernel(const float* __restrict__ state_in, float* __restrict__ state_out,
 }
 
 // The split layout's chunk start is shared by the block's warps.  Each
-// of the kSplitWarps warps scans a quarter of the table for the walkers
-// of its lanes (the K nearest by sorted_insert_ids, and the count within
-// reach) into shared memory; the walker warp merges the four sorted
-// lists by (d2, id), which is exactly the serial insertion's result
-// (ties go to the lower id, which is the lower quarter); the generator
-// warps then compute the far Taylor parts of the table in tiles of
-// kPartTile entries into two buffers, and the walker warp adds them in
-// table order, leaving out its K, one entry at a time as the serial sum.
-constexpr int kSplitWarps = 1 + kGenWarps;
-constexpr int kPartTile = 16;
+// of the kSplitWarps warps scans a consecutive part of the table for the
+// walkers of its lanes (the K nearest by sorted_insert_ids, and the count
+// within reach) into shared memory; each walker warp merges the parts'
+// sorted lists by (d2, id), which is exactly the serial insertion's result
+// (ties go to the lower id, which is the lower part); the generator warps
+// then compute the far Taylor parts of the table in tiles of kPartTile
+// entries into two buffers, and the walker warps add them in table order,
+// leaving out their K, one entry at a time as the serial sum: the field
+// warp coefficients 0-4, the chain warp 5-9, which it hands over.
+template <bool kFast>
+constexpr int kSplitWarps = kWalkerWarps + kGenWarps<kFast>;
+constexpr int kPartTile = 8;
 constexpr int kPartFloats = 2 * 10 * kPartTile * kWarp;
+constexpr int kBarTaylor = 9;   // the chain warp's far sums handed over
+// The walker warps' places in a split block; the generator warps are the
+// others, in order (a warp's scheduler is its index mod 4).
+constexpr int kChainWarp = 0, kFieldWarp = 1;
 
-// Dynamic shared memory of one split block: the table f32[4, n_pad], the
-// ring, the two far-part buffers, then the quarters' K-lists (f32 and
-// i32 [kSplitWarps, K, 32]) and counts (i32 [kSplitWarps, 32]).
-template <bool kVariants>
-__host__ __device__ constexpr int split_smem_bytes(int n_pad, int k) {
+// Dynamic shared memory of one split block at K slots: the table f32[4,
+// n_pad], the ring, the two far-part buffers, the parts' K-lists (f32 and
+// i32 [kSplitWarps, K, 32]) and counts (i32 [kSplitWarps, 32]), the chain
+// warp's five far sums (f32 [5, 32]), then the hand-off.
+template <bool kFast, bool kVariants, int K>
+__host__ __device__ constexpr int split_smem_bytes(int n_pad) {
   return 16 * n_pad + ring_bytes<kVariants>() + 4 * kPartFloats
-      + 8 * kSplitWarps * k * kWarp + 4 * kSplitWarps * kWarp;
+      + (8 * K + 4) * kSplitWarps<kFast> * kWarp + 4 * 5 * kWarp
+      + hand_bytes<K, kVariants>();
 }
 
-// The walker warp's merge of the quarters' K-lists (s_sd, s_sid), and
-// the chosen dipoles' payload from the table.
+// Two split blocks fit an H100 SM's shared memory (228 KB, of it 1 KB
+// reserved a block) in every mode and at every K, up to a table of 768
+// entries (the headline's 716 dipoles pad to 720); a larger table leaves
+// one, which the occupancy API reports and split_threshold follows.
 template <int K>
+constexpr bool split_fits_two() {
+  constexpr int kSm = 228 * 1024, kTable = 768;
+  return 2 * (split_smem_bytes<false, false, K>(kTable) + 1024) <= kSm
+      && 2 * (split_smem_bytes<false, true, K>(kTable) + 1024) <= kSm
+      && 2 * (split_smem_bytes<true, false, K>(kTable) + 1024) <= kSm
+      && 2 * (split_smem_bytes<true, true, K>(kTable) + 1024) <= kSm;
+}
+template <int... Ks>
+constexpr bool split_fits_two_at(std::integer_sequence<int, Ks...>) {
+  return (split_fits_two<Ks + 1>() && ...);
+}
+static_assert(split_fits_two_at(std::make_integer_sequence<int, kMaxK>{}),
+              "two split blocks a SM at every K");
+
+// A walker warp's merge of the parts' K-lists (s_sd, s_sid), and the
+// chosen dipoles' payload from the table.
+template <int K, int P>
 __device__ __forceinline__ void merge_selected(
     const float* s_sd, const int* s_sid, const float* sx, const float* sy,
     const float* sz, const float* sm, int lane_id, float (&nx)[K],
     float (&ny)[K], float (&nz)[K], float (&nm)[K], int (&sid)[K]) {
-  int head[kSplitWarps];
+  int head[P];
 #pragma unroll
-  for (int w = 0; w < kSplitWarps; ++w) head[w] = 0;
+  for (int w = 0; w < P; ++w) head[w] = 0;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     // at slot s every list has given at most s < K entries
@@ -294,7 +330,7 @@ __device__ __forceinline__ void merge_selected(
     int id = s_sid[head[0] * kWarp + lane_id];
     int from = 0;
 #pragma unroll
-    for (int w = 1; w < kSplitWarps; ++w) {
+    for (int w = 1; w < P; ++w) {
       const int at = (w * K + head[w]) * kWarp + lane_id;
       const float d = s_sd[at];
       if (d < best) {
@@ -304,7 +340,7 @@ __device__ __forceinline__ void merge_selected(
       }
     }
 #pragma unroll
-    for (int w = 0; w < kSplitWarps; ++w) head[w] += from == w ? 1 : 0;
+    for (int w = 0; w < P; ++w) head[w] += from == w ? 1 : 0;
     const int j = max(id, 0);   // n_pad >= K: every slot holds a dipole
     sid[s] = id;
     nx[s] = id >= 0 ? sx[j] : 1e9f;
@@ -314,17 +350,20 @@ __device__ __forceinline__ void merge_selected(
   }
 }
 
-// The split layout: warp 0 walks the block's 32 walkers, warps
-// 1..kGenWarps fill the ring with their draws; all of them share the
-// chunk start (above).  While the walker warp merges, the generator
-// warps fill the ring's first two halves, then the far parts, then the
-// rest of the ring as the walker warp frees it.
+// The split layout: a block serves 32 walkers, one a lane in each warp:
+// warp kChainWarp is their chain warp (run_chain), warp kFieldWarp their
+// field warp (run_field), the others fill the ring with their draws; all
+// of them share the chunk start (above).  While the walker warps merge,
+// the generator warps fill the ring's first two halves, then the far
+// parts, then the rest of the ring as the chain warp frees it.
 template <int K, bool kFast, bool kVariants, bool kDecompose>
-__global__ void __launch_bounds__(kSplitThreads, 1)
+__global__ void __launch_bounds__(kSplitThreads<kFast>, 1)
 chunk_split_kernel(const float* __restrict__ state_in,
                    float* __restrict__ state_out, float* __restrict__ esc,
                    float* __restrict__ cov, float* __restrict__ wins,
                    const float* __restrict__ mnp, int w_pad, Launch a) {
+  constexpr int kParts = kSplitWarps<kFast>;
+  constexpr int kThreads = kSplitThreads<kFast>;
   extern __shared__ float s_dyn[];
   const int n = a.n_pad;
   float* s_mnp = s_dyn;
@@ -335,10 +374,12 @@ chunk_split_kernel(const float* __restrict__ state_in,
   float* ring = s_mnp + 4 * n;
   float* parts = ring + ring_bytes<kVariants>() / 4;
   float* sel_d2 = parts + kPartFloats;
-  int* sel_id = reinterpret_cast<int*>(sel_d2 + kSplitWarps * K * kWarp);
-  int* sel_cnt = sel_id + kSplitWarps * K * kWarp;
+  int* sel_id = reinterpret_cast<int*>(sel_d2 + kParts * K * kWarp);
+  int* sel_cnt = sel_id + kParts * K * kWarp;
+  float* s_taylor = reinterpret_cast<float*>(sel_cnt + kParts * kWarp);
+  float* hand = s_taylor + 5 * kWarp;
   const int tid = threadIdx.x;
-  for (int i = tid; i < 4 * n; i += kSplitThreads) s_mnp[i] = mnp[i];
+  for (int i = tid; i < 4 * n; i += kThreads) s_mnp[i] = mnp[i];
   __syncthreads();
   const int warp = tid / kWarp;
   const int lane_id = tid & (kWarp - 1);
@@ -359,7 +400,7 @@ chunk_split_kernel(const float* __restrict__ state_in,
       sd[s] = 1e30f;
       sid[s] = -1;
     }
-    const int q = (n + kSplitWarps - 1) / kSplitWarps;
+    const int q = (n + kParts - 1) / kParts;
     const int j1 = min(n, (warp + 1) * q);
     int cnt = 0;
     for (int j = warp * q; j < j1; ++j) {
@@ -380,16 +421,17 @@ chunk_split_kernel(const float* __restrict__ state_in,
   __syncthreads();
   const int n_tiles = (n + kPartTile - 1) / kPartTile;
 
-  if (warp > 0) {   // generator warp g = warp - 1
-    const int g = warp - 1;
+  if (warp != kChainWarp && warp != kFieldWarp) {   // generator warp g
+    const int g = warp - (warp > kChainWarp ? 1 : 0)
+        - (warp > kFieldWarp ? 1 : 0);
     const int n_fill = (a.chunk_steps + kFill - 1) / kFill;
     generate<kFast, kVariants>(a, lane, ring, g, lane_id, 0, min(2, n_fill));
     for (int tt = 0; tt < n_tiles; ++tt) {
       const int b = tt & 1;
-      if (tt >= 2) bar_sync(kBarPartEmpty + b, kSplitThreads);
+      if (tt >= 2) bar_sync(kBarPartEmpty + b, kThreads);
       const int e0 = tt * kPartTile;
       const int e1 = min(e0 + kPartTile, n);
-      for (int e = e0 + g; e < e1; e += kGenWarps) {
+      for (int e = e0 + g; e < e1; e += kGenWarps<kFast>) {
         float p[10];
         bz_taylor_parts(ax - sx[e], ay - sy[e], az - sz[e], sm[e], p);
 #pragma unroll
@@ -398,7 +440,7 @@ chunk_split_kernel(const float* __restrict__ state_in,
         }
       }
       __threadfence_block();
-      bar_arrive(kBarPartFull + b, kSplitThreads);
+      bar_arrive(kBarPartFull + b, kThreads);
     }
     generate<kFast, kVariants>(a, lane, ring, g, lane_id, 2, n_fill);
     return;
@@ -407,22 +449,26 @@ chunk_split_kernel(const float* __restrict__ state_in,
   const bool valid = static_cast<unsigned>(gid) < a.num_water;
   float nx[K], ny[K], nz[K], nm[K];
   int sid[K];
-  merge_selected<K>(sel_d2, sel_id, sx, sy, sz, sm, lane_id, nx, ny, nz, nm,
-                    sid);
-  int cnt = 0;
+  merge_selected<K, kParts>(sel_d2, sel_id, sx, sy, sz, sm, lane_id, nx, ny,
+                            nz, nm, sid);
+  if (warp == kChainWarp) {
+    int cnt = 0;
 #pragma unroll
-  for (int w = 0; w < kSplitWarps; ++w) cnt += sel_cnt[w * kWarp + lane_id];
-  const float n_cov = warp_sum(valid && cnt > K ? 1.f : 0.f);
-  if (lane_id == 0) cov[gid / kWarp] = n_cov;
+    for (int w = 0; w < kParts; ++w) cnt += sel_cnt[w * kWarp + lane_id];
+    const float n_cov = warp_sum(valid && cnt > K ? 1.f : 0.f);
+    if (lane_id == 0) cov[gid / kWarp] = n_cov;
+  }
 
   // far Taylor sums over the table, the K selected dipoles left out, in
-  // table order from the generator warps' parts
-  float t[10];
+  // table order from the generator warps' parts: five coefficients in
+  // each walker warp
+  const int c0 = warp == kChainWarp ? 5 : 0;
+  float tp[5];
 #pragma unroll
-  for (int c = 0; c < 10; ++c) t[c] = 0.f;
+  for (int c = 0; c < 5; ++c) tp[c] = 0.f;
   for (int tt = 0; tt < n_tiles; ++tt) {
     const int b = tt & 1;
-    bar_sync(kBarPartFull + b, kSplitThreads);
+    bar_sync(kBarPartFull + b, kThreads);
     const int e0 = tt * kPartTile;
     const int e1 = min(e0 + kPartTile, n);
     for (int e = e0; e < e1; ++e) {
@@ -431,20 +477,37 @@ chunk_split_kernel(const float* __restrict__ state_in,
       for (int s = 0; s < K; ++s) selected |= sid[s] == e;
       const float w = selected ? 0.f : 1.f;
 #pragma unroll
-      for (int c = 0; c < 10; ++c) {
-        t[c] = t[c]
-            + parts[((b * 10 + c) * kPartTile + e - e0) * kWarp + lane_id] * w;
+      for (int c = 0; c < 5; ++c) {
+        tp[c] = tp[c]
+            + parts[((b * 10 + c0 + c) * kPartTile + e - e0) * kWarp + lane_id]
+                * w;
       }
     }
-    if (tt + 2 < n_tiles) bar_arrive(kBarPartEmpty + b, kSplitThreads);
+    if (tt + 2 < n_tiles) bar_arrive(kBarPartEmpty + b, kThreads);
   }
 
-  run_steps<K, kFast, kVariants, kDecompose, kDrawRing>(
-      RegSlots<K>{nx, ny, nz, nm}, t, ax, ay, az, state_in[4 * w_pad + gid],
-      state_in[5 * w_pad + gid],
-      kDecompose ? state_in[6 * w_pad + gid] : 0.f,
-      kDecompose ? state_in[7 * w_pad + gid] : 0.f, valid, lane, a, ring,
-      wins, state_out, esc, w_pad, gid);
+  if (warp == kChainWarp) {
+#pragma unroll
+    for (int c = 0; c < 5; ++c) s_taylor[c * kWarp + lane_id] = tp[c];
+    __threadfence_block();
+    bar_arrive(kBarTaylor, kHandThreads);
+    run_chain<K, kFast, kVariants>(nx, ny, nz, ax, ay, az, valid, a, ring,
+                                   hand, state_out, esc, w_pad, gid);
+  } else {
+    bar_sync(kBarTaylor, kHandThreads);
+    float t[10];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      t[c] = tp[c];
+      t[5 + c] = s_taylor[c * kWarp + lane_id];
+    }
+    run_field<K, kVariants, kDecompose>(
+        RegSlots<K>{nx, ny, nz, nm}, t, ax, ay, az, state_in[4 * w_pad + gid],
+        state_in[5 * w_pad + gid],
+        kDecompose ? state_in[6 * w_pad + gid] : 0.f,
+        kDecompose ? state_in[7 * w_pad + gid] : 0.f, valid, a, hand, wins,
+        state_out, w_pad, gid);
+  }
 }
 
 // The near entry: one walker a thread, its model from the inputs (the
@@ -521,10 +584,10 @@ bool rebuild_kernel(int near_k, bool variants, bool split, int n_pad,
                 chunk_split_kernel<K, kFast, true, kDecompose>)
           : reinterpret_cast<const void*>(
                 chunk_split_kernel<K, kFast, false, kDecompose>);
-      threads = kSplitThreads;
+      threads = kSplitThreads<kFast>;
       walkers = kWarp;
-      smem = variants ? split_smem_bytes<true>(n_pad, K)
-                      : split_smem_bytes<false>(n_pad, K);
+      smem = variants ? split_smem_bytes<kFast, true, K>(n_pad)
+                      : split_smem_bytes<kFast, false, K>(n_pad);
     } else {
       fn = variants ? reinterpret_cast<const void*>(
                           chunk_kernel<K, kFast, true, kDecompose>)

@@ -12,8 +12,10 @@ every mode of both entries tighter: the state, escapes, coverage and
 decompose record bitwise equal to the plain version (the same
 operations in the same order), the window sums within 0.05 (the warp's
 shuffle tree adds in another order than torch) -- the rebuild entry in
-its split layout at 50 and 4032 walkers (and in two waves on Threefry)
-and in its flat layout above the threshold, the near entry at 4096 and
+its split layout at 50 and 4032 walkers (and in two waves on Threefry),
+at 32, 1024 and 4032 walkers at K 1, 5, 10 and 16 (its window sums also
+bit for bit the warp's shuffle tree over the walkers' phases), and in
+its flat layout above the threshold, the near entry at 4096 and
 100096 walkers (its Threefry kernel in one wave), at K 1, 5, 10 and 16
 on a ragged count, and in two waves.  That holds in every
 mode: the Threefry and the fast generator, each with the default
@@ -626,18 +628,80 @@ def _check_rebuild(planes, tbl, args, dec, mode):
 @pytest.mark.parametrize("n", [50, 4032])
 @pytest.mark.parametrize("mode", sorted(ALL_MODES))
 def test_split_layout_bitwise(headline, dev, mode, n):
-    """The rebuild entry's split layout (one walker warp fed by three
-    generator warps) in every mode, at 50 walkers (a Carr-Purcell flip
-    every two windows) and at the headline's 4032."""
+    """The rebuild entry's split layout (32 walkers a block, each on a
+    lane of its chain warp and of its field warp, fed by four generator
+    warps on Threefry and two on the fast generator) in every mode, at 50
+    walkers (a Carr-Purcell flip every two windows) and at the headline's
+    4032; two blocks resident a SM, as the split thresholds assume."""
     p, sc = headline
     planes, tbl, args, dec = _rebuild_case(p, sc, dev, mode, n,
                                            tcp=2 * p.pfreq if n == 50
                                            else None)
     lay = _check_rebuild(planes, tbl, args, dec, mode)
-    assert lay.split and lay.gen_warps == 3 and lay.threads == 128
+    gen_warps = 2 if args["phys"].fast_rng else 4
+    assert lay.split and lay.gen_warps == gen_warps
+    assert lay.threads == 32 * (2 + gen_warps)
     assert lay.blocks == planes.shape[1] // 32 and lay.waves == 1
+    assert lay.blocks_per_sm == 2
     if n == 4032:
         assert lay.blocks >= 120
+
+
+@pytest.mark.parametrize("n", [32, 1024, 4032])
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+def test_split_walker_side_bitwise(headline, dev, mode, k, n):
+    """The split layout's walker side (each walker's step split between
+    its chain warp and its field warp through the hand-off, whose depth
+    falls with K: 16 steps at K 5, 8 at K 10, 4 at K 16) in every mode at
+    K 1, 5, 10 and 16, on 32 walkers (one block holds them all; a
+    Carr-Purcell flip every two windows), 1024 and the headline's 4032
+    (4096 padded): state, escapes, coverage and decompose record bitwise
+    the plain version's, window sums within its tolerance, and the launch
+    shape the runtime reports."""
+    p, sc = headline
+    pk = p.replace(near_k=k).validate()
+    planes, tbl, args, dec = _rebuild_case(pk, sc, dev, mode, n,
+                                           tcp=2 * pk.pfreq if n == 32
+                                           else None)
+    lay = _check_rebuild(planes, tbl, args, dec, mode)
+    gen_warps = 2 if args["phys"].fast_rng else 4
+    assert lay.split and lay.gen_warps == gen_warps
+    assert lay.threads == 32 * (chunk_kernel.WALKER_WARPS + gen_warps)
+    assert lay.blocks == planes.shape[1] // 32 and lay.waves == 1
+
+
+def _block_tree(v):
+    """The 32-wide shuffle tree of ``warp_sum`` (csrc/field_math.cuh) over
+    each row of ``v`` [blocks, 32], in float32: lane i adds lane i + o for
+    o = 16, 8, 4, 2, 1; lane 0's sum."""
+    v = v.clone()
+    for o in (16, 8, 4, 2, 1):
+        v[:, :o] = v[:, :o] + v[:, o:2 * o]
+    return v[:, 0]
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+@pytest.mark.parametrize("mode", sorted(m for m in ALL_MODES
+                                        if "dec" not in m))
+def test_split_window_sums_are_the_warp_tree(headline, dev, mode, k):
+    """The split block's window sums, from its field warp, are bit for
+    bit the 32-wide shuffle tree (``warp_sum``) over the block's walkers
+    in column order: one window a chunk (1000 steps, no flip), so each
+    walker's window phase is its end phase, and torch's cos and sin of it
+    are the kernel's."""
+    p, sc = headline
+    pk = p.replace(near_k=k).validate()
+    assert pk.chunk_steps == pk.pfreq
+    planes, tbl, args, dec = _rebuild_case(pk, sc, dev, mode, 4032)
+    assert (args["step0"] + pk.chunk_steps) % args["tcp"] != 0
+    out, _, _, wins = chunk_kernel.run_chunk(planes, tbl, decompose=dec,
+                                             **args)
+    torch.cuda.synchronize()
+    valid = (torch.arange(out.shape[1], device=dev) < 4032).float()
+    for c, fn in ((0, torch.cos), (1, torch.sin)):
+        want = _block_tree((fn(out[4]) * valid).reshape(-1, 32))
+        assert torch.equal(wins[:, 0, c], want)
 
 
 def _check_flat_above_threshold(dev, mode, rounds=20):
@@ -681,8 +745,10 @@ def test_flat_layout_bitwise_at_other_rounds(dev, mode):
 @pytest.mark.parametrize("mode", sorted(m for m in ALL_MODES
                                         if "fast" not in m))
 def test_split_layout_in_two_waves_bitwise(dev, mode):
-    """On Threefry the rebuild entry keeps the split layout past one wave
-    (chunk_kernel.SPLIT_WAVES): just wider than one wave it runs two."""
+    """The split layout past one wave, as the benchmark forces it at the
+    widths where the rebuild entry takes the flat one
+    (chunk_kernel.SPLIT_WAVES): just wider than one wave it runs two
+    waves, bitwise its plain version, in every Threefry mode."""
     rng_impl, physics, dec = ALL_MODES[mode]
     phys = cuda_engine.chunk_physics(physics(P.Params(
         chunk_steps=1000, near_k=5)).validate(), rng_impl)
@@ -693,7 +759,13 @@ def test_split_layout_in_two_waves_bitwise(dev, mode):
                  num_water=32 * sms * bps + 100).validate()
     sc = BacteriaBox(p, seed=42).populate()
     planes, tbl, args, dec = _rebuild_case(p, sc, dev, mode, p.num_water)
-    lay = _check_rebuild(planes, tbl, args, dec, mode)
+    run = lambda: chunk_kernel._run_chunk_kernel(
+        "chunk_kernel", planes, [tbl], args, dec, tbl.shape[1], "split")
+    got, again = run(), run()
+    ref = cuda_engine.chunk_reference(planes, tbl, decompose=dec, **args)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, again, ref, dec)
+    lay = chunk_kernel.LAYOUTS[_key("chunk_kernel", mode)]
     assert lay.split and lay.waves == 2
 
 

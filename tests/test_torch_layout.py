@@ -1,8 +1,10 @@
 """The chunk kernels' launch layout, as plain Python (no card needed).
 
 ``chunk_kernel.layout`` picks, by width, how a chunk-kernel entry is
-launched: the rebuild entry in the split layout (one walker warp and its
-generator warps per block) up to ``split_threshold`` walkers (a number
+launched: the rebuild entry in the split layout (32 walkers a block, each
+on two lanes, one in its chain warp and one in its field warp, and
+generator warps: four on Threefry, two on the fast generator) up to
+``split_threshold`` walkers (a number
 of its waves that depends on the generator), else in the flat layout
 (one walker per thread, 128 a block), the near entry always flat, its
 K near slots in dynamic shared memory (a float4 per slot and thread).
@@ -10,10 +12,10 @@ Each kernel's threads, dynamic shared memory and resident blocks per SM
 come from the runtime on the card (``KernelInfo``); here they are given
 as the H100 build reports them.
 
-The split layout's chunk start selects over the table's four quarters,
-one per warp, and merges the four K-lists; ``expansion.merge_sorted``
-is that merge's plain version, held here bitwise against the serial
-insertion over the whole table.
+The split layout's chunk start selects over consecutive parts of the
+table, one per warp of the block, and merges the parts' K-lists;
+``expansion.merge_sorted`` is that merge's plain version, held here
+bitwise against the serial insertion over the whole table.
 """
 
 import pytest
@@ -26,9 +28,13 @@ from mri_nanoparticle_simulation_tpu_torch.engine import cuda_engine
 from mri_nanoparticle_simulation_tpu_torch.fields import expansion
 
 SMS = 132
-#: dynamic shared memory of a split block at the headline (a 720-entry
-#: table, the ring, the far parts and the K-lists at K 5)
-SPLIT_SMEM = 79424
+#: dynamic shared memory of a split block at the headline on Threefry (a
+#: 720-entry table, the ring, the far parts, the K-lists at K 5 and the
+#: hand-off): two fit an SM
+SPLIT_SMEM = 94336
+#: threads of a split block on Threefry: two walker warps (a chain warp
+#: and a field warp, two lanes a walker) and four generator warps
+SPLIT_THREADS = 192
 
 
 def _near_info(bps=6, k=10):
@@ -37,7 +43,7 @@ def _near_info(bps=6, k=10):
     return {"flat": ck.KernelInfo(80, bps, 16 * k * ck.BLOCK, ck.BLOCK)}
 
 
-def _infos(split_bps=2, flat_bps=6, split_threads=128):
+def _infos(split_bps=2, flat_bps=6, split_threads=SPLIT_THREADS):
     """The rebuild entry's two kernels as the runtime reports them: the
     split one with its dynamic table and ring, the flat one with its
     static table."""
@@ -52,8 +58,8 @@ def test_rebuild_entry_spreads_small_widths_over_the_card(num_water,
     w_pad = cuda_engine.pad_count(num_water)
     lay = ck.layout("chunk_kernel", w_pad, SMS, _infos(), fast_rng)
     assert lay.split
-    assert lay.blocks == w_pad // 32 and lay.threads == 128
-    assert lay.gen_warps == 3
+    assert lay.blocks == w_pad // 32 and lay.threads == SPLIT_THREADS
+    assert lay.gen_warps == 4
     assert lay.smem == SPLIT_SMEM
     assert lay.waves == 1
     if num_water >= 4032:
@@ -94,21 +100,22 @@ def test_threshold_both_sides(sms, split_bps, fast_rng):
 
 
 def test_split_threshold_follows_the_occupancy():
-    assert ck.SPLIT_WAVES == {False: 2, True: 1}
+    assert ck.SPLIT_WAVES == {False: 1, True: 1}
     assert ck.split_threshold(132, _infos(1), True) == 4224
     assert ck.split_threshold(132, _infos(2), True) == 8448
     assert ck.split_threshold(100, _infos(4), True) == 12800
-    assert ck.split_threshold(132, _infos(2), False) == 16896
+    assert ck.split_threshold(132, _infos(2), False) == 8448
 
 
-@pytest.mark.parametrize("fast_rng, w_pad, kind, waves", [
-    (False, 8576, "split", 2), (False, 16896, "split", 2),
-    (False, 33792, "flat", 1), (False, 50688, "flat", 1),
-    (True, 8576, "flat", 1), (True, 4096, "split", 1)])
+@pytest.mark.parametrize("fast_rng", [False, True])
+@pytest.mark.parametrize("w_pad, kind, waves", [
+    (4096, "split", 1), (4352, "split", 1), (8448, "split", 1),
+    (8576, "flat", 1), (12800, "flat", 1), (16896, "flat", 1),
+    (17024, "flat", 1), (25472, "flat", 1)])
 def test_threshold_at_the_measured_widths(fast_rng, w_pad, kind, waves):
-    """The widths ``benchmark.py --rebuild-ms`` timed on the H100 (132
-    SMs, 2 split blocks per SM): Threefry keeps the split layout up to
-    16896 walkers, the fast generator only within one wave."""
+    """The widths timed on the H100 (132 SMs, 2 split blocks per SM, 6
+    flat ones): both generators keep the split layout within one wave
+    (8448 walkers) and take the flat one above it."""
     lay = ck.layout("chunk_kernel", w_pad, SMS, _infos(), fast_rng)
     assert (lay.kind, lay.waves) == (kind, waves)
 
@@ -143,17 +150,31 @@ def test_near_entry_takes_its_shared_memory_from_the_runtime(k, bps,
     assert lay.waves == waves
 
 
-@pytest.mark.parametrize("threads, gen_warps", [(64, 1), (128, 3),
-                                                (160, 4), (256, 7)])
+@pytest.mark.parametrize("threads, gen_warps", [(96, 1), (128, 2),
+                                                (160, 3), (256, 6)])
 def test_generator_warps_are_the_threads_the_runtime_reports(threads,
                                                              gen_warps):
-    """One walker warp a block; every other warp the kernel launches
-    with is a generator warp."""
+    """Two walker warps a block, each with a lane of every walker; every
+    other warp the kernel launches with is a generator warp."""
     lay = ck.layout("chunk_kernel", 4096, SMS,
                     _infos(split_threads=threads))
-    assert lay.split and (lay.threads, lay.gen_warps) == (threads,
-                                                          gen_warps)
+    assert lay.split and (lay.threads, lay.gen_warps) == (threads, gen_warps)
+    assert lay.threads == 32 * (ck.WALKER_WARPS + lay.gen_warps)
     assert lay.blocks == 128
+
+
+@pytest.mark.parametrize("fast_rng, threads, gen_warps", [(False, 192, 4),
+                                                          (True, 128, 2)])
+def test_split_layout_at_the_headline_width(fast_rng, threads, gen_warps):
+    """At the headline (4032 walkers, 4096 padded, K 5) the split layout
+    is 128 blocks of 32 walkers, each block a chain warp, a field warp and
+    the generator warps: four on Threefry (192 threads), two on the fast
+    generator (128 threads, a scheduler for each warp)."""
+    lay = ck.layout("chunk_kernel", 4096, SMS,
+                    _infos(split_threads=threads), fast_rng)
+    assert (lay.kind, lay.blocks, lay.threads,
+            lay.gen_warps) == ("split", 128, threads, gen_warps)
+    assert (lay.blocks_per_sm, lay.waves) == (2, 1)
 
 
 @pytest.mark.parametrize("kind, w_pad, blocks, waves", [
@@ -187,8 +208,9 @@ def _serial(d2, k):
     return d2s, ids
 
 
-def _split_then_merge(d2, k, parts=4):
-    """The kernel's chunk start: each of ``parts`` warps inserts over a
+def _split_then_merge(d2, k, parts):
+    """The kernel's chunk start: each of ``parts`` warps (a split block's:
+    six on Threefry, four on the fast generator) inserts over a
     consecutive ceil(n / parts) rows; the lists are merged."""
     n = d2.shape[0]
     q = -(-n // parts)
@@ -203,19 +225,20 @@ def _split_then_merge(d2, k, parts=4):
 
 @settings(max_examples=200, deadline=None)
 @given(data=st.data(), k=st.integers(1, 8), n=st.integers(1, 40),
-       walkers=st.integers(1, 3))
+       walkers=st.integers(1, 3), parts=st.sampled_from([4, 6]))
 def test_split_selection_merges_to_the_serial_insertion(data, k, n,
-                                                        walkers):
+                                                        walkers, parts):
     """Distances drawn from a few values, so ties and duplicates are
-    common: the merge of the four quarters' lists is bitwise the serial
-    insertion over the whole table, distances and ids."""
+    common: the merge of the parts' lists (one per warp of a split block,
+    four or six) is bitwise the serial insertion over the whole table,
+    distances and ids."""
     n = max(n, k)      # the kernels take n_pad >= K
     values = data.draw(st.lists(st.sampled_from(
         [0.0, 0.25, 1.0, 1.0 + 2 ** -20, 2.0, 3e12]), min_size=n * walkers,
         max_size=n * walkers))
     d2 = torch.tensor(values, dtype=torch.float32).reshape(n, walkers)
     want = _serial(d2, k)
-    got = _split_then_merge(d2, k)
+    got = _split_then_merge(d2, k, parts)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
 
