@@ -2783,7 +2783,7 @@ def dispersion_table(keep, path):
                 delimiter=",", ndmin=2)
             curves[si, ti, :, 0] = rows[:, 1] / p.num_water
     times = (np.arange(1, curves.shape[2] + 1) * p.pfreq) * p.tau
-    sim._write_dispersion(path, times, curves, scales, taucps, p.num_water)
+    dec.write_dispersion(path, times, curves, scales, taucps, p.num_water)
 
 
 def sharded(ctx, keep, label):

@@ -47,6 +47,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import analysis
+from ..io import writer as writer_mod
 from ..params import Params
 from ..utils import profiling
 from ..utils.device import require_cuda
@@ -334,11 +336,12 @@ def run_decomposition(scene, params: Params, seed: int = 0, *,
     split = {"device_s": 0.0, "copy_s": 0.0, "host_s": 0.0}
 
     def commit(a_blk, b_blk, ss_i, i):
-        if consumer is not None:
-            consumer.update(a_blk, b_blk)
-        else:
-            a_parts.append(a_blk.copy())
-            b_parts.append(b_blk.copy())
+        with profiling.span("record.commit"):
+            if consumer is not None:
+                consumer.update(a_blk, b_blk)
+            else:
+                a_parts.append(a_blk.copy())
+                b_parts.append(b_blk.copy())
 
     t_start = time.perf_counter()
     ss = _one_deep(sp, sp.state, range(n_sprints), commit, split)
@@ -1416,6 +1419,87 @@ def curves_at_plane(A, B, scales, taucps, params: Params,
     dA, dB = window_increments(A, B, params)
     return reconstruct_curves(dA, dB, scales, taucps, params,
                               quadrature=quadrature)
+
+
+def write_curves(curves, params: Params, scales, taucps, csv_path: str,
+                 quadrature: bool = False, log=None) -> None:
+    """One T2 CSV per grid point of ``curves`` ``[s, t, n, 2]`` (walker
+    means of cos and sin), in the reference's schema of walker sums
+    (cuda_sim.cu:1013,1022): ``<stem>_mscale=<s>[_taucp=<t>]<ext>``
+    beside ``csv_path``, the echo spacing in the name unless ``taucps``
+    is None (the run's own spacing).  ``log(line)`` hears each path."""
+    stem, ext = os.path.splitext(csv_path)
+    for si, s in enumerate(scales):
+        for ti, t_cp in enumerate([params.taucp] if taucps is None
+                                  else taucps):
+            pv = params.replace(mmoment=params.mmoment * s,
+                                taucp=t_cp).validate()
+            path = f"{stem}_mscale={s:g}"
+            if taucps is not None:
+                path += f"_taucp={t_cp:g}"
+            path += ext or ".csv"
+            wins = curves[si, ti] * params.num_water
+            with writer_mod.T2CsvWriter(path, pv,
+                                        quadrature=quadrature) as w:
+                w.append_windows(0, wins)
+            if log is not None:
+                log(f"  mscale={s:g} taucp={t_cp:g}: wrote {path}")
+
+
+def write_dispersion(path: str, times_ms, curves, scales, taucps,
+                     num_water: int, log=None) -> None:
+    """The CPMG dispersion table: a T2 fit of each grid point's spin-echo
+    envelope, nan rows where it cannot be fit (``log(line)`` hears
+    why)."""
+    with open(path, "w") as f:
+        f.write("mscale,taucp_ms,r2_per_ms,t2_ms,r_squared,n_echoes,"
+                "t2_stderr_ms\n")
+        for si, s in enumerate(scales):
+            for ti, t_cp in enumerate(taucps):
+                curve = curves[si, ti, :, 0] * num_water
+                try:
+                    te, me = analysis.sample_at_echoes(times_ms, curve,
+                                                       t_cp)
+                    fit = analysis.fit_t2(te, me)
+                    f.write(f"{s:g},{t_cp:g},{1.0 / fit.t2_ms},"
+                            f"{fit.t2_ms},{fit.r_squared},{fit.n_used},"
+                            f"{fit.t2_stderr_ms}\n")
+                except ValueError as e:
+                    if log is not None:
+                        log(f"  fit-r2: mscale={s:g} taucp={t_cp:g} "
+                            f"unfittable ({e})")
+                    f.write(f"{s:g},{t_cp:g},nan,nan,nan,0,nan\n")
+
+
+def record_products(res: DecompositionResult, params: Params, scales,
+                    taucps, csv_path: str, *, quadrature: bool = False,
+                    fit_r2: Optional[str] = None, log=None) -> np.ndarray:
+    """The record path's products after a decomposition run (the CLI's
+    record branch, README configuration 5c): the walker-mean curves of
+    every (scale, echo spacing) point reconstructed on the host in
+    float64 from the record ``res`` (``curves_at_plane``; without
+    ``taucps``, ``curves_at_scales`` at the run's own spacing), a CSV a
+    point (``write_curves``) and with ``fit_r2`` the CPMG dispersion
+    table at that path (``write_dispersion``).  Returns the curves
+    ``[s, t, n, 2]``."""
+    with profiling.span("record.reconstruct"):
+        if taucps is None:
+            curves = curves_at_scales(res.A, res.B, scales, quadrature=True)
+            # [s, 2, n] -> [s, 1, n, 2], the plane's layout
+            curves = np.moveaxis(curves, 1, -1)[:, None]
+        else:
+            curves = curves_at_plane(res.A, res.B, scales, taucps, params,
+                                     quadrature=True)
+    with profiling.span("record.write"):
+        write_curves(curves, params, scales, taucps, csv_path, quadrature,
+                     log)
+        if fit_r2:
+            write_dispersion(fit_r2, res.times_ms, curves, scales,
+                             [params.taucp] if taucps is None else taucps,
+                             params.num_water, log)
+            if log is not None:
+                log(f"CPMG dispersion table written: {fit_r2}")
+    return curves
 
 
 def open_record(path: str):

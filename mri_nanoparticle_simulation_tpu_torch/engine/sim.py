@@ -1340,33 +1340,19 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
                                             engine=args.engine,
                                             rng_impl=args.rng, cache=cache)
             t_rec = time.perf_counter()
-            if taucps is None:
-                curves = dec.curves_at_scales(res.A, res.B, scales,
-                                              quadrature=True)
-                # [s, 2, n] -> [s, 1, n, 2] so one writer loop serves both
-                curves = np.moveaxis(curves, 1, -1)[:, None]
-            else:
-                curves = dec.curves_at_plane(res.A, res.B, scales, taucps,
-                                             params, quadrature=True)
+            curves = dec.record_products(
+                res, params, scales, taucps, csv_path,
+                quadrature=args.quadrature, fit_r2=args.fit_r2, log=_say)
     wall = time.perf_counter() - t0
     recon_s = 0.0 if t_rec is None else t0 + wall - t_rec
-    stem, ext = os.path.splitext(csv_path)
-    for si, s in enumerate(scales):
-        for ti, t_cp in enumerate(taucps_eff):
-            pv = params.replace(mmoment=params.mmoment * s,
-                                taucp=t_cp).validate()
-            path = f"{stem}_mscale={s:g}"
-            if taucps is not None:
-                path += f"_taucp={t_cp:g}"
-            path += ext or ".csv"
-            # walker MEANS -> the reference schema's walker SUMS
-            # (cuda_sim.cu:1013,1022)
-            wins = curves[si, ti] * params.num_water
-            with writer_mod.T2CsvWriter(path, pv,
-                                        quadrature=args.quadrature) as w:
-                w.append_windows(0, wins)
-            print(f"  mscale={s:g} taucp={t_cp:g}: wrote {path}",
-                  file=sys.stderr)
+    if t_rec is None:
+        # the plane and stream branches' products, as the record's
+        dec.write_curves(curves, params, scales, taucps, csv_path,
+                         args.quadrature, log=_say)
+        if args.fit_r2:
+            dec.write_dispersion(args.fit_r2, res.times_ms, curves, scales,
+                                 taucps_eff, params.num_water, log=_say)
+            _say(f"CPMG dispersion table written: {args.fit_r2}")
     if args.dump_record:
         # after the CSVs: a dump failure must never cost the run's
         # primary products
@@ -1383,11 +1369,6 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
         print(f"Spin-echo capture written: {args.dump_echoes} "
               f"({len(echoes)} grid point(s); bootstrap with "
               f"mri-t2-fit --echoes)", file=sys.stderr)
-    if args.fit_r2:
-        _write_dispersion(args.fit_r2, res.times_ms, curves, scales,
-                          taucps_eff, params.num_water)
-        print(f"CPMG dispersion table written: {args.fit_r2}",
-              file=sys.stderr)
     st = res.stats
     n_pts = len(scales) * len(taucps_eff)
     rate = params.t * params.num_water / wall if wall > 0 else 0.0
@@ -1395,7 +1376,8 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
     # plane steps on --plane-device), the copies to the host (each
     # sprint's record, or the curves once after the run), the host's
     # work (on each sprint's record while the next sprint runs, or on
-    # the curves), then the reconstruction after the run
+    # the curves), then the reconstruction and its products after the
+    # run (the record branch)
     what = ("on-device plane run", "curve copy", "host after the run") \
         if args.plane_device else ("decomposition run", "record copy",
                                    "host per sprint")
@@ -1404,8 +1386,8 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
               f"({st['walker_steps_per_s']:.4e} walker-steps/s) over "
               f"{st['sprints']} sprints: device {st['device_s']:.4f} s, "
               f"{what[1]} {st['copy_s']:.4f} s, {what[2]} "
-              f"{st['host_s']:.4f} s; reconstruction after the run "
-              f"{recon_s:.4f} s", file=sys.stderr)
+              f"{st['host_s']:.4f} s; reconstruction and products after "
+              f"the run {recon_s:.4f} s", file=sys.stderr)
     _trace_written(args)
     print(f"(moment x taucp)-plane reconstruction complete: {n_pts} "
           f"grid point(s) from ONE {params.t}-step run in {wall:.1f}s "
@@ -1415,26 +1397,8 @@ def _run_decomposition_cli(ap, args, params: Params, csv_path: str,
     return 0
 
 
-def _write_dispersion(path, times_ms, curves, scales, taucps, num_water):
-    """The CPMG dispersion table: a T2 fit of each grid point's spin-echo
-    envelope, nan rows where it cannot be fit."""
-    with open(path, "w") as f:
-        f.write("mscale,taucp_ms,r2_per_ms,t2_ms,r_squared,n_echoes,"
-                "t2_stderr_ms\n")
-        for si, s in enumerate(scales):
-            for ti, t_cp in enumerate(taucps):
-                curve = curves[si, ti, :, 0] * num_water
-                try:
-                    te, me = analysis.sample_at_echoes(times_ms, curve,
-                                                       t_cp)
-                    fit = analysis.fit_t2(te, me)
-                    f.write(f"{s:g},{t_cp:g},{1.0 / fit.t2_ms},"
-                            f"{fit.t2_ms},{fit.r_squared},{fit.n_used},"
-                            f"{fit.t2_stderr_ms}\n")
-                except ValueError as e:
-                    print(f"  fit-r2: mscale={s:g} taucp={t_cp:g} "
-                          f"unfittable ({e})", file=sys.stderr)
-                    f.write(f"{s:g},{t_cp:g},nan,nan,nan,0,nan\n")
+def _say(line: str) -> None:
+    print(line, file=sys.stderr)
 
 
 if __name__ == "__main__":
