@@ -13,8 +13,9 @@ measured, and any failure raises (exit code != 0, no final line):
    parallel), print seconds and registers/spills of every entry and
    chunk-kernel mode (Threefry or fast generator, default physics or
    variants), each for K = 1..16; then csrc/math_check.cu: the kernels'
-   sqrt_fast and rsqrt_ftz bitwise sqrtf's and rsqrtf's over every
-   float input each can see;
+   sqrt_fast, rsqrt_ftz, rcp_fast and sincos_fast bitwise sqrtf's,
+   rsqrtf's, 1.f / x's, sinf's and cosf's over every float input each
+   can see;
 3. rebuild kernel vs plain version (engine/cuda_engine.chunk_reference)
    on the same CUDA inputs at the main path's shapes, 50 and 4032
    walkers, in the split layout (128 blocks at 4032, each a chain warp, a

@@ -122,18 +122,33 @@ FAR_SUMS_K10 = "far_sums_kernelILi10E"
 #: reads (a step pair on the fast generator)
 NEAR_K10 = {False: "chunk_near_kernelILi10ELb0ELb0ELb0E",
             True: "chunk_near_kernelILi10ELb1ELb0ELb0E"}
-#: the same of the split kernel's K-5 kernels (the headline), whose walker
-#: warps' step loops ``sass_loop`` reads: the chain warp's, the one loop
-#: that stores the hand-off and reads the ring without an rsqrt, and the
-#: field warp's, the one that takes rsqrt of what it reads and stores
-#: nothing (the generator warps' loops read no shared memory, and the far
-#: parts' loop both takes rsqrt and stores)
-SPLIT_K5 = {False: "chunk_split_kernelILi5ELb0ELb0ELb0E",
-            True: "chunk_split_kernelILi5ELb1ELb0ELb0E"}
+#: the split kernel's walker warps' step loops, as ``innermost_loop`` finds
+#: them: the chain warp's, the one loop that stores the hand-off and reads
+#: the ring without an rsqrt, and the field warp's, the one that takes
+#: rsqrt of what it reads and stores nothing (the generator warps' loops
+#: read no shared memory, and the far parts' loop both takes rsqrt and
+#: stores); ``SLOW_PATHS`` are counted in both: an IEEE division or square
+#: root brings a MUFU.RCP or a CALL to its slow path, under a BSSY
 CHAIN_LOOP = dict(ops=("STS", "LDS"), without=("MUFU.RSQ",))
 FIELD_LOOP = dict(ops=("MUFU.RSQ", "LDS"), without=("STS",))
+SLOW_PATHS = ("CALL", "MUFU.RCP", "BSSY")
 _GENERATOR = {cuda_engine.RNG_THREEFRY: "Threefry-20",
               cuda_engine.RNG_HARDWARE: "fast generator (Philox4x32-10)"}
+
+
+def split_kernel(k: int, fast: bool, variants: bool = False) -> str:
+    """The mangled name of the split kernel (the rebuild entry's split
+    layout, not in decompose mode) at ``k`` near slots, on the fast
+    generator or Threefry, in the default physics or the variants."""
+    return (f"chunk_split_kernelILi{k}ELb{int(fast)}ELb{int(variants)}"
+            "ELb0E")
+
+
+def hand_fields(k: int, variants: bool = False) -> int:
+    """Floats of one walker-step in the split kernel's hand-off
+    (``field_math.cuh:hand_fields``): the chain warp's step loop stores
+    each once and the field warp's loads each once, as written."""
+    return 2 * k + 4 + (4 if variants else 0)
 
 
 def all_variants(p: Params) -> Params:
@@ -343,47 +358,66 @@ def _model_cases(dev):
                                                              idx)}
 
 
-def sass_loop(ck, kernel: str, ops=("MUFU.RSQ",), without=()) -> dict:
-    """The innermost loop that holds an instruction of each opcode of
-    ``ops`` (a reciprocal square root, MUFU.RSQ, unless asked otherwise)
-    and none of ``without``, in the SASS (``cuobjdump -sass`` beside nvcc)
-    of the entry whose mangled name holds ``kernel``, in the library of
-    ``ck`` (a tree's ``engine.chunk_kernel``, built here if it is not):
-    ``innermost_loop`` of its text.  In the far-sums kernel that loop is
-    the pair loop, one MUFU.RSQ a (walker, dipole) pair; in a chunk kernel
-    the step loop (the near entry: a step on Threefry, a step pair on the
-    fast generator; the split kernel's walker warps, ``SPLIT_K5``: the
-    chain warp's with ``CHAIN_LOOP``, the field warp's with
-    ``FIELD_LOOP``)."""
+def kernel_sass(ck, kernel: str) -> tuple:
+    """(mangled name, SASS text) of the entry whose mangled name holds
+    ``kernel``, from ``cuobjdump -sass`` beside nvcc, in the library of
+    ``ck`` (a tree's ``engine.chunk_kernel``, built here if it is not)."""
     ck.build()
     name = re.search(r"Compiling entry function '(\w*" + kernel + r"\w*)'",
                      ck.build_log()).group(1)
     tool = Path(ck._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", "-fun", name,
-                           str(ck.library_path())], capture_output=True,
-                          text=True, check=True).stdout
+    return name, subprocess.run([str(tool), "-sass", "-fun", name,
+                                 str(ck.library_path())], capture_output=True,
+                                text=True, check=True).stdout
+
+
+def sass_loop(ck, kernel: str, ops=("MUFU.RSQ",), without=()) -> dict:
+    """The innermost loop that holds an instruction of each opcode of
+    ``ops`` (a reciprocal square root, MUFU.RSQ, unless asked otherwise)
+    and none of ``without``, in the SASS of the entry whose mangled name
+    holds ``kernel`` (``kernel_sass``): ``innermost_loop`` of its text.  In
+    the far-sums kernel that loop is the pair loop, one MUFU.RSQ a
+    (walker, dipole) pair; in a chunk kernel the step loop (the near
+    entry: a step on Threefry, a step pair on the fast generator; the
+    split kernel's walker warps: ``split_step_loops``)."""
+    name, sass = kernel_sass(ck, kernel)
     try:
         return innermost_loop(sass, ops, without)
     except ValueError as e:
         raise RuntimeError(f"{e} in the SASS of {name}") from None
 
 
-def split_step_loops(ck, fast: bool) -> dict:
-    """The split kernel's walker warps' step loops at K 5 in the default
-    physics (``SPLIT_K5``), in the library of ``ck``: the chain warp's and
-    the field warp's ``sass_loop``, each with its instructions a step (the
-    chain warp stores 2 K + 4 floats a step, the field warp takes K
-    rsqrt; the compiler unrolls both loops)."""
-    k = 5
-    chain = sass_loop(ck, SPLIT_K5[fast], **CHAIN_LOOP)
-    field = sass_loop(ck, SPLIT_K5[fast], **FIELD_LOOP)
-    return {"chain": {**chain, "per_step": chain["instructions"] * (2 * k + 4)
+def split_step_loops(ck, fast: bool, k: int = 5,
+                     variants: bool = False) -> dict:
+    """The split kernel's walker warps' step loops (``step_loops``) at
+    ``k`` near slots in the default physics or the variants
+    (``split_kernel``), in the library of ``ck``; by default the
+    headline's kernel."""
+    name, sass = kernel_sass(ck, split_kernel(k, fast, variants))
+    try:
+        return step_loops(sass, k, variants)
+    except ValueError as e:
+        raise RuntimeError(f"{e} in the SASS of {name}") from None
+
+
+def step_loops(sass: str, k: int, variants: bool = False) -> dict:
+    """The chain warp's (``CHAIN_LOOP``) and the field warp's
+    (``FIELD_LOOP``) step loops in the SASS text ``sass`` of a split kernel
+    at ``k`` near slots, each with its instructions a step: the chain warp
+    stores and the field warp loads ``hand_fields`` floats a step (the
+    compiler unrolls both loops), and ``counts`` also holds
+    ``SLOW_PATHS``."""
+    f = hand_fields(k, variants)
+    chain = innermost_loop(sass, **CHAIN_LOOP, also=SLOW_PATHS)
+    field = innermost_loop(sass, **FIELD_LOOP, also=SLOW_PATHS)
+    return {"chain": {**chain, "per_step": chain["instructions"] * f
                       / chain["counts"]["STS"]},
-            "field": {**field, "per_step": field["instructions"] * k
-                      / field["counts"]["MUFU.RSQ"]}}
+            "field": {**field, "per_step": field["instructions"] * f
+                      / field["counts"]["LDS"]}}
 
 
-def innermost_loop(sass: str, ops=("MUFU.RSQ",), without=()) -> dict:
+def innermost_loop(sass: str, ops=("MUFU.RSQ",), without=(),
+                   also=()) -> dict:
     """The innermost loop (a backward branch and the instructions from
     its target to it) that holds, in the SASS text ``sass``, an
     instruction whose opcode starts with each of ``ops`` and none that
@@ -391,7 +425,8 @@ def innermost_loop(sass: str, ops=("MUFU.RSQ",), without=()) -> dict:
     once: a loop nested in it counts once, and a branch never taken counts
     too), its MUFU.RSQ, and the instructions of each loop nested in it
     (``inner``), with ``counts``, the instructions of each opcode of
-    ``ops``, where others than a MUFU.RSQ are asked for; the smallest such
+    ``ops`` and of ``also``, where others than a MUFU.RSQ are asked for
+    (``also``'s need not be there); the smallest such
     loop where there are several, and every one of them, in address
     order, as ``copies`` (the near entry's Threefry kernel holds two
     copies of its step loop: the rounds of Threefry-20 unrolled, and the
@@ -414,10 +449,10 @@ def innermost_loop(sass: str, ops=("MUFU.RSQ",), without=()) -> dict:
         return sum(o.startswith(prefix) for o in lp[2])
     held = [lp for lp in loops if all(count(lp, p) for p in ops)
             and not any(count(lp, p) for p in without)]
-    default = tuple(ops) == ("MUFU.RSQ",) and not without
+    default = tuple(ops) == ("MUFU.RSQ",) and not without and not also
     copies = [{"instructions": len(lp[2]), "rsqrt": count(lp, "MUFU.RSQ"),
-               **({} if default else {"counts": {p: count(lp, p)
-                                                 for p in ops}}),
+               **({} if default else {"counts": {
+                   p: count(lp, p) for p in (*ops, *also)}}),
                "inner": [len(n[2]) for n in loops if within(n, lp)]}
               for lp in sorted(held, key=lambda lp: lp[:2])
               if not any(within(n, lp) for n in held)]

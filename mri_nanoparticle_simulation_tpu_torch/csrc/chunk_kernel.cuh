@@ -92,10 +92,11 @@
 //   two on the fast generator, four on Threefry; the ring of kRingSteps
 //   = 32 steps).  At the headline width (4096 padded walkers) that is
 //   128 blocks, one per SM, where the flat layout put 32 blocks on 32
-//   SMs; two blocks fit an SM (split_smem_bytes).  The generator warps draw everything a step needs that does not
-//   depend on the walker's position (the step's displacement in and out
-//   of a cell, the coin and the kick uniform) ahead of the walker warps
-//   into the ring.  Each walker is held by a lane of each walker warp,
+//   SMs; two blocks fit an SM (split_smem_bytes).  The generator warps
+//   draw and finish everything a step needs that does not depend on the
+//   walker's position (the step's displacement in and out of a cell, the
+//   coin, the intracellular kick with its Cauchy term) ahead of the walker
+//   warps into the ring.  Each walker is held by a lane of each walker warp,
 //   which split its step by task (PERF.md section 6): the chain warp runs
 //   the move, the near distances, the in-cell test and the bounce, the
 //   chain from step to step, and hands each step's distances over through
@@ -283,24 +284,48 @@ constexpr int kBarTaylor = 9;   // the chain warp's far sums handed over
 // others, in order (a warp's scheduler is its index mod 4).
 constexpr int kChainWarp = 0, kFieldWarp = 1;
 
-// Dynamic shared memory of one split block at K slots: the table f32[4,
-// n_pad], the ring, the two far-part buffers, the parts' K-lists (f32 and
-// i32 [kSplitWarps, K, 32]) and counts (i32 [kSplitWarps, 32]), the chain
-// warp's five far sums (f32 [5, 32]), then the hand-off.
+// Dynamic shared memory of one split block at K slots before its
+// hand-off: the table f32[4, n_pad], the ring, the two far-part buffers,
+// the parts' K-lists (f32 and i32 [kSplitWarps, K, 32]) and counts (i32
+// [kSplitWarps, 32]) and the chain warp's five far sums (f32 [5, 32]).
 template <bool kFast, bool kVariants, int K>
-__host__ __device__ constexpr int split_smem_bytes(int n_pad) {
+__host__ __device__ constexpr int split_fixed_bytes(int n_pad) {
   return 16 * n_pad + ring_bytes<kVariants>() + 4 * kPartFloats
-      + (8 * K + 4) * kSplitWarps<kFast> * kWarp + 4 * 5 * kWarp
-      + hand_bytes<K, kVariants>();
+      + (8 * K + 4) * kSplitWarps<kFast> * kWarp + 4 * 5 * kWarp;
 }
 
 // Two split blocks fit an H100 SM's shared memory (228 KB, of it 1 KB
 // reserved a block) in every mode and at every K, up to a table of 768
 // entries (the headline's 716 dipoles pad to 720); a larger table leaves
 // one, which the occupancy API reports and split_threshold follows.
+constexpr int kSmBytes = 228 * 1024, kFitTable = 768;
+
+// The hand-off's steps in a split block (run_chain, run_field): a power
+// of two from 4 to 32, at most 32 KB, and halved while two blocks would
+// not fit an SM at kFitTable.
+template <bool kFast, bool kVariants, int K>
+__host__ __device__ constexpr int split_hand_steps() {
+  constexpr int kBytes = hand_fields<K, kVariants>() * kWarp * 4;
+  int d = 32;
+  while (d > 4 && (d * kBytes > 32768
+                   || 2 * (split_fixed_bytes<kFast, kVariants, K>(kFitTable)
+                           + d * kBytes + 1024) > kSmBytes)) {
+    d /= 2;
+  }
+  return d;
+}
+
+// Dynamic shared memory of one split block at K slots, the hand-off last.
+template <bool kFast, bool kVariants, int K>
+__host__ __device__ constexpr int split_smem_bytes(int n_pad) {
+  return split_fixed_bytes<kFast, kVariants, K>(n_pad)
+      + split_hand_steps<kFast, kVariants, K>() * hand_fields<K, kVariants>()
+          * kWarp * 4;
+}
+
 template <int K>
 constexpr bool split_fits_two() {
-  constexpr int kSm = 228 * 1024, kTable = 768;
+  constexpr int kSm = kSmBytes, kTable = kFitTable;
   return 2 * (split_smem_bytes<false, false, K>(kTable) + 1024) <= kSm
       && 2 * (split_smem_bytes<false, true, K>(kTable) + 1024) <= kSm
       && 2 * (split_smem_bytes<true, false, K>(kTable) + 1024) <= kSm
@@ -491,8 +516,9 @@ chunk_split_kernel(const float* __restrict__ state_in,
     for (int c = 0; c < 5; ++c) s_taylor[c * kWarp + lane_id] = tp[c];
     __threadfence_block();
     bar_arrive(kBarTaylor, kHandThreads);
-    run_chain<K, kFast, kVariants>(nx, ny, nz, ax, ay, az, valid, a, ring,
-                                   hand, state_out, esc, w_pad, gid);
+    run_chain<K, kFast, kVariants, split_hand_steps<kFast, kVariants, K>()>(
+        nx, ny, nz, ax, ay, az, valid, a, ring, hand, state_out, esc, w_pad,
+        gid);
   } else {
     bar_sync(kBarTaylor, kHandThreads);
     float t[10];
@@ -501,7 +527,8 @@ chunk_split_kernel(const float* __restrict__ state_in,
       t[c] = tp[c];
       t[5 + c] = s_taylor[c * kWarp + lane_id];
     }
-    run_field<K, kVariants, kDecompose>(
+    run_field<K, kVariants, kDecompose,
+              split_hand_steps<kFast, kVariants, K>()>(
         RegSlots<K>{nx, ny, nz, nm}, t, ax, ay, az, state_in[4 * w_pad + gid],
         state_in[5 * w_pad + gid],
         kDecompose ? state_in[6 * w_pad + gid] : 0.f,

@@ -564,8 +564,36 @@ ALL_MODES = {
 }
 
 
+def _cell_variants(p):
+    """The variant physics of the benchmark's ``variants`` configuration:
+    the intended kick and permeable membranes, with cube directions and no
+    gradient (the hand-off keeps no position, and the ring's kick is
+    finished without sphere directions)."""
+    return p.replace(kick_mode=P.KICK_INTENDED).with_permeability()
+
+
+#: the split layout's modes: all eight, and the benchmark's variant
+#: physics on both generators, with and without decompose
+SPLIT_MODES = {
+    **ALL_MODES,
+    "cell": (cuda_engine.RNG_THREEFRY, _cell_variants, False),
+    "fast+cell": (cuda_engine.RNG_HARDWARE, _cell_variants, False),
+    "cell+dec": (cuda_engine.RNG_THREEFRY, _cell_variants, True),
+    "fast+cell+dec": (cuda_engine.RNG_HARDWARE, _cell_variants, True),
+}
+
+
 def _key(entry, mode):
     return entry + (f"[{mode}]" if mode else "")
+
+
+#: the rebuild entry's LAUNCHES key of each split mode: the benchmark's
+#: variant physics launches the variant modes
+SPLIT_KEYS = {**{m: _key("chunk_kernel", m) for m in ALL_MODES},
+              "cell": "chunk_kernel[variants]",
+              "fast+cell": "chunk_kernel[fast+variants]",
+              "cell+dec": "chunk_kernel[variants+dec]",
+              "fast+cell+dec": "chunk_kernel[fast+variants+dec]"}
 
 
 def _assert_bitwise(got, again, ref, dec):
@@ -596,9 +624,9 @@ def headline(dev):
 
 
 def _rebuild_case(p, sc, dev, mode, n, tcp=None):
-    """The state after one kernel chunk of ``n`` walkers in ``mode``, and
-    the arguments of the next chunk."""
-    rng_impl, physics, dec = ALL_MODES[mode]
+    """The state after one kernel chunk of ``n`` walkers in ``mode`` (of
+    ``SPLIT_MODES``), and the arguments of the next chunk."""
+    rng_impl, physics, dec = SPLIT_MODES[mode]
     pm = physics(p).validate()
     st = init_state(sc.waters[:n], pm, dev, decompose=dec)
     planes = cuda_engine.to_soa(st, pm).planes
@@ -614,7 +642,7 @@ def _rebuild_case(p, sc, dev, mode, n, tcp=None):
 
 
 def _check_rebuild(planes, tbl, args, dec, mode):
-    key = _key("chunk_kernel", mode)
+    key = SPLIT_KEYS[mode]
     before = chunk_kernel.LAUNCHES[key]
     got = chunk_kernel.run_chunk(planes, tbl, decompose=dec, **args)
     again = chunk_kernel.run_chunk(planes, tbl, decompose=dec, **args)
@@ -626,11 +654,12 @@ def _check_rebuild(planes, tbl, args, dec, mode):
 
 
 @pytest.mark.parametrize("n", [50, 4032])
-@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+@pytest.mark.parametrize("mode", sorted(SPLIT_MODES))
 def test_split_layout_bitwise(headline, dev, mode, n):
     """The rebuild entry's split layout (32 walkers a block, each on a
     lane of its chain warp and of its field warp, fed by four generator
-    warps on Threefry and two on the fast generator) in every mode, at 50
+    warps on Threefry and two on the fast generator) in every mode, and
+    in the benchmark's variant physics, at 50
     walkers (a Carr-Purcell flip every two windows) and at the headline's
     4032; two blocks resident a SM, as the split thresholds assume."""
     p, sc = headline
@@ -648,13 +677,15 @@ def test_split_layout_bitwise(headline, dev, mode, n):
 
 
 @pytest.mark.parametrize("n", [32, 1024, 4032])
-@pytest.mark.parametrize("k", [1, 5, 10, 16])
-@pytest.mark.parametrize("mode", sorted(ALL_MODES))
+@pytest.mark.parametrize("k", [1, 4, 5, 10, 12, 16])
+@pytest.mark.parametrize("mode", sorted(SPLIT_MODES))
 def test_split_walker_side_bitwise(headline, dev, mode, k, n):
     """The split layout's walker side (each walker's step split between
     its chain warp and its field warp through the hand-off, whose depth
-    falls with K: 16 steps at K 5, 8 at K 10, 4 at K 16) in every mode at
-    K 1, 5, 10 and 16, on 32 walkers (one block holds them all; a
+    falls with K: 16 steps at K 5, 8 at K 10, 4 at K 16; with the
+    variants 16 at K 4, and at K 12 8 on the fast generator and 4 on
+    Threefry) in every mode and in the benchmark's variant physics at
+    K 1, 4, 5, 10, 12 and 16, on 32 walkers (one block holds them all; a
     Carr-Purcell flip every two windows), 1024 and the headline's 4032
     (4096 padded): state, escapes, coverage and decompose record bitwise
     the plain version's, window sums within its tolerance, and the launch

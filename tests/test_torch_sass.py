@@ -6,13 +6,21 @@ kernel holds several copies; asked for other opcodes, the innermost loop
 that holds each of them and none of those it is to be without.
 ``chip_smoke`` prints the near entry's step loop, the split kernel's
 chain and field warps' step loops and the far sums' pair loop this way
-(``benchmark.sass_loop`` feeds it ``cuobjdump -sass``)."""
+(``benchmark.sass_loop`` feeds it ``cuobjdump -sass``), and
+``benchmark.step_loops`` counts the split kernel's walker loops a step in
+either physics."""
+
+import re
+from pathlib import Path
 
 import pytest
 
+from mri_nanoparticle_simulation_tpu_torch import benchmark
 from mri_nanoparticle_simulation_tpu_torch.benchmark import (CHAIN_LOOP,
                                                          FIELD_LOOP,
-                                                         innermost_loop)
+                                                         hand_fields,
+                                                         innermost_loop,
+                                                         step_loops)
 
 
 def _sass(lines):
@@ -99,3 +107,71 @@ def test_walker_loops_of_the_split_kernel():
     assert innermost_loop(_sass(SPLIT))["instructions"] == 4
     with pytest.raises(ValueError, match="and a SHFL and no STS"):
         innermost_loop(_sass(SPLIT), ops=("LDS", "SHFL"), without=("STS",))
+
+
+def _split_listing(k, variants, steps, field_extra=()):
+    """A split kernel's SASS at ``k`` slots: a generator's draw loop (an
+    rsqrt and a store), the chain warp's step loop of ``steps`` steps (a
+    ring load and ``hand_fields`` hand-off stores a step, the kept
+    position's under a forward branch) and the field warp's (``hand_fields``
+    loads, ``k`` rsqrt and ``field_extra`` a step)."""
+    f = hand_fields(k, variants)
+    lines = ["MUFU.RSQ R4, R2", "STS [R3], R2", "@P0 BRA 0x0"]
+    chain = len(lines)
+    for _ in range(steps):
+        lines += ["LDS R6, [R7]", "FADD R2, R2, R6", "BSSY B0, 0x10"]
+        lines += [f"STS [R5+{hex(128 * j)}], R2" for j in range(f)]
+        lines += ["BSYNC B0"]
+    lines += [f"@P2 BRA {hex(16 * chain)}"]
+    field = len(lines)
+    for _ in range(steps):
+        lines += [f"LDS R6, [R5+{hex(128 * j)}]" for j in range(f)]
+        lines += ["MUFU.RSQ R7, R6"] * k + ["FADD R1, R1, R7", *field_extra]
+    lines += [f"@P4 BRA {hex(16 * field)}", "EXIT"]
+    # each loop's instructions, its backward branch included
+    return _sass(lines), field - chain, len(lines) - 1 - field
+
+
+#: the parent's variant field loop held the intended kick's IEEE
+#: reciprocal and square root, each a slow path under a BSSY and a CALL
+SLOW = ("BSSY B1, 0x100", "MUFU.RCP R8, R9", "CALL.REL.NOINC 0x2000",
+        "BSYNC B1", "BSSY B2, 0x200", "CALL.REL.NOINC 0x2400", "BSYNC B2")
+
+
+@pytest.mark.parametrize("k, variants, field_extra, slow", [
+    (5, False, (), {"CALL": 0, "MUFU.RCP": 0, "BSSY": 0}),
+    (10, True, (), {"CALL": 0, "MUFU.RCP": 0, "BSSY": 0}),
+    (10, True, SLOW, {"CALL": 4, "MUFU.RCP": 2, "BSSY": 4}),
+    (1, True, (), {"CALL": 0, "MUFU.RCP": 0, "BSSY": 0}),
+])
+def test_step_loops_of_a_split_kernel(k, variants, field_extra, slow):
+    """``step_loops`` counts each walker warp's step loop a step, at any K
+    and in either physics: the chain warp's by its hand-off stores and the
+    field warp's by its hand-off loads (``hand_fields`` a step, 2 K + 4
+    in the default physics and 2 K + 8 with the variants), over the two
+    steps the compiler unrolls; and the slow paths of an IEEE division or
+    square root (``SLOW_PATHS``) in each."""
+    sass, chain_n, field_n = _split_listing(k, variants, 2, field_extra)
+    loops = step_loops(sass, k, variants)
+    assert hand_fields(k, variants) == 2 * k + (8 if variants else 4)
+    assert loops["chain"]["instructions"] == chain_n
+    assert loops["chain"]["per_step"] == chain_n / 2
+    assert loops["chain"]["counts"]["BSSY"] == 2
+    assert loops["chain"]["counts"]["CALL"] == 0
+    assert loops["field"]["instructions"] == field_n
+    assert loops["field"]["per_step"] == field_n / 2
+    assert loops["field"]["rsqrt"] == 2 * k
+    assert {p: loops["field"]["counts"][p] for p in slow} == slow
+
+
+def test_hand_fields_is_the_kernels():
+    """``benchmark.hand_fields`` counts the hand-off's floats as
+    ``csrc/field_math.cuh:hand_fields`` does, at every K in both
+    physics."""
+    src = (Path(benchmark.__file__).parent / "csrc"
+           / "field_math.cuh").read_text()
+    m = re.search(r"hand_fields\(\) \{\s*return 2 \* K \+ 4 \+ "
+                  r"\(kVariants \? (\d+) : 0\);", src)
+    assert m is not None
+    assert all(hand_fields(k, v) == 2 * k + 4 + (int(m.group(1)) if v else 0)
+               for k in range(1, 17) for v in (False, True))
