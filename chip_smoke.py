@@ -60,7 +60,7 @@ measured, and any failure raises (exit code != 0, no final line):
    blocks per SM, waves, registers and spills; the near entry's two
    default modes with no local memory (Threefry: its slots in shared
    memory, one wave), and their SASS step loop (instructions a step,
-   beside ``step_ops``); and the
+   beside ``counts.step_ops``); and the
    candidate-model kernel at the scale-up width (one wave: 6 or more
    blocks per SM, at most 80 registers, no spill);
 9. (a) the fast and variant modes against their plain versions: the
@@ -283,6 +283,7 @@ from mri_nanoparticle_simulation_tpu_torch.utils.device import (  # noqa: E402
     card_label, require_cuda)
 from mri_nanoparticle_simulation_tpu_torch.utils import (  # noqa: E402
     profiling)
+from port_bench.work import counts  # noqa: E402
 
 POS_TOL = 1e-4     # tests/test_pallas.py:109-111, compiled kernel vs plain
 WIN_TOL = 0.05
@@ -311,151 +312,23 @@ ARMS = {"intended": ("GOLDEN_T2_FULL_intended", 0.025, 0.060),
 PKG = "mri_nanoparticle_simulation_tpu_torch/csrc/"
 REF = "mri_nanoparticle_simulation_tpu/"
 REPLACES = REF + "engine/pallas_engine.py:171"
-#: the card's peak rates for the bounds (NVIDIA H100 SXM at 700 W, 132
-#: SMs at 1.98 GHz): HBM3 bytes/s; the published float32 rate outside
-#: the tensor cores, 67 TFLOP/s (128 FP32 lanes per SM and cycle, a fused
-#: multiply-add counted as two operations); issue slots, 4 schedulers x
-#: 32 lanes per SM and cycle; and the INT32 lanes, 64 per SM and cycle
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 2 * 128 * 132 * 1.98e9
-PEAK_ISSUE = 128 * 132 * 1.98e9
-PEAK_INT32 = 64 * 132 * 1.98e9
 
 
-def bound(nbytes, flops, iops):
-    """(bound_ms, bound_by): the least time the card could take for work
-    that moves ``nbytes`` and does ``flops`` float and ``iops`` integer
-    operations: the larger of the bytes over the memory rate
-    ("bytes") and the operations' time ("operations").  The operations'
-    time is the larger of two: the issue slots, which float and integer
-    instructions share, with the float operations at the published
-    float32 peak (two to a fused multiply-add, one slot) and each integer
-    one a slot; and the integer operations over the INT32 lanes.  The
-    kernels are built with --fmad=false, so they issue one instruction
-    per float operation and can reach half the float rate counted here
-    (``issue_bound_ms`` gives that figure)."""
-    t_ops = max(flops / PEAK_FP32 + iops / PEAK_ISSUE, iops / PEAK_INT32)
-    t_bytes = nbytes / PEAK_BYTES
-    return ((1e3 * t_bytes, "bytes") if t_bytes > t_ops
-            else (1e3 * t_ops, "operations"))
+def work_mode(phys) -> counts.Mode:
+    """The ``counts.Mode`` (what sets a walker-step's work) of a
+    ``cuda_engine.ChunkPhysics``."""
+    return counts.Mode(phys.fast_rng, phys.pfreq, phys.chunk_steps,
+                       phys.near_k, phys.reflect, phys.intended, phys.sphere,
+                       any(phys.gradient))
 
 
 def issue_bound_ms(nbytes, flops, iops):
-    """``bound``'s time with every float operation in an issue slot of
-    its own, as the kernels' --fmad=false code issues it: what the
+    """``counts.bound``'s time with every float operation in an issue slot
+    of its own, as the kernels' --fmad=false code issues it: what the
     uncontracted build could reach at best."""
-    return 1e3 * max(nbytes / PEAK_BYTES, (flops + iops) / PEAK_ISSUE,
-                     iops / PEAK_INT32)
-
-
-def cand_model_work(w, p, cache):
-    """(bytes, float operations) of one candidate-model launch on ``w``
-    walkers: the anchors, the scene's candidate table (4 columns) and far
-    table read once, the near, taylor and n_reach outputs written once;
-    per walker 8 float operations of distance and 4K of insertion for
-    each of the C candidates, 65 of Taylor parts for each of the C - K
-    not selected, and 20 per far-table coefficient (its value, gradient
-    and Hessian terms)."""
-    c, k = cache.cand_table.shape[1], p.near_k
-    nc = cache.far_coeffs.shape[1]
-    nbytes = (4 * (3 + 4 * k + 10 + 1) * w + 4 * cache.cand_table.numel()
-              + 4 * cache.far_coeffs.numel())
-    return nbytes, w * (c * (8 + 4 * k) + (c - k) * 65 + 20 * nc)
-
-
-def far_sums_work(w, n_pad, k):
-    """(bytes, float operations, integer operations) of one far-sums
-    launch: the table once, the anchors, the K near ids and the 10 sums
-    per walker; 65 float operations per walker and table entry (the
-    Taylor parts and their accumulation) and, per walker, one integer
-    operation for each of the K ids it leaves out."""
-    return 16 * n_pad + 4 * (3 + k + 10) * w, 65 * w * n_pad, k * w
-
-
-def far_sums_bound(w, n_pad, k):
-    """(bound_ms, bound_by) of one far-sums launch (``far_sums_work``)."""
-    return bound(*far_sums_work(w, n_pad, k))
-
-
-#: integer operations per walker of one Threefry-2x32-20 block
-#: (field_math.cuh:threefry2x32_n): 20 rounds of add, rotate (one funnel
-#: shift), xor; of each key injection only the add into x1, since
-#: ``kb + (g + 1)`` is the same for every walker and ``x0 += ka`` folds
-#: into the next round's add (one three-input add), plus the last
-#: injection's add into x0.  The initial ``c1 + k1`` is the same on every
-#: step of a walker and ``step + k0`` on every walker: none.
-THREEFRY_IOPS = 20 * 3 + 5 + 1
-#: integer operations per walker of one Philox4x32-10 block
-#: (field_math.cuh:philox4x32_10): per round 2 mul.hi, 2 mul.lo and two
-#: three-input xors (one LOP3 each); the key schedule is the same for
-#: every walker (the key comes from the launch).  The counter is (step,
-#: lane, block, 0), so only the lane is the walker's own: round 1 has 1
-#: such operation, round 2 has 3, round 3 has 4, rounds 4-10 have 6.
-PHILOX_IOPS = 1 + 3 + 4 + 7 * 6
-
-
-def step_ops(phys, k):
-    """(float, integer) operations of one walker-step of the chunk kernel
-    in the mode of ``phys``, counted from csrc/field_math.cuh:run_steps
-    (a multiply, add, compare, select or conversion is one operation; a
-    transcendental one; work that is the same for every walker of the
-    launch is not counted):
-
-    * field at the new position (eval_field): 19 per near slot (offsets,
-      d^2, rsqrt, r^-5, the masked term, the minimum) + 30 for the far
-      Taylor polynomial; the move, in-cell test, kick, window sum: 25;
-    * Threefry: three (four with reflection or the intended kick)
-      blocks of ``THREEFRY_IOPS``, the uniforms (a shift each: 5, +1 for
-      the coin, +1 for the kick; 5 conversions and scalings), the normal
-      (6) and the cube direction with its inverse norm (13), escape
-      tracking (9);
-    * fast generator, per step half a step pair: two Philox4x32-10
-      blocks (three with sphere directions and a variant) of
-      ``PHILOX_IOPS``, the polynomial Box-Muller (40 per pair), the
-      packed directions (6 integer, 16 float per pair), escape tracking
-      every second (pfreq % 4 != 0) or fourth step;
-    * variants: reflection 10, intended kick 12, gradient 7, sphere
-      directions 12 (Threefry: per step; fast: the same per step)."""
-    flops = 19 * k + 30 + 25
-    iops = 0
-    extra = int(phys.reflect) + int(phys.intended)
-    if phys.fast_rng:
-        blocks = 2 + int((8 if phys.sphere else 5) + 2 * extra > 8)
-        iops += blocks * PHILOX_IOPS / 2 + 3
-        flops += 20 + 8 + 9 / (2 if phys.pfreq % 4 else 4)
-    else:
-        iops += (4 if extra else 3) * THREEFRY_IOPS + 5 + extra
-        flops += 5 + 6 + 13 + 9
-    flops += (10 * phys.reflect + 12 * phys.intended + 7 * any(phys.gradient)
-              + 12 * phys.sphere)
-    return flops, iops
-
-
-def chunk_bound(w, phys, n_pad=0, decompose=False):
-    """(bound_ms, bound_by) of one chunk-kernel launch on ``w`` real
-    walkers (the padding walkers are no work): the rebuild entry over an
-    ``n_pad``-entry dipole table, or (``n_pad`` 0) the near entry.
-    Bytes: the state in and out, escapes, coverage, the window output
-    (warp sums, or the per-walker record in decompose mode), and the
-    model (the table once; near and taylor per walker).  Operations:
-    ``step_ops`` per walker-step (+1 float for the second accumulator in
-    decompose mode), and in the rebuild entry the chunk-start selection
-    over the table (8 + 4K per entry) and far sums (65 + K per entry)."""
-    k = phys.near_k
-    n_win = phys.chunk_steps // phys.pfreq
-    rows = 8 if decompose else 6
-    warps = -(-w // 32)
-    wins = n_win * 2 * w if decompose else warps * n_win * 2
-    nbytes = 4 * (2 * rows * w + w + warps + wins)
-    f, i = step_ops(phys, k)
-    flops = w * phys.chunk_steps * (f + decompose)
-    iops = w * phys.chunk_steps * i
-    if n_pad:
-        nbytes += 16 * n_pad
-        flops += w * n_pad * (8 + 4 * k + 65 + k)
-    else:
-        nbytes += 4 * (4 * k + 10) * w
-    return bound(nbytes, flops, iops)
+    return 1e3 * max(nbytes / counts.PEAK_BYTES,
+                     (flops + iops) / counts.PEAK_ISSUE,
+                     iops / counts.PEAK_INT32)
 
 
 def phase(name):
@@ -638,7 +511,8 @@ def main():
         lambda: chunk_kernel.run_chunk(planes, tbl, **args), 5)
     _, plain_ms = timed(
         lambda: cuda_engine.chunk_reference(planes, tbl, **args))
-    main_bound = chunk_bound(args["num_water"], args["phys"], tbl.shape[1])
+    main_bound = counts.bound(*counts.chunk_work(
+        args["num_water"], work_mode(args["phys"]), tbl.shape[1]))
     lay = chunk_kernel.LAYOUTS["chunk_kernel"]
     check(lay.split and lay.blocks >= 120 and lay.waves == 1,
           f"headline layout {lay}")
@@ -646,8 +520,7 @@ def main():
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     edge = chunk_kernel.split_threshold(sms, {
         "split": chunk_kernel.kernel_info("chunk_kernel", args["phys"],
-                                          False, "split", tbl.shape[1])},
-        args["phys"].fast_rng)
+                                          False, "split", tbl.shape[1])})
     wide = Params(chunk_steps=1000, near_k=5, num_water=edge + 100).validate()
     compare_chunk(wide, BacteriaBox(wide, seed=42).populate(), dev,
                   wide.num_water)
@@ -885,7 +758,8 @@ def near_step_sass(phys, lay, dev, label):
     wave (checked; the fast generator keeps them in registers, in two
     waves: PERF.md section 6); and its
     SASS step loop (``sass_loop``: a step, or a step pair on the fast
-    generator) against ``step_ops``; returns its kernels-line fields."""
+    generator) against ``counts.step_ops``; returns its kernels-line
+    fields."""
     info = chunk_kernel.kernel_info("chunk_near_kernel", phys, device=dev)
     check(info.local_bytes == 0 and (phys.fast_rng or (
         lay.waves == 1 and lay.smem == info.smem > 0)),
@@ -896,7 +770,7 @@ def near_step_sass(phys, lay, dev, label):
     copies = sass_loop(chunk_kernel, NEAR_K10[phys.fast_rng])["copies"]
     sass = max(copies, key=lambda c: c["instructions"])
     steps = 2 if phys.fast_rng else 1
-    f, i = step_ops(phys, phys.near_k)
+    f, i = counts.step_ops(work_mode(phys))
     per_step = sass["instructions"] / steps
     print(f"    SASS step loop: {sass['instructions']} instructions for "
           f"{steps} step(s), {sass['rsqrt']} MUFU.RSQ, nested loops "
@@ -958,8 +832,10 @@ def mode_phases(dev, label, p, sc, ctx):
               flush=True)
         out[key] = dict(pos_err=max(pos50, pos_err),
                         win_err=max(win50, win_err), k=pm.near_k, ms=ms,
-                        plain_ms=plain, bound=chunk_bound(
-                            args["num_water"], args["phys"], tbl.shape[1]))
+                        plain_ms=plain, bound=counts.bound(
+                            *counts.chunk_work(args["num_water"],
+                                               work_mode(args["phys"]),
+                                               tbl.shape[1])))
     big = ctx["p"]
     for rng_impl, physics in (("hardware", lambda q: q),
                               ("threefry", all_variants),
@@ -981,8 +857,9 @@ def mode_phases(dev, label, p, sc, ctx):
               f"{plain:.1f} ms [{label}]", flush=True)
         out[key] = dict(pos_err=max(pos_err, pos_full),
                         win_err=max(win_err, win_full), k=big.near_k,
-                        ms=ms, plain_ms=plain, bound=chunk_bound(
-                            fargs["num_water"], fargs["phys"]))
+                        ms=ms, plain_ms=plain, bound=counts.bound(
+                            *counts.chunk_work(fargs["num_water"],
+                                               work_mode(fargs["phys"]))))
     done(t0, f"{len(out)} modes [{label}]")
     return out
 
@@ -1209,8 +1086,9 @@ def decompose_modes(dev, label, p, sc, ctx):
         out[key] = dict(pos_err=max(e[0] for e in errs),
                         ab_err=max(e[1] for e in errs), k=pm.near_k, ms=ms,
                         plain_ms=errs[-1][2], sibling_ms=sib_ms,
-                        bound=chunk_bound(args["num_water"], args["phys"],
-                                          tbl.shape[1], decompose=True))
+                        bound=counts.bound(*counts.chunk_work(
+                            args["num_water"], work_mode(args["phys"]),
+                            tbl.shape[1], decompose=True)))
     big = ctx["p"]
     planes = dec_planes(ctx["planes"])
     full = dec_planes(ctx["full"])
@@ -1246,8 +1124,9 @@ def decompose_modes(dev, label, p, sc, ctx):
               f"sibling {sib_ms:.3f} ms [{label}]", flush=True)
         out[key] = dict(pos_err=pos_err, ab_err=ab_err, k=big.near_k, ms=ms,
                         plain_ms=plain, sibling_ms=sib_ms,
-                        bound=chunk_bound(fargs["num_water"], phys,
-                                          decompose=True))
+                        bound=counts.bound(*counts.chunk_work(
+                            fargs["num_water"], work_mode(phys),
+                            decompose=True)))
     done(t0, f"{len(out)} decompose modes [{label}]")
     return out
 
@@ -3437,10 +3316,13 @@ def large_scene_phases(dev, label):
         fpos, p, runner.cache, reach2), 20)
     near_ms = time_chunk(lambda: chunk_kernel.run_chunk_near(
         full, fnear, ftaylor, **fargs), 3)
-    near_bound = chunk_bound(fargs["num_water"], fargs["phys"])
-    cand_work = cand_model_work(p.num_water, p, runner.cache)
-    cand_bound = bound(*cand_work, 0)
-    cand_issue = issue_bound_ms(*cand_work, 0)
+    near_bound = counts.bound(*counts.chunk_work(fargs["num_water"],
+                                                 work_mode(fargs["phys"])))
+    cand_work = counts.cand_model_work(
+        p.num_water, p.near_k, runner.cache.cand_table.shape[1],
+        p.cube_hash_dim, runner.cache.far_coeffs.shape[1])
+    cand_bound = counts.bound(*cand_work)
+    cand_issue = issue_bound_ms(*cand_work)
     done(t0, f"per chunk at {fpos.shape[1]} walkers: candidate-model "
          f"{cand_ms:.4f} ms (plain {cand_plain_ms:.2f} ms; bound "
          f"{cand_bound[0]:.4f} ms, {cand_bound[1]}; {cand_issue:.4f} ms "
@@ -3477,8 +3359,9 @@ def large_scene_phases(dev, label):
     far_ms = time_chunk(lambda: chunk_kernel.run_far_sums(
         apos, runner0.mnp_tbl.tbl, idx0), 5)
     far_shape = (p0.num_water, runner0.mnp_tbl.tbl.shape[1], idx0.shape[0])
-    far_bound = far_sums_bound(*far_shape)
-    far_issue = issue_bound_ms(*far_sums_work(*far_shape))
+    far_work = counts.far_sums_work(*far_shape)
+    far_bound = counts.bound(*far_work)
+    far_issue = issue_bound_ms(*far_work)
     far_info = chunk_kernel.far_sums_info(p0.near_k, dev)
     far_lay = chunk_kernel.LAYOUTS["far_sums_kernel"]
     check(far_lay == chunk_kernel.walker_layout(

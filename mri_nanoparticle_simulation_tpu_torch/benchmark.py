@@ -20,39 +20,32 @@ The headline value and ``detail.scaleup`` run Threefry, the generator
 of the port's earlier figures; ``detail.fast_rng`` holds both runs on
 the fast generator (the runner's default).  Without a card it raises.
 
-Two further modes print one JSON line each:
+``--rebuild-ms [DIR]`` prints one JSON line of the ms per launch of the
+candidate-model kernel (``build_planes``: K 10, C 32, far-table order 5;
+the walkers in the scene's order and shuffled) and of the far-sums
+kernel (5256 dipoles, K 10) at the scale-up width (100096 walkers, the
+initial walkers' anchors), 7 rounds of 20 launches, with the far sums'
+SASS pair loop (``sass_loop``: its instructions for its pairs); the ms
+of a chunk of the scale-up's order-0 sprints (the near entry, the cube
+selection and the far sums; 7 rounds of 10 chunks, wall between CUDA
+events), in turns three times over; then the chunk kernel's ms per chunk
+in every mode of both entries: the rebuild entry at the headline shape
+(4032 walkers, K 5) and the near entry at the scale-up width (100096
+walkers, K 10), 4000 steps, 7 rounds of 10 launches, with the layout
+each launch took (and the SASS step loops in the two default modes: the
+near entry's, and the split kernel's chain and field warps',
+``sass_loop``); then the rebuild entry on the headline's scene at the
+widths of ``REBUILD_WIDTHS`` (both sides of the split layout's
+threshold, up to a 100k-walker small scene) in both its layouts. Each
+round runs between two CUDA events behind a sleep of the stream, so it
+times the device and not the host's calls. With DIR, the port's package
+of the checkout at DIR (e.g. the parent commit, unpacked with ``git
+archive``) is loaded beside this one and timed in turns on the same
+inputs: DIR, this, this, DIR (at the widths each tree in both layouts:
+DIR flat, this flat, this split, DIR split, and back).
 
-* ``--profile [--far-table-order N]``: the scale-up path's device time
-  per kernel over 20 chunks (torch.profiler), and its device idle share
-  (one minus the traced device time over the wall time of the same
-  traced chunks); at order 0 the path of the exact far sums;
-* ``--rebuild-ms [DIR]``: the ms per launch of the candidate-model
-  kernel (``build_planes``: K 10, C 32, far-table order 5; the walkers
-  in the scene's order and shuffled) and of the far-sums kernel (5256
-  dipoles, K 10) at the scale-up width (100096 walkers, the initial
-  walkers' anchors), 7 rounds of 20 launches, with the far sums' SASS
-  pair loop (``sass_loop``: its instructions for its pairs); the ms of
-  a chunk of the scale-up's order-0 sprints (the near entry, the cube
-  selection and the far sums; 7 rounds of 10 chunks, wall between CUDA
-  events), in turns three times over; then
-  the chunk kernel's ms per chunk in every mode of both entries: the
-  rebuild entry at the headline shape (4032 walkers, K 5) and the near
-  entry at the scale-up width (100096 walkers, K 10), 4000 steps, 7 rounds
-  of 10 launches, with the layout each launch took (and the SASS step
-  loops in the two default modes: the near entry's, and the split
-  kernel's chain and field warps', ``sass_loop``); then the rebuild
-  entry on the headline's scene at the widths of ``REBUILD_WIDTHS`` (both
-  sides of the split layout's threshold, up to a 100k-walker small scene)
-  in both its layouts.  Each round runs between two CUDA events behind a
-  sleep of the stream, so it times the device and not the host's calls.
-  With DIR, the port's package of the checkout at DIR (e.g. the parent
-  commit, unpacked with ``git archive``) is loaded beside this one and
-  timed in turns on the same inputs: DIR, this, this, DIR (at the
-  widths each tree in both layouts: DIR flat, this flat, this split, DIR
-  split, and back).
-
-    python -m mri_nanoparticle_simulation_tpu_torch.benchmark [--profile
-        [--far-table-order N] | --rebuild-ms [DIR]]
+    python -m mri_nanoparticle_simulation_tpu_torch.benchmark [--rebuild-ms
+        [DIR]]
 """
 
 from __future__ import annotations
@@ -96,8 +89,6 @@ SCALEUP = dict(num_water=100_000, num_cells=2000, tau=5e-7,
 GRADIENT = (0.0, 0.0, 3e-5)
 #: 2e4-step scale-up sprints timed after the warm-up sprint
 N_SCALEUP_SPRINTS = 10
-#: scale-up sprints (5 chunks each) traced by --profile
-N_PROFILE_SPRINTS = 4
 #: order-0 scale-up sprints (5 chunks each) a round of --rebuild-ms
 N_ORDER0_SPRINTS = 2
 #: times --rebuild-ms runs the order-0 sprints in turns (DIR, this,
@@ -171,13 +162,11 @@ def _timed_sprints(sprint, n, ss, *args, **kw):
     return start.elapsed_time(end) / 1e3, ss, wins
 
 
-def _scaleup_setup(rng_impl: str = cuda_engine.RNG_THREEFRY,
-                   order: int = 5):
-    """The scale-up scene, its table and cache (far table of ``order``;
-    none at 0) on the card, its sprint and the state after one warm-up
-    sprint."""
+def scaleup_rate(rng_impl: str = cuda_engine.RNG_THREEFRY) -> dict:
+    """Walker-steps/s of the large-scene path at full width, after one
+    warm-up sprint."""
     dev = require_cuda()
-    p = Params(**SCALEUP, far_table_order=order).validate()
+    p = Params(**SCALEUP).validate()
     sc = BacteriaBox(p, seed=42).populate()
     tbl = mnp_table(sc.mnps, torch.float32, dev)
     chunk_kernel.load_library()
@@ -191,12 +180,6 @@ def _scaleup_setup(rng_impl: str = cuda_engine.RNG_THREEFRY,
     ss = cuda_engine.to_soa(init_state(sc.waters, p, dev), p)
     ss, _ = sprint(tbl, key, ss, cache=cache)        # warm-up
     torch.cuda.synchronize()
-    return p, sc, tbl, cache, cache_s, key, sprint, ss
-
-
-def scaleup_rate(rng_impl: str = cuda_engine.RNG_THREEFRY) -> dict:
-    """Walker-steps/s of the large-scene path at full width."""
-    p, sc, tbl, cache, cache_s, key, sprint, ss = _scaleup_setup(rng_impl)
     seconds, ss, wins = _timed_sprints(sprint, N_SCALEUP_SPRINTS, ss, tbl,
                                        key, cache=cache)
     rate = N_SCALEUP_SPRINTS * p.sprint_steps * p.num_water / seconds
@@ -212,47 +195,6 @@ def scaleup_rate(rng_impl: str = cuda_engine.RNG_THREEFRY) -> dict:
         "escapes": int(ss.escapes),
         "coverage_violations": int(ss.coverage),
         "sum_cos_per_walker": float(wins[-1, 0]) / p.num_water,
-    }
-
-
-def scaleup_profile(top: int = 12, order: int = 5) -> dict:
-    """Device time per kernel of the scale-up path at far-table order
-    ``order`` (torch.profiler over ``N_PROFILE_SPRINTS`` sprints), and
-    the device idle share against the wall time of those same traced
-    sprints, which ends in a device sync.  At order 0 every chunk runs
-    the cube selection of the near ids in torch, the far-sums kernel and
-    the near entry."""
-    from torch.profiler import ProfilerActivity, profile
-
-    p, _, tbl, cache, _, key, sprint, ss = _scaleup_setup(order=order)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(N_PROFILE_SPRINTS):
-            ss, _ = sprint(tbl, key, ss, cache=cache)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the kernels themselves: the CPU-side ops that launched them carry
-    # the same device time again
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    device_us = sum(e.self_device_time_total for e in rows)
-    if not device_us:
-        raise RuntimeError("the profiler recorded no device time")
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    return {
-        "config": "scale-up path, 100000 waters, K 10, far-table order "
-                  f"{order}, Threefry",
-        "label": card_label(),
-        "chunks": N_PROFILE_SPRINTS * p.sprint_steps // p.chunk_steps,
-        "traced_wall_s": wall,
-        "device_us": device_us,
-        "device_idle_share": 1.0 - device_us / 1e6 / wall,
-        "kernels": [{"name": e.key[:100], "calls": e.count,
-                     "us": e.self_device_time_total,
-                     "share": e.self_device_time_total / device_us}
-                    for e in rows[:top]],
     }
 
 
@@ -722,23 +664,13 @@ def headline_rate() -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--profile", action="store_true",
-                      help="device time per kernel of the scale-up path")
-    ap.add_argument("--far-table-order", type=int, default=5,
-                    help="with --profile: the scale-up path's far-table "
-                         "order (0: the exact far sums every chunk)")
-    mode.add_argument("--rebuild-ms", nargs="?", const="", default=None,
-                      metavar="DIR",
-                      help="kernel ms per launch (the candidate model and "
-                           "far sums, every mode of both chunk entries); "
-                           "with DIR, also that checkout's, in turns")
+    ap.add_argument("--rebuild-ms", nargs="?", const="", default=None,
+                    metavar="DIR",
+                    help="kernel ms per launch (the candidate model and "
+                         "far sums, every mode of both chunk entries); "
+                         "with DIR, also that checkout's, in turns")
     args = ap.parse_args(argv)
-    if args.far_table_order != 5 and not args.profile:
-        ap.error("--far-table-order goes with --profile")
-    if args.profile:
-        out = scaleup_profile(order=args.far_table_order)
-    elif args.rebuild_ms is not None:
+    if args.rebuild_ms is not None:
         out = rebuild_ms(args.rebuild_ms or None)
     else:
         out = headline_rate()

@@ -23,7 +23,7 @@
 // fields/expansion.py:cand_model_reference.
 //
 // What holds it on the H100: issue slots (4086 float operations a walker
-// by chip_smoke.cand_model_work's count at the scale-up's K 10, C 32,
+// by port_bench/work/counts.py:cand_model_work at the scale-up's K 10, C 32,
 // order 5, each its own instruction with --fmad=false, against 0.25 KB of
 // device memory a walker) and the latency of the candidate rows, which
 // the 100096 walkers read in no spatial order.  So: the scene's

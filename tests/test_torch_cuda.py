@@ -32,7 +32,9 @@ within 1e-4, the state's A and B and the per-walker record within 1e-5
 (both expected bitwise), escapes and coverage equal; a decomposition run
 on the card reconstructs the run on the CPU.  The math the kernels
 write in place of the compiler's (csrc/math_check.cu) is bitwise the
-compiler's over every float input it can see.
+compiler's over every float input it can see, and with it the variant
+modes of the flat rebuild entry and the near entry call no more general
+paths in their SASS than their default modes.
 """
 
 import numpy as np
@@ -40,6 +42,7 @@ import pytest
 import torch
 
 from mri_nanoparticle_simulation_tpu_torch import params as P
+from mri_nanoparticle_simulation_tpu_torch.benchmark import kernel_sass
 from mri_nanoparticle_simulation_tpu_torch.engine import (chunk_kernel,
                                                           convert,
                                                           cuda_engine, sim)
@@ -745,7 +748,7 @@ def _check_flat_above_threshold(dev, mode, rounds=20):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     edge = chunk_kernel.split_threshold(sms, {
         "split": chunk_kernel.kernel_info("chunk_kernel", phys, dec, "split",
-                                          720)}, phys.fast_rng)
+                                          720)})
     p = P.Params(chunk_steps=1000, near_k=5, num_water=edge + 100,
                  rng_rounds=rounds).validate()
     sc = BacteriaBox(p, seed=42).populate()
@@ -778,7 +781,7 @@ def test_flat_layout_bitwise_at_other_rounds(dev, mode):
 def test_split_layout_in_two_waves_bitwise(dev, mode):
     """The split layout past one wave, as the benchmark forces it at the
     widths where the rebuild entry takes the flat one
-    (chunk_kernel.SPLIT_WAVES): just wider than one wave it runs two
+    (chunk_kernel.split_threshold): just wider than one wave it runs two
     waves, bitwise its plain version, in every Threefry mode."""
     rng_impl, physics, dec = ALL_MODES[mode]
     phys = cuda_engine.chunk_physics(physics(P.Params(
@@ -981,3 +984,23 @@ def test_math_check_finds_no_difference(dev):
     and rsqrtf give (and eval_field's inv_r5 with either), over every
     float input each can see (csrc/math_check.cu)."""
     assert set(chunk_kernel.math_check(dev).values()) == {0}
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("k", [5, 10])
+@pytest.mark.parametrize("entry", ["chunk_kernel", "chunk_near_kernel"])
+def test_variant_mode_calls_no_more_slow_paths(dev, entry, k, fast):
+    """The flat rebuild entry and the near entry draw the variants' sphere
+    directions and intended kick with sqrt_fast, sincos_fast and rcp_fast
+    (math_check's), as the split layout's generator warps do: the variant
+    mode's SASS holds no more calls to a general path (CALL.REL.NOINC, an
+    IEEE root's or reciprocal's slow path) than the default mode's of the
+    same entry, K and generator."""
+    calls = {}
+    for variants in (False, True):
+        name, sass = kernel_sass(
+            chunk_kernel,
+            f"{entry}ILi{k}ELb{int(fast)}ELb{int(variants)}ELb0E")
+        calls[name] = sass.count("CALL.REL.NOINC")
+    default, variant = calls.values()
+    assert variant <= default, calls

@@ -4,8 +4,7 @@
 launched: the rebuild entry in the split layout (32 walkers a block, each
 on two lanes, one in its chain warp and one in its field warp, and
 generator warps: four on Threefry, two on the fast generator) up to
-``split_threshold`` walkers (a number
-of its waves that depends on the generator), else in the flat layout
+``split_threshold`` walkers (one wave of it), else in the flat layout
 (one walker per thread, 128 a block), the near entry always flat, its
 K near slots in dynamic shared memory (a float4 per slot and thread).
 Each kernel's threads, dynamic shared memory and resident blocks per SM
@@ -35,6 +34,10 @@ SPLIT_SMEM = 94336
 #: threads of a split block on Threefry: two walker warps (a chain warp
 #: and a field warp, two lanes a walker) and four generator warps
 SPLIT_THREADS = 192
+#: each generator's split block (threads, generator warps): the layout
+#: reads the generator only through its kernel's threads
+SPLIT_BLOCKS = [pytest.param(SPLIT_THREADS, 4, id="threefry"),
+                pytest.param(128, 2, id="fast")]
 
 
 def _near_info(bps=6, k=10):
@@ -51,15 +54,16 @@ def _infos(split_bps=2, flat_bps=6, split_threads=SPLIT_THREADS):
             "flat": ck.KernelInfo(74, flat_bps, 0, ck.BLOCK)}
 
 
-@pytest.mark.parametrize("fast_rng", [False, True])
+@pytest.mark.parametrize("split_threads, gen_warps", SPLIT_BLOCKS)
 @pytest.mark.parametrize("num_water", [50, 4032, 4096])
-def test_rebuild_entry_spreads_small_widths_over_the_card(num_water,
-                                                          fast_rng):
+def test_rebuild_entry_spreads_small_widths_over_the_card(
+        num_water, split_threads, gen_warps):
     w_pad = cuda_engine.pad_count(num_water)
-    lay = ck.layout("chunk_kernel", w_pad, SMS, _infos(), fast_rng)
+    lay = ck.layout("chunk_kernel", w_pad, SMS,
+                    _infos(split_threads=split_threads))
     assert lay.split
-    assert lay.blocks == w_pad // 32 and lay.threads == SPLIT_THREADS
-    assert lay.gen_warps == 4
+    assert lay.blocks == w_pad // 32 and lay.threads == split_threads
+    assert lay.gen_warps == gen_warps
     assert lay.smem == SPLIT_SMEM
     assert lay.waves == 1
     if num_water >= 4032:
@@ -74,50 +78,53 @@ def test_headline_is_128_blocks_against_32_flat():
     assert flat.blocks == 32 and not flat.split
 
 
-@pytest.mark.parametrize("fast_rng", [False, True])
-def test_rebuild_entry_is_flat_at_the_scale_up_width(fast_rng):
-    lay = ck.layout("chunk_kernel", 100096, SMS, _infos(), fast_rng)
+@pytest.mark.parametrize("split_threads, gen_warps", SPLIT_BLOCKS)
+def test_rebuild_entry_is_flat_at_the_scale_up_width(split_threads,
+                                                     gen_warps):
+    lay = ck.layout("chunk_kernel", 100096, SMS,
+                    _infos(split_threads=split_threads))
     assert not lay.split
     assert (lay.blocks, lay.threads, lay.gen_warps, lay.smem) == (
         782, 128, 0, 0)
     assert lay.waves == 1                 # 6 resident: 792 slots
 
 
-@pytest.mark.parametrize("fast_rng", [False, True])
+@pytest.mark.parametrize("split_threads, gen_warps", SPLIT_BLOCKS)
 @pytest.mark.parametrize("sms", [100, 132])
 @pytest.mark.parametrize("split_bps", [1, 2, 3, 4])
-def test_threshold_both_sides(sms, split_bps, fast_rng):
-    infos = _infos(split_bps)
-    waves = ck.SPLIT_WAVES[fast_rng]
-    edge = ck.split_threshold(sms, infos, fast_rng)
-    assert edge == 32 * sms * split_bps * waves and edge % ck.BLOCK == 0
-    below = ck.layout("chunk_kernel", edge, sms, infos, fast_rng)
-    above = ck.layout("chunk_kernel", edge + ck.BLOCK, sms, infos,
-                      fast_rng)
-    assert below.split and below.waves == waves
-    assert below.blocks == sms * split_bps * waves
+def test_threshold_both_sides(sms, split_bps, split_threads, gen_warps):
+    infos = _infos(split_bps, split_threads=split_threads)
+    edge = ck.split_threshold(sms, infos)
+    assert edge == 32 * sms * split_bps and edge % ck.BLOCK == 0
+    below = ck.layout("chunk_kernel", edge, sms, infos)
+    above = ck.layout("chunk_kernel", edge + ck.BLOCK, sms, infos)
+    assert below.split and below.waves == 1
+    assert below.blocks == sms * split_bps
+    assert (below.threads, below.gen_warps) == (split_threads, gen_warps)
     assert not above.split and above.threads == ck.BLOCK
 
 
 def test_split_threshold_follows_the_occupancy():
-    assert ck.SPLIT_WAVES == {False: 1, True: 1}
-    assert ck.split_threshold(132, _infos(1), True) == 4224
-    assert ck.split_threshold(132, _infos(2), True) == 8448
-    assert ck.split_threshold(100, _infos(4), True) == 12800
-    assert ck.split_threshold(132, _infos(2), False) == 8448
+    assert ck.split_threshold(132, _infos(1)) == 4224
+    assert ck.split_threshold(132, _infos(2)) == 8448
+    assert ck.split_threshold(100, _infos(4)) == 12800
+    assert ck.split_threshold(132, _infos(2, split_threads=128)) == 8448
 
 
-@pytest.mark.parametrize("fast_rng", [False, True])
+@pytest.mark.parametrize("split_threads, gen_warps", SPLIT_BLOCKS)
 @pytest.mark.parametrize("w_pad, kind, waves", [
     (4096, "split", 1), (4352, "split", 1), (8448, "split", 1),
     (8576, "flat", 1), (12800, "flat", 1), (16896, "flat", 1),
     (17024, "flat", 1), (25472, "flat", 1)])
-def test_threshold_at_the_measured_widths(fast_rng, w_pad, kind, waves):
+def test_threshold_at_the_measured_widths(split_threads, gen_warps, w_pad,
+                                          kind, waves):
     """The widths timed on the H100 (132 SMs, 2 split blocks per SM, 6
-    flat ones): both generators keep the split layout within one wave
-    (8448 walkers) and take the flat one above it."""
-    lay = ck.layout("chunk_kernel", w_pad, SMS, _infos(), fast_rng)
+    flat ones): both generators' split blocks keep the split layout within
+    one wave (8448 walkers) and take the flat one above it."""
+    lay = ck.layout("chunk_kernel", w_pad, SMS,
+                    _infos(split_threads=split_threads))
     assert (lay.kind, lay.waves) == (kind, waves)
+    assert lay.gen_warps == (gen_warps if kind == "split" else 0)
 
 
 @pytest.mark.parametrize("bps, waves", [(6, 1), (5, 2), (4, 2), (1, 6)])
@@ -163,15 +170,14 @@ def test_generator_warps_are_the_threads_the_runtime_reports(threads,
     assert lay.blocks == 128
 
 
-@pytest.mark.parametrize("fast_rng, threads, gen_warps", [(False, 192, 4),
-                                                          (True, 128, 2)])
-def test_split_layout_at_the_headline_width(fast_rng, threads, gen_warps):
+@pytest.mark.parametrize("threads, gen_warps", SPLIT_BLOCKS)
+def test_split_layout_at_the_headline_width(threads, gen_warps):
     """At the headline (4032 walkers, 4096 padded, K 5) the split layout
     is 128 blocks of 32 walkers, each block a chain warp, a field warp and
     the generator warps: four on Threefry (192 threads), two on the fast
     generator (128 threads, a scheduler for each warp)."""
     lay = ck.layout("chunk_kernel", 4096, SMS,
-                    _infos(split_threads=threads), fast_rng)
+                    _infos(split_threads=threads))
     assert (lay.kind, lay.blocks, lay.threads,
             lay.gen_warps) == ("split", 128, threads, gen_warps)
     assert (lay.blocks_per_sm, lay.waves) == (2, 1)
