@@ -111,7 +111,12 @@ measured, and any failure raises (exit code != 0, no final line):
    CSVs within 1e-4 in Σcos/W of the record run's, the same dispersion
    table's shape, then the port's mri-t2-fit (analysis.main --echoes
    --bootstrap 32) on the captures: one row per grid point, a finite T2
-   inside its CI wherever a resample fitted; the two CLI walls;
+   inside its CI wherever a resample fitted; the two CLI walls and one
+   plane_fold_kernel launch a sprint; (e) the plane fold's kernel against its
+   twin at the headline-plane cell's shapes (4032 of 4096 walkers, 20
+   windows, 4 x 4): the carry bitwise the CPU twin's, the block within
+   1e-6, two launches bitwise equal; ms a sprint of both, host us a call,
+   its bound, registers and layout;
 16. the scale-up with a streaming (moment x taucp) plane on the fast
    generator, 2e5 steps: 0 escapes, 0 violations, only
    chunk_near_kernel[fast+dec] and cand_model_kernel launched, the s = 1
@@ -119,8 +124,8 @@ measured, and any failure raises (exit code != 0, no final line):
    its plain version on the walkers after those 2e5 steps; the time
    split; then 2e4 steps on Threefry and with every variant on, on each
    generator; (c) the same 3 x 3 plane by run_plane_on_device: the same
-   launches, curves within 1e-4 of the host plane's, its split beside
-   the host plane's;
+   launches and one plane_fold_kernel a sprint, curves within 1e-4 of
+   the host plane's, its split beside the host plane's;
 18. durability at full width (before the kernels line; phase 13's check
    again after it): (a) the headline through run_resilient with faults
    at sprints 5 and 13, a checkpoint every 2 sprints, drain depth 1, on
@@ -481,13 +486,17 @@ def main():
         "chunk_split_kernel", SimpleNamespace(
             fast_rng="fast" in m, variants="variants" in m), "dec" in m)
         for m in chunk_kernel.CHUNK_MODES]
-    for name in [*chunk_kernel.LAUNCHES, *split_names,
-                 "cand_model_kernel[order 8]"]:
+    # every kernel but the plane fold is instantiated for K = 1..16
+    k_names = [n for n in chunk_kernel.LAUNCHES if n != "plane_fold_kernel"]
+    for name in [*k_names, *split_names, "cand_model_kernel[order 8]"]:
         ks = sorted(k for n, k in res if n == name)
         check(ks == list(range(1, 17)), f"{name}: built for K = {ks}")
         print(f"  {name} registers by K: "
               f"{' '.join(f'{k}:{res[name, k][0]}' for k in ks)}")
         print(f"  {name} K=5: {res[name, 5][1]}; K=10: {res[name, 10][1]}")
+    fold_info = chunk_kernel.plane_fold_info(len(FOLD_SCALES), 20, 0, dev)
+    print(f"  plane_fold_kernel: {fold_info.regs} registers, "
+          f"{fold_info.local_bytes} B local (4 scales, 20 windows)")
     secs = compile_seconds(chunk_kernel.build_log())
     print("  nvcc seconds by source: " + ", ".join(
         f"{s} {t:.1f}" for s, t in sorted(secs.items(), key=lambda x: -x[1])))
@@ -609,6 +618,7 @@ def main():
     done(t0, "nothing of jax or of the JAX package imported")
     dec_modes = decompose_modes(dev, label, p, sc, ctx)
     dec_launches = decompose_headline(sc, ours, oracle, label, keep)
+    fold = plane_fold_phase(label)
     dec_launches.update(decompose_scaleup(ctx, label, keep))
     durability(ctx, keep, label)
     ensembles(ctx, keep, label)
@@ -668,7 +678,16 @@ def main():
         "bound_ms": main_bound[0],
         "bound_by": main_bound[1],
         "library_ms": None,
-    }, *big, *new]
+    }, *big, *new, {
+        "name": "plane_fold_kernel",
+        "route": "cuda",
+        "source": PKG + "plane_fold_kernel.cu",
+        "replaces": None,
+        "launches": path_launches["plane_fold_kernel"],
+        "tolerance": {"block": FOLD_TOL, "carry": 0.0},
+        **fold,
+        "library_ms": None,
+    }]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     check(not missing, f"no launches in their path's run: {missing}")
     print(json.dumps({"kernels": kernels}))
@@ -1255,15 +1274,17 @@ def decompose_headline(sc, direct_golden, oracle, label, keep):
                              cos, hp.num_water, f"{key}, 2e5 steps, s=1")
     done(t0, f"[{label}]")
 
-    out.update(plane_cli(argv, curves, r2, cli_wall, p.num_water, label))
+    out.update(plane_cli(argv, curves, r2, cli_wall, p.num_water,
+                         p.t // p.sprint_steps, label))
     return out
 
 
-def plane_cli(argv, curves, r2, cli_wall, num_water, label):
+def plane_cli(argv, curves, r2, cli_wall, num_water, sprints, label):
     """Phase 15 (d): the 5c CLI run ``argv`` of phase 15 with
     --plane-device --dump-echoes in place of --dump-record, held to that
-    run's CSVs ``curves`` and dispersion table ``r2``; then the port's
-    mri-t2-fit on the echo captures.  Returns the run's launches."""
+    run's CSVs ``curves`` and dispersion table ``r2`` (one fold launch
+    for each of its ``sprints``); then the port's mri-t2-fit on the echo
+    captures.  Returns the run's launches."""
     t0 = phase("15 (d) the same CLI run with --plane-device --dump-echoes")
     with tempfile.TemporaryDirectory() as tmp:
         echoes = os.path.join(tmp, "e.npz")
@@ -1273,8 +1294,10 @@ def plane_cli(argv, curves, r2, cli_wall, num_water, label):
         pargv[pargv.index("--fit-r2") + 1] = os.path.join(tmp, "r2.csv")
         pargv[pargv.index("--out") + 1] = os.path.join(tmp, "t2.csv")
         got, text, plane_wall = run_cli(pargv)
-        check(got == only(**{"chunk_kernel[fast+dec]": 500}),
-              f"kernel launches {got}, expected 500 chunk_kernel[fast+dec]")
+        check(got == only(**{"chunk_kernel[fast+dec]": 500,
+                             "plane_fold_kernel": sprints}),
+              f"kernel launches {got}, expected 500 chunk_kernel[fast+dec] "
+              f"and {sprints} plane_fold_kernel")
         plane_curves = grid_csvs(tmp)
         check(sorted(plane_curves) == sorted(curves), "grid points differ")
         d_plane = max(float(np.abs(plane_curves[k] - curves[k]).max())
@@ -1310,7 +1333,107 @@ def plane_cli(argv, curves, r2, cli_wall, num_water, label):
           f"against {cli_wall:.4f} s (phase 15, record and float64 host "
           f"reconstruction)", flush=True)
     done(t0, f"[{label}]")
-    return {"chunk_kernel[fast+dec]": got["chunk_kernel[fast+dec]"]}
+    return {k: got[k] for k in ("chunk_kernel[fast+dec]",
+                                "plane_fold_kernel")}
+
+
+#: the headline-plane cell's fold (port_bench/cells/headline-plane.json):
+#: 4032 walkers of 4096, four moment scales, four echo spacings (ms)
+FOLD_W, FOLD_W_PAD = 4032, 4096
+FOLD_SCALES = (0.5, 1.0, 2.0, 4.0)
+FOLD_TAUCPS = (0.05, 0.1, 0.25, 0.5)
+FOLD_TOL = 1e-6    # curve block, kernel vs twin (float32 sums)
+
+
+def plane_fold_phase(label):
+    """Phase 15 (e): the plane fold's kernel against its twin (the plain
+    body of make_plane_step) at the headline-plane cell's shapes, on a
+    seeded record, three sprints chained through the carry from the
+    run's sprint 11 (the base run's flip at window 250): the carry bitwise
+    the CPU twin's, the block within FOLD_TOL, two launches bitwise
+    equal; ms a sprint of the kernel and of the twin on the card, the
+    host's us a call of both, the bound, launches, registers and layout.
+    Returns the kernel table's fields."""
+    t0 = phase("15 (e) plane fold kernel vs its twin, headline-plane "
+               "shapes")
+    p = Params(**HEADLINE, totaltime=2.0, taucp=0.25).validate()
+    wps = p.sprint_steps // p.pfreq
+    n_win = p.t // p.pfreq
+    tcps = [p.replace(taucp=t).validate().tcp for t in FOLD_TAUCPS]
+    j = np.arange(1, n_win + 1, dtype=np.int64)
+    undo = np.where((j * p.pfreq) % p.tcp == 0, -1.0, 1.0)
+    u = torch.tensor(np.concatenate([[1.0], undo[:-1]]), dtype=torch.float32)
+    g = torch.tensor(np.stack([dec._flip_parity(n_win, t, p.pfreq)
+                               for t in tcps]), dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    rec = torch.from_numpy(np.cumsum(
+        rng.normal(0.0, 1.0, (3 * wps, 2, FOLD_W_PAD))
+        * np.array([0.5, 0.1])[:, None], 0).astype(np.float32))
+    n_t = len(tcps)
+    card = dec.make_plane_step(p, FOLD_W, FOLD_SCALES, n_t, device="cuda")
+    cpu = dec.make_plane_step(p, FOLD_W, FOLD_SCALES, n_t, device="cpu")
+    rec_d, u_d, g_d = rec.cuda(), u.cuda(), g.cuda()
+
+    def zeros(dev):
+        return (torch.zeros((n_t, FOLD_W), device=dev),) * 4 \
+            + (torch.zeros(FOLD_W, device=dev),) * 2
+    ck, cc, ct = zeros("cuda"), zeros("cpu"), zeros("cuda")
+    reset_launches()
+    blk_err = twin_err = 0.0
+    for i in range(3):
+        lo = (11 + i) * wps
+        args = (u_d[lo:lo + wps], g_d[:, lo:lo + wps])
+        rows = rec_d[i * wps:(i + 1) * wps]
+        k_out = card(rows, ck, *args)
+        again = card(rows, ck, *args)
+        c_out = cpu(rows.cpu(), cc, u[lo:lo + wps], g[:, lo:lo + wps])
+        t_out = card.twin(rows, ct, *args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(k_out[0], again[0]))
+              and torch.equal(k_out[1], again[1]),
+              "two plane-fold launches differ")
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(k_out[0],
+                                                          c_out[0])),
+              f"sprint {i}: the kernel's carry is not the twin's")
+        blk_err = max(blk_err, float((k_out[1].cpu() - c_out[1]).abs()
+                                     .max()))
+        twin_err = max(twin_err, float((k_out[1] - t_out[1]).abs().max()))
+        ck, cc, ct = k_out[0], c_out[0], t_out[0]
+    check(blk_err <= FOLD_TOL, f"plane-fold block differs by {blk_err}")
+    check(launches() == only(plane_fold_kernel=6), f"launches {launches()}")
+    rows, args = rec_d[:wps], (u_d[:wps], g_d[:, :wps])
+    ms = time_chunk(lambda: card(rows, ck, *args), 200)
+    plain_ms = time_chunk(lambda: card.twin(rows, ck, *args), 10)
+    host_us = {}
+    for name, fn in (("kernel", card), ("twin", card.twin)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            fn(rows, ck, *args)
+        host_us[name] = (time.perf_counter() - t1) / 20 * 1e6
+        torch.cuda.synchronize()
+    bound = counts.bound(*counts.plane_fold_work(
+        FOLD_W, FOLD_W_PAD, wps, len(FOLD_SCALES), n_t))
+    info = chunk_kernel.plane_fold_info(len(FOLD_SCALES), wps, 0)
+    blocks = -(-FOLD_W // chunk_kernel.BLOCK) * n_t
+    print(f"  {FOLD_W} of {FOLD_W_PAD} walkers, {wps} windows, "
+          f"{len(FOLD_SCALES)} scales x {n_t} spacings: carry bitwise the "
+          f"CPU twin's, block within {blk_err:.3e} (tol {FOLD_TOL}) of it "
+          f"and {twin_err:.3e} of the twin on the card; kernel "
+          f"{ms:.5f} ms a sprint, twin on the card {plain_ms:.5f} ms, "
+          f"bound {bound[0]:.6f} ms ({bound[1]}); host {host_us['kernel']:.1f}"
+          f" us a call (twin {host_us['twin']:.1f}); 6 launches counted "
+          f"for 6 calls; {blocks} blocks of "
+          f"{info.threads} threads, {info.regs} registers, "
+          f"{info.blocks_per_sm} resident per SM, {info.smem} B dynamic "
+          f"shared, {info.local_bytes} B local [{label}]", flush=True)
+    done(t0, f"[{label}]")
+    return {"max_abs_err": blk_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "host_us": host_us["kernel"], "plain_host_us": host_us["twin"],
+            "blocks": blocks, "threads": info.threads,
+            "registers": info.regs, "blocks_per_sm": info.blocks_per_sm,
+            "smem": info.smem, "local_bytes": info.local_bytes}
 
 
 def decompose_scaleup(ctx, label, keep):
@@ -1385,7 +1508,8 @@ def decompose_scaleup(ctx, label, keep):
         rng_impl="hardware", cache=cache)
     got = launches()
     check(got == only(**{"chunk_near_kernel[fast+dec]": 50,
-                         "cand_model_kernel": 50}),
+                         "cand_model_kernel": 50,
+                         "plane_fold_kernel": p.t // p.sprint_steps}),
           f"kernel launches {got}")
     check(st["escapes"] == 0 and st["coverage_violations"] == 0,
           "on-device plane: escapes or violations")

@@ -26,8 +26,9 @@ kernels in decompose mode (``cuda_engine.make_sprint_fn(...,
 decompose=True)``), or the scan engine's decompose sprint
 (``engine="scan"``), and drains the per-walker record to the host;
 ``run_plane_on_device`` runs the same sprints and folds each record into
-the plane on the device (``make_plane_step``, plain torch), so only the
-curves and the spin-echo captures (``EchoCapture``) come back.
+the plane on the device (``make_plane_step``: a kernel on the card,
+plain torch on the CPU), so only the curves and the spin-echo captures
+(``EchoCapture``) come back.
 ``run_decomposition_durable`` (a record store on disk) and
 ``run_streaming_durable`` (a streaming plane) checkpoint as they go and,
 run again after a crash, resume to the same bits.  The
@@ -665,8 +666,13 @@ def run_streaming_durable(scene, params: Params, plane: "StreamingPlane",
 
 def make_plane_step(params: Params, num_water: int, scales, n_taucps: int,
                     echo_specs=(), *, device="cuda"):
-    """The on-device plane update of :func:`run_plane_on_device`: plain
-    torch on the record's device (``device``, where the scales live).
+    """The on-device plane update of :func:`run_plane_on_device`, on the
+    record's device (``device``, where the scales live): on a card one
+    launch of ``chunk_kernel.run_plane_fold`` (csrc/plane_fold_kernel.cu)
+    a sprint, whose carry is bitwise, and curve block and echo rows
+    within float32 rounding, what the plain torch body, ``step.twin``,
+    gives on the CPU; a CPU record takes the twin (which runs on either
+    device when called itself).
 
     ``step(wins, carry, u_prev, g_blk, echo_rows)`` consumes one sprint's
     RAW record ``wins [n_win, 2, W_pad]`` (the sprint's output, never
@@ -691,12 +697,15 @@ def make_plane_step(params: Params, num_water: int, scales, n_taucps: int,
     index), ...); ``echo_rows`` [n_specs, E_max] the local spin-echo rows
     of each spec (padded; the caller keeps only the real ones).
 
-    A step issues a fixed number of torch operations, few of them per
-    lane: the host that queues them also queues the sprints, and at the
-    headline width it is no faster than the card.  The prefix sums of all
-    lanes are one tensor ``[2, T, wps, W]``; the scales of one lane are
-    one batch ``[n_scales, wps, W]``, so that temporary is never formed
-    for every lane at once."""
+    The plain body issues a fixed number of torch operations, few of
+    them per lane (about 47 launches a sprint at the headline, which is
+    why the card runs the kernel).  The prefix sums of all lanes are one
+    tensor ``[2, T, wps, W]``; the scales of one lane are one batch
+    ``[n_scales, wps, W]``, so that temporary is never formed for every
+    lane at once."""
+    if any(not 0 <= ti < n_taucps for _, ti in echo_specs):
+        raise ValueError(f"echo spec lanes {[ti for _, ti in echo_specs]} "
+                         f"outside [0, {n_taucps})")
     dev = torch.device(device)
     s_col = torch.as_tensor(np.asarray(scales, np.float32).reshape(-1),
                             device=dev)[:, None, None]
@@ -704,8 +713,10 @@ def make_plane_step(params: Params, num_water: int, scales, n_taucps: int,
                                          np.float32), device=dev)
     e_lane = torch.as_tensor(np.asarray([ti for _, ti in echo_specs],
                                         np.int64), device=dev)
+    s_flat = s_col.view(-1)
+    echo = (e_lane, e_scale) if echo_specs else None
 
-    def step(wins, carry, u_prev, g_blk, echo_rows=None):
+    def twin(wins, carry, u_prev, g_blk, echo_rows=None):
         SA, cA, SB, cB, prev_A, prev_B = carry
         x = wins[:, :, :num_water].transpose(0, 1)          # [2, wps, W]
         wps = x.shape[1]
@@ -738,6 +749,14 @@ def make_plane_step(params: Params, num_water: int, scales, n_taucps: int,
         return carry, block, torch.cos(e_scale[:, None, None] * sel[0]
                                        + sel[1])
 
+    def step(wins, carry, u_prev, g_blk, echo_rows=None):
+        if wins.device.type == "cuda":
+            return chunk_kernel.run_plane_fold(
+                wins, carry, u_prev, g_blk, s_flat, num_water,
+                echo and (echo_rows, *echo))
+        return twin(wins, carry, u_prev, g_blk, echo_rows)
+
+    step.twin = twin
     return step
 
 
