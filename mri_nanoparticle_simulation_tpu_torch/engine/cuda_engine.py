@@ -580,8 +580,10 @@ def make_sprint_fn(params: Params, num_water: int, device,
                                           reach2=reach2)
         nf = expansion.build(planes[:3].T, tbl.pos, tbl.m, params,
                              cache=cache, reach2=reach2, tbl=tbl.tbl)
-        m = nf.near_M * torch.tensor(FIELD_SCALE, dtype=dtype,
-                                     device=planes.device)
+        # a scalar filled on the device: one copied from the host would
+        # wait for the stream every chunk
+        m = nf.near_M * torch.full((), FIELD_SCALE, dtype=dtype,
+                                   device=planes.device)
         near = torch.stack([nf.near_pos[..., 0].T, nf.near_pos[..., 1].T,
                             nf.near_pos[..., 2].T, m.T])
         taylor = torch.cat([nf.b0[None], nf.grad.T, nf.hess.T])

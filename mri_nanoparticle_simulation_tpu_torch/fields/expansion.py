@@ -45,6 +45,7 @@ import torch
 from ..engine import chunk_kernel
 from ..params import Params
 from ..utils import cache as cache_mod
+from ..utils import profiling
 from . import fartable
 from .dipole import (FIELD_SCALE, bz_taylor_parts, dipole_bz,
                      dipole_bz_grad, dipole_bz_hessian)
@@ -217,12 +218,13 @@ def _argmin_passes(d2, k):
     Returns int64 [rows, K]."""
     remaining = d2.to(torch.bfloat16) if d2.dtype == torch.float32 else d2
     remaining = remaining.clone()
-    rows = torch.arange(d2.shape[0], device=d2.device)
     idx = []
     for _ in range(k):
         j = torch.argmin(remaining, dim=1)
         idx.append(j)
-        remaining[rows, j] = float("inf")
+        # masked on the device: an index assignment of a Python float
+        # copies it from the host and waits for the stream, every pass
+        remaining.scatter_(1, j[:, None], float("inf"))
     return torch.stack(idx, 1)
 
 
@@ -260,8 +262,10 @@ def _cube_index(pos, h: int, bound: float):
     """(clip(int(p / cube), 0, h - 1) int64 per coordinate, same shape as
     ``pos``; the cube edge as a device scalar).  True division by a
     device scalar: a CPU float divisor may be turned into a product with
-    its reciprocal on the card."""
-    cube = torch.tensor(bound / h, dtype=pos.dtype, device=pos.device)
+    its reciprocal on the card.  The scalar is filled on the device: a
+    ``torch.tensor`` copied from the host waits for the stream, once a
+    chunk on the order-0 path."""
+    cube = torch.full((), bound / h, dtype=pos.dtype, device=pos.device)
     return torch.clamp((pos / cube).to(torch.int32), 0, h - 1).long(), cube
 
 
@@ -302,6 +306,10 @@ def cube_select(anchor, payload, params: Params, reach2=None):
 #: walker-dipole pairs up to which ``far_sums_torch`` sums in one pass
 FAR_ONE_PASS = 1 << 24
 
+#: the span around ``build``'s selection and reach count, timed on the
+#: card under a profiler
+SELECT_SPAN = "expansion.select"
+
 #: ``build``'s far-sums routes: the far-sums kernel
 #: (``chunk_kernel.run_far_sums``; the reference's ``far_impl="pallas"``)
 #: and torch, differentiable (the reference's ``far_impl="xla"``)
@@ -323,7 +331,8 @@ def build(anchor, mnp_pos, mnp_M, params: Params, cache=None, reach2=None,
     None); ``far_impl="torch"`` sums it in torch (``far_sums_torch``),
     as the reference's scan engine does and as autograd differentiates.
     The selection runs without autograd: its indices are constants of
-    the differentiation."""
+    the differentiation; with the reach count it is the span
+    ``SELECT_SPAN``."""
     k = params.near_k
     if far_impl not in FAR_IMPLS:
         raise ValueError(f"unknown far_impl {far_impl!r}; use one of "
@@ -333,7 +342,7 @@ def build(anchor, mnp_pos, mnp_M, params: Params, cache=None, reach2=None,
             f"near_k={k} exceeds the number of dipoles "
             f"({mnp_pos.shape[0]}); selection would duplicate entries and "
             f"double-count their field")
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span(SELECT_SPAN, anchor.device):
         if cache is not None:
             if cache.far_coeffs is not None:
                 raise ValueError("a cache with a far table goes through "
