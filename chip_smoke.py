@@ -48,13 +48,22 @@ measured, and any failure raises (exit code != 0, no final line):
    the others; then both kernels against their plain versions at full
    width (100096 walkers) on the run's final state, with times of both;
 8. the same scene with far_table_order=0 for 2e5 steps (the far-sums
-   kernel's path): 50 launches each of far sums and near/taylor chunk,
+   kernel's path): 50 launches each of the cube selection, far sums and
+   near/taylor chunk,
    Σcos/W within 1e-5 of phase 7's first 2e5 steps, its walker-steps/s
    and the far sums' share of a chunk's wall; then the far-sums kernel
    against its plain version at full width (1e-5 of each row's scale,
    two runs bitwise equal), with times of both, its bound (and with an
    issue slot per float operation), its layout (one wave, no local
    memory) and its SASS instructions a pair;
+8c. the cube-selection kernel at the scaleup-exact cell's shape (its
+   scene, 100096 walkers, C 32, K 10), in Morton and in shuffled order,
+   and on tie, cube-face, clamp (anchors at and beyond the box) and K = C
+   cases: ids, every near plane, the unscaled M and n_reach bitwise its
+   plain version (expansion.cube_select_reference, the bf16 argmin
+   passes on the card), two runs bitwise equal; its ms against its bound
+   and the plain version's, registers and spills (ptxas), its layout;
+   one launch a chunk of an order-0 sprint;
 8b. the layout of every mode of both entries at its path's width:
    blocks, threads, generator warps, dynamic shared memory, resident
    blocks per SM, waves, registers and spills; the near entry's two
@@ -603,6 +612,7 @@ def main():
          f"{golden.LATE_MEAN_RANGE}) [{label}]")
 
     ctx, big = large_scene_phases(dev, label)
+    big.append(cube_select_phase(dev, res, label))
     layouts = layout_report(dev, p, tbl.shape[1], ctx["p"], res, label)
     big[0].update(layouts["chunk_near_kernel"])
     big[1].update(layouts["cand_model_kernel"])
@@ -2086,9 +2096,10 @@ def ensembles(ctx, keep, label):
     got = launches()
     n_chunks = q.sprint_steps // q.chunk_steps
     check(got == only(chunk_near_kernel=2 * n_chunks,
-                      far_sums_kernel=2 * n_chunks),
-          f"kernel launches {got}: expected only chunk_near_kernel and "
-          f"far_sums_kernel, {2 * n_chunks} each")
+                      far_sums_kernel=2 * n_chunks,
+                      cube_select_kernel=2 * n_chunks),
+          f"kernel launches {got}: expected only chunk_near_kernel, "
+          f"far_sums_kernel and cube_select_kernel, {2 * n_chunks} each")
     check(bst.escapes.tolist() == [0, 0] and bst.coverage.tolist() == [0, 0],
           f"escapes {bst.escapes.tolist()}, coverage "
           f"{bst.coverage.tolist()}")
@@ -2862,9 +2873,11 @@ def sharded(ctx, keep, label):
     check(werr <= 1e-6 * q.num_water, f"order 0: window sums differ by "
           f"{werr}")
     n = steps0 // q.chunk_steps
-    check(ref[4] == only(chunk_near_kernel=n, far_sums_kernel=n)
+    check(ref[4] == only(chunk_near_kernel=n, far_sums_kernel=n,
+                         cube_select_kernel=n)
           and got[4] == only(chunk_near_kernel=2 * n,
-                             far_sums_kernel=2 * n),
+                             far_sums_kernel=2 * n,
+                             cube_select_kernel=2 * n),
           f"order-0 launches {launched(ref[4])} / {launched(got[4])}")
     done(t0, f"order 0, 2 shards, 2e4 steps: state bitwise, window sums "
          f"within {werr:.3e}; unsharded {ref[2]['walker_steps_per_s']:.4e}, "
@@ -3462,7 +3475,8 @@ def large_scene_phases(dev, label):
     reset_launches()
     _, cos0, _, stats0 = runner0.run(progress=False, max_steps=200_000)
     exact_launches = launches()
-    check(exact_launches == only(chunk_near_kernel=50, far_sums_kernel=50),
+    check(exact_launches == only(chunk_near_kernel=50, far_sums_kernel=50,
+                                 cube_select_kernel=50),
           f"kernel launches {exact_launches}")
     check(stats0["escapes"] == 0 and stats0["coverage_violations"] == 0,
           f"escapes {stats0['escapes']}, coverage "
@@ -3565,6 +3579,155 @@ def large_scene_phases(dev, label):
         "issue_bound_ms": far_issue,
         "library_ms": None,
     }]
+
+
+def cube_select_work(w, k, c, h):
+    """(bytes, float, integer operations) of one cube selection: the
+    anchors read and the K rows (x, y, z, M * FIELD_SCALE, M, id) and
+    reach counts written once, the scene's candidates (16 bytes a
+    candidate, and the M and id, 8) read once; per walker and candidate
+    d^2 and the reach test (9 float operations), the bf16 key (5 integer)
+    and its sorted insertion (2K integer)."""
+    return (4 * w * (3 + 6 * k + 1) + 24 * h ** 3 * c, 9 * w * c,
+            w * c * (5 + 2 * k))
+
+
+def _select_cases(pos, payload, cand, p):
+    """(name, anchors, payload, cand, K) of the edge cases on the scene's
+    own candidate table: anchors on every cube face of the box's corner
+    cubes; at and beyond [0, bound) on each axis (the clamp); at the
+    cube's candidates themselves (d^2 0, and ties among the equidistant);
+    and K = C on the first 16 candidates of every cube."""
+    dev, bound, h = pos.device, float(p.bound), p.cube_hash_dim
+    cube = bound / h
+    grid = torch.arange(h + 1, dtype=torch.float32, device=dev) * cube
+    faces = torch.stack(torch.meshgrid(grid, grid, grid, indexing="ij"),
+                        0).reshape(3, -1).contiguous()
+    edge = torch.tensor([-cube, -1e-6, -0.0, 0.0, 1e-6, bound - 1e-6, bound,
+                         bound + 1e-6, bound + cube, 2 * bound], device=dev)
+    clamp = torch.stack([edge.repeat(100), edge.repeat_interleave(10)
+                         .repeat(10), edge.repeat_interleave(100)])
+    at = payload[:, :8, :3].reshape(-1, 3).T.contiguous()
+    pay16 = payload[:, :16].contiguous()
+    return [("cube faces", faces, payload, cand, p.near_k),
+            ("clamp", clamp.contiguous(), payload, cand, p.near_k),
+            ("at candidates", at, payload, cand, p.near_k),
+            ("K = C = 16", pos, pay16, expansion.pack_candidates(pay16),
+             16)]
+
+
+def _same_selection(got, want, what):
+    for name, a, b in zip(("near", "near_M", "ids", "n_reach"), got, want):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{what}: {name} differs from the plain version")
+
+
+def cube_select_phase(dev, res, label):
+    """Phase 8 (c): the cube-selection kernel at the scaleup-exact cell's
+    shape against its plain version, bitwise, then its edge cases, its
+    time, bound, registers and layout, and its launches in an order-0
+    sprint.  Returns its kernels-line entry."""
+    from port_bench import catalog
+    t0 = phase("8 (c) cube-selection kernel vs plain version "
+               "(scaleup-exact scene)")
+    cfg = catalog.load_config("scaleup-exact")
+    kv = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in cfg["keys"].items() if k in Params.__dataclass_fields__}
+    p = Params(**kv).validate()
+    runner = SimulationRunner(p, scene_seed=cfg["scene_seed"], seed=7,
+                              device="cuda", rng_impl="hardware")
+    cache = runner.cache
+    check(runner.uses_cubes and cache.far_coeffs is None,
+          "the scaleup-exact runner has a far table")
+    pos = cuda_engine._wrap(cuda_engine.to_soa(runner.state, p).planes[:3],
+                            p.bound).contiguous()
+    mixed = pos[:, torch.randperm(pos.shape[1], generator=torch.Generator()
+                                  .manual_seed(7)).to(dev)].contiguous()
+    reach2 = expansion.coverage_reach2(p)
+    args = dict(h=p.cube_hash_dim, bound=float(p.bound), reach2=reach2)
+    c = cache.payload.shape[1]
+
+    def kernel(anchors, payload=cache.payload, cand=cache.cand_table,
+               k=p.near_k):
+        return chunk_kernel.run_cube_select(anchors, payload, cand,
+                                            near_k=k, **args)
+
+    def plain(anchors, payload=cache.payload, k=p.near_k):
+        return expansion.cube_select_reference(anchors, payload, near_k=k,
+                                               **args)
+    reset_launches()
+    for what, anchors in (("Morton order", pos), ("shuffled", mixed)):
+        got = kernel(anchors)
+        _same_selection(got, kernel(anchors), f"{what}: two runs")
+        want, plain_ms = timed(lambda: plain(anchors))
+        _same_selection(got, want, what)
+        # ties the passes break by slot: adjacent selected rows of one bf16
+        b = ((got[0][:3] - anchors[:, None]) ** 2).sum(0).to(torch.bfloat16)
+        ties = int((b[1:] == b[:-1]).any(0).sum())
+        print(f"  {what}, {anchors.shape[1]} walkers, C {c}, K {p.near_k}: "
+              f"bitwise (ids, near x y z M*FIELD_SCALE, M, n_reach); "
+              f"{ties} walkers with tied bf16 keys among their K; reach "
+              f"counts up to {int(got[3].max())}; plain {plain_ms:.3f} ms",
+              flush=True)
+    check(chunk_kernel.LAUNCHES["cube_select_kernel"] == 4,
+          f"LAUNCHES {launched(launches())}")
+    for what, anchors, payload, cand, k in _select_cases(
+            pos, cache.payload, cache.cand_table, p):
+        got = kernel(anchors, payload, cand, k)
+        _same_selection(got, plain(anchors, payload, k), what)
+        print(f"  {what}: {anchors.shape[1]} anchors, C "
+              f"{payload.shape[1]}, K {k}: bitwise", flush=True)
+    w = pos.shape[1]
+    ms = time_chunk(lambda: kernel(pos), 50)
+    ms_mixed = time_chunk(lambda: kernel(mixed), 50)
+    plain_dev_ms = time_chunk(lambda: plain(mixed), 5)
+    work = cube_select_work(w, p.near_k, c, p.cube_hash_dim)
+    bnd = counts.bound(*work)
+    info = chunk_kernel.cube_select_info(p.near_k, dev)
+    lay = chunk_kernel.LAYOUTS["cube_select_kernel"]
+    check(lay == chunk_kernel.walker_layout(
+        w, torch.cuda.get_device_properties(dev).multi_processor_count,
+        info), f"cube selection launched as {lay}")
+    regs, spill = res["cube_select_kernel", p.near_k]
+    check(spill_bytes(spill) == 0 and info.local_bytes == 0,
+          f"cube selection: {spill}, {info.local_bytes} B local memory")
+    print(f"  {w} walkers: kernel {ms:.4f} ms Morton order, {ms_mixed:.4f} "
+          f"ms shuffled; plain version {plain_dev_ms:.4f} ms; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}: {work[0]} B, {work[1]} float, "
+          f"{work[2]} integer operations); {lay.blocks} x {lay.threads} "
+          f"threads, {lay.blocks_per_sm} resident per SM, {lay.waves} "
+          f"wave(s); {regs} registers, {spill_bytes(spill)} B spilled "
+          f"[{label}]", flush=True)
+    # one order-0 sprint through the runner: one selection a chunk
+    reset_launches()
+    runner.run(progress=False, max_steps=p.sprint_steps)
+    got = launches()
+    n = p.sprint_steps // p.chunk_steps
+    near = chunk_kernel.chunk_mode("chunk_near_kernel",
+                                   cuda_engine.chunk_physics(p, "hardware"))
+    check(got == only(**{near: n}, far_sums_kernel=n, cube_select_kernel=n),
+          f"order-0 sprint launches {launched(got)}")
+    done(t0, f"one order-0 sprint ({n} chunks): launches {launched(got)} "
+         f"[{label}]")
+    return {
+        "name": "cube_select_kernel",
+        "route": "cuda",
+        "source": PKG + "cube_select_kernel.cu",
+        "replaces": None,
+        "launches": got["cube_select_kernel"],
+        "max_abs_err": 0.0,
+        "tolerance": {"near ids M n_reach": "bitwise"},
+        "layout": lay._asdict(),
+        "registers": regs,
+        "spill_bytes": spill_bytes(spill),
+        "local_bytes": info.local_bytes,
+        "ms": ms_mixed,
+        "ms_morton": ms,
+        "plain_ms": plain_dev_ms,
+        "bound_ms": bnd[0],
+        "bound_by": bnd[1],
+        "library_ms": None,
+    }
 
 
 if __name__ == "__main__":

@@ -445,8 +445,9 @@ def _order0_timer(tree, dev, rounds: int):
     ``engine.reference_engine``, ``exp``: ``fields.expansion``), from
     the scene's initial walkers after one warm-up sprint; returns the ms
     of a chunk for each round.  A round runs between two CUDA events with
-    no sleep of the stream, so the host's share of the path (the cube
-    selection's torch calls) counts as it does in a run."""
+    no sleep of the stream, so the host's share of the path (the launches
+    of the selection, the far sums and the near entry, and the sprint
+    loop's torch calls) counts as it does in a run."""
     p = Params(**SCALEUP, far_table_order=0).validate()
     sc = BacteriaBox(p, seed=42).populate()
     tbl = tree.cv.mnp_table(sc.mnps, torch.float32, dev)

@@ -580,6 +580,8 @@ def make_sprint_fn(params: Params, num_water: int, device,
                                           reach2=reach2)
         nf = expansion.build(planes[:3].T, tbl.pos, tbl.m, params,
                              cache=cache, reach2=reach2, tbl=tbl.tbl)
+        if nf.near is not None:             # the cube path: as they are
+            return nf.near, nf.taylor, nf.n_reach
         # a scalar filled on the device: one copied from the host would
         # wait for the stream every chunk
         m = nf.near_M * torch.full((), FIELD_SCALE, dtype=dtype,

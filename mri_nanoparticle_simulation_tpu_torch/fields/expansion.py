@@ -14,8 +14,11 @@ Counterpart of the reference's ``fields/expansion.py``:
 * ``SceneCache`` / ``build_cache`` / ``pack_candidates``: per spatial
   cube, its C nearest dipoles (also in the candidate-model kernel's
   layout) and the cube's far-field Taylor table (``fields.fartable``).
-* ``build``: the per-walker model (``NearField``) by cube-pruned or
-  whole-table selection and the far sums, by the far-sums kernel or
+* ``build``: the per-walker model (``NearField``) by cube-pruned
+  selection (``cube_select``; with the far-sums kernel, the cube
+  selection kernel, ``chunk_kernel.run_cube_select``, whose plain
+  version is ``cube_select_reference``) or whole-table selection and
+  the far sums, by the far-sums kernel or
   (``far_impl="torch"``, the reference's ``far_impl="xla"``) in torch,
   one masked pass over [W, N] or blocks of dipoles
   (``far_sums_torch``); ``coverage_reach2``, the large path's coverage
@@ -75,6 +78,12 @@ class NearField(NamedTuple):
     #: [W] dipoles within reach of the anchor (None without ``reach2``);
     #: coverage is violated where it exceeds K
     n_reach: torch.Tensor | None = None
+    #: the model in the near entry's layout, where ``build`` made it so
+    #: (the order-0 cube path with the far-sums kernel; the fields above
+    #: are views of these): near [4, K, W] (x, y, z, M * FIELD_SCALE) and
+    #: taylor [10, W] (b0, gradient, Hessian)
+    near: torch.Tensor | None = None
+    taylor: torch.Tensor | None = None
 
 
 def _inserter(d2s, d2):
@@ -285,14 +294,19 @@ def cube_select(anchor, payload, params: Params, reach2=None):
     [H^3, C, 5] and picks the K nearest by bf16 argmin passes over the
     exact f32 d^2.  Returns (the K selected rows [W, K, 5], n_reach int32
     [W] or None)."""
-    k = params.near_k
+    return _cube_rows(anchor, payload, params.near_k, params.cube_hash_dim,
+                      params.bound, reach2)
+
+
+def _cube_rows(anchor, payload, k: int, h: int, bound: float, reach2):
+    """``cube_select`` at near_k ``k``, ``h`` cubes an edge of a box of
+    ``bound``."""
     if k > payload.shape[1]:
         raise ValueError(
             f"near_k={k} exceeds cube_candidates={payload.shape[1]}; "
             f"selection would duplicate entries and double-count "
             f"their field")
-    h = params.cube_hash_dim
-    ci, _ = _cube_index(anchor, h, params.bound)
+    ci, _ = _cube_index(anchor, h, bound)
     cand = payload[(ci[:, 0] * h + ci[:, 1]) * h + ci[:, 2]]
     dc = anchor[:, None, :] - cand[..., :3]
     d2 = (dc[..., 0] * dc[..., 0] + dc[..., 1] * dc[..., 1]
@@ -301,6 +315,20 @@ def cube_select(anchor, payload, params: Params, reach2=None):
                else (d2 < reach2).sum(1).to(torch.int32))
     sel = _argmin_passes(d2, k)
     return torch.take_along_dim(cand, sel[..., None], 1), n_reach
+
+
+def cube_select_reference(pos, payload, *, near_k, h, bound, reach2):
+    """Plain version of ``csrc/cube_select_kernel.cu``: ``cube_select``
+    of the anchors ``pos`` [3, W] over ``payload`` [H^3, C, 5] with the
+    squared reach ``reach2`` (a float), its rows put in their readers'
+    layouts.  Returns (near [4, K, W] with M * FIELD_SCALE, the scaling an
+    f32 product; near_M [K, W]; ids int32 [K, W]; n_reach int32 [W])."""
+    rows, n_reach = _cube_rows(pos.T, payload, near_k, h, bound, reach2)
+    sel = rows.permute(2, 1, 0)                             # [5, K, W]
+    scale = torch.full((), FIELD_SCALE, dtype=sel.dtype, device=sel.device)
+    near = torch.cat([sel[:3], (sel[3] * scale)[None]]).contiguous()
+    return (near, sel[3].contiguous(), sel[4].to(torch.int32).contiguous(),
+            n_reach)
 
 
 #: walker-dipole pairs up to which ``far_sums_torch`` sums in one pass
@@ -328,10 +356,14 @@ def build(anchor, mnp_pos, mnp_M, params: Params, cache=None, reach2=None,
     coverage reach, giving ``n_reach``.  ``far_impl="kernel"`` sums the
     far field through ``chunk_kernel.run_far_sums`` (the CUDA kernel on a
     card) over ``tbl``, the packed table (``pack_table``, made here when
-    None); ``far_impl="torch"`` sums it in torch (``far_sums_torch``),
-    as the reference's scan engine does and as autograd differentiates.
-    The selection runs without autograd: its indices are constants of
-    the differentiation; with the reach count it is the span
+    None), and with a cache selects through
+    ``chunk_kernel.run_cube_select`` (the CUDA kernel on a card), whose
+    outputs are the near entry's and the far sums' inputs as they are:
+    the model then also carries them (``NearField.near``, ``.taylor``).
+    ``far_impl="torch"`` sums it in torch (``far_sums_torch``), as the
+    reference's scan engine does and as autograd differentiates.  The
+    selection runs without autograd: its indices are constants of the
+    differentiation; with the reach count it is the span
     ``SELECT_SPAN``."""
     k = params.near_k
     if far_impl not in FAR_IMPLS:
@@ -342,19 +374,37 @@ def build(anchor, mnp_pos, mnp_M, params: Params, cache=None, reach2=None,
             f"near_k={k} exceeds the number of dipoles "
             f"({mnp_pos.shape[0]}); selection would duplicate entries and "
             f"double-count their field")
+    packed = None
     with torch.no_grad(), profiling.span(SELECT_SPAN, anchor.device):
         if cache is not None:
             if cache.far_coeffs is not None:
                 raise ValueError("a cache with a far table goes through "
                                  "build_planes")
-            rows, n_reach = cube_select(anchor.detach(), cache.payload,
-                                        params, reach2)
-            idx = rows[..., 4].long()
+            if far_impl == "kernel":
+                cand = (cache.cand_table if cache.cand_table is not None
+                        else pack_candidates(cache.payload))
+                packed = chunk_kernel.run_cube_select(
+                    anchor.detach().T.contiguous(), cache.payload, cand,
+                    near_k=k, h=params.cube_hash_dim,
+                    bound=float(params.bound),
+                    reach2=0.0 if reach2 is None else float(reach2))
+            else:
+                rows, n_reach = cube_select(anchor.detach(), cache.payload,
+                                            params, reach2)
+                idx = rows[..., 4].long()
         else:
             d2 = _pairwise_d2(anchor.detach(), mnp_pos.detach())  # [W, N]
             n_reach = (None if reach2 is None
                        else (d2 < reach2).sum(1).to(torch.int32))
             idx = _argmin_passes(d2, k)
+    if packed is not None:
+        near, near_m, ids, n_reach = packed
+        if tbl is None:
+            tbl = pack_table(mnp_pos, mnp_M)
+        t = chunk_kernel.run_far_sums(anchor.T.contiguous(), tbl, ids)
+        return NearField(anchor, near[:3].permute(2, 1, 0), near_m.T, t[0],
+                         t[1:4].T, t[4:10].T,
+                         None if reach2 is None else n_reach, near, t)
     near_pos, near_M = mnp_pos[idx], mnp_M[idx]
     if far_impl == "torch":
         b0, g, h = far_sums_torch(anchor, mnp_pos, mnp_M, idx)
